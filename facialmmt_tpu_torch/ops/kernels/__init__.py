@@ -1,0 +1,154 @@
+"""Hand-written Hopper kernels and their build.
+
+The CUDA C++ sources under ``facialmmt_tpu_torch/csrc/`` compile with nvcc
+into ONE shared library with a plain C interface, bound with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/libfmmt_kernels_<hash>.so csrc/*.cu
+
+The build runs at first use of a kernel on a CUDA tensor and is cached by a
+hash of the sources in ``facialmmt_tpu_torch/_build/``; nothing is built when
+the package is imported, and nothing on the CPU path needs nvcc.
+
+Each kernel module (attention, fused_block, block_mlp) holds the plain
+PyTorch version, the kernel wrapper with its launch counter, and the dispatch
+the model calls: a CPU tensor takes the plain version, a CUDA tensor the
+kernel, which raises on anything it cannot take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+SRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libfmmt_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile csrc/*.cu into the shared library unless a build of the same
+    sources exists.  Returns (path, seconds spent compiling).  The compiler's
+    output, with ptxas's register and shared-memory report, is kept next to
+    the library as build.log."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, seconds
+
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fmmt_fused_attention": ([_VP] * 5 + [_I] * 5 + [_VP], _I),
+    "fmmt_fused_attention_block": ([_VP] * 10 + [_I] * 5 + [_F, _VP], _I),
+    "fmmt_fused_attention_block_smem": ([_I] * 3, ctypes.c_longlong),
+    "fmmt_fused_ln_mlp_residual": ([_VP] * 9 + [_I] * 3 + [_F, _VP], _I),
+    "fmmt_fused_ln_mlp_residual_smem": ([_I], ctypes.c_longlong),
+}
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error (its launch never ran)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+
+
+def max_shared_memory(device: torch.device) -> int:
+    """Opt-in shared memory per block on `device` (232448 bytes on Hopper)."""
+    return int(torch.cuda.get_device_properties(device)
+               .shared_memory_per_block_optin)
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                      shape: tuple, device: torch.device) -> None:
+    """Kernel operands: on `device`, of `dtype` and `shape`, contiguous and
+    32-byte aligned (the tensor-core tile loads need it)."""
+    require(t.device == device, f"{name}: on {t.device}, expected {device}")
+    require(t.dtype == dtype, f"{name}: dtype {t.dtype}, expected {dtype}")
+    require(tuple(t.shape) == tuple(shape),
+            f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    require(t.is_contiguous(), f"{name}: must be contiguous")
+    require(t.data_ptr() % 32 == 0, f"{name}: must be 32-byte aligned")
+
+
+def kernel_wrappers():
+    """name -> CUDA wrapper of every kernel of the serving path; each wrapper
+    carries a `launches` count of the kernels it launched."""
+    from facialmmt_tpu_torch.ops.kernels import attention, block_mlp, fused_block
+
+    return {"fused_attention": attention.fused_attention_cuda,
+            "fused_attention_block": fused_block.fused_attention_block_cuda,
+            "fused_ln_mlp_residual": block_mlp.fused_ln_mlp_residual_cuda}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
