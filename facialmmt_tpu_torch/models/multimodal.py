@@ -22,7 +22,8 @@ from facialmmt_tpu_torch.config import FacialMMTConfig, resolve_text_config
 from facialmmt_tpu_torch.models.text_encoder import TextEncoder
 from facialmmt_tpu_torch.ops.crossmodal import CrossModalTransformerEncoder
 from facialmmt_tpu_torch.ops.encoder import UttTransEncoder
-from facialmmt_tpu_torch.ops.layers import AdditiveAttention, TorchLinear
+from facialmmt_tpu_torch.ops.layers import (AdditiveAttention, TorchLinear,
+                                            dropout)
 from facialmmt_tpu_torch.ops.span_extract import extract_utt_spans
 
 
@@ -55,22 +56,26 @@ class MultiModalTransformerForClassification(nn.Module):
         self.attention = AdditiveAttention(h, h)
         max_pos = max(d.text_utt_max_len + d.audio_utt_max_len
                       + d.vision_utt_max_len, 16)
-        self.CrossModalTrans_TA = CrossModalTransformerEncoder(
-            h, cfg.crossmodal_ta.num_heads, cfg.crossmodal_ta.layers,
-            cfg.crossmodal_ta.attn_mask, max_pos)
-        self.CrossModalTrans_TA_V = CrossModalTransformerEncoder(
-            h, cfg.crossmodal_ta_v.num_heads, cfg.crossmodal_ta_v.layers,
-            cfg.crossmodal_ta_v.attn_mask, max_pos)
+        def crossmodal(cm):
+            return CrossModalTransformerEncoder(
+                h, cm.num_heads, cm.layers, cm.attn_mask, max_pos,
+                cm.attn_dropout, cm.gelu_dropout, cm.res_dropout,
+                cm.embed_dropout)
+
+        self.CrossModalTrans_TA = crossmodal(cfg.crossmodal_ta)
+        self.CrossModalTrans_TA_V = crossmodal(cfg.crossmodal_ta_v)
         self.classifier = TorchLinear(h, cfg.num_labels)
 
     def forward(self, dia_input_ids, dia_input_mask, dia_sep_mask,
                 audio_inputs, audio_mask, vision_inputs, vision_mask,
-                utt_in_dia_idx, dia_idx=None):
+                utt_in_dia_idx, dia_idx=None, generator=None):
         """dia_* (num_dia, L) unique dialogues; dia_idx (B,) gathers them per
         utterance (None = one dialogue per utterance); vision_inputs
-        (B, F, vision_feat_dim + num_labels) already filtered.  -> logits."""
+        (B, F, vision_feat_dim + num_labels) already filtered; `generator`
+        feeds the dropouts in train mode.  -> logits."""
         cfg = self.cfg
-        enc = getattr(self, self.text_prefix)(dia_input_ids, dia_input_mask)
+        g = generator
+        enc = getattr(self, self.text_prefix)(dia_input_ids, dia_input_mask, g)
         text_lin = self.text_linear(enc)
         if dia_idx is not None:
             dia_idx = dia_idx.long()
@@ -81,16 +86,18 @@ class MultiModalTransformerForClassification(nn.Module):
             max_utt_len=cfg.data.text_utt_max_len, is_roberta=self.is_roberta)
 
         audio = self.audio_utt_transformer(self.audio_linear(audio_inputs),
-                                           audio_mask)
+                                           audio_mask, g)
         vision = self.vision_utt_transformer(self.vision_linear(vision_inputs),
-                                             vision_mask)
+                                             vision_mask, g)
 
         cm_ta, cm_tav = self.CrossModalTrans_TA, self.CrossModalTrans_TA_V
-        ta = torch.cat([cm_ta(text_feat, audio, audio),
-                        cm_ta(audio, text_feat, text_feat)], dim=1)
-        final_feat = torch.cat([cm_tav(ta, vision, vision),
-                                cm_tav(vision, ta, ta)], dim=1)
+        ta = torch.cat([cm_ta(text_feat, audio, audio, g),
+                        cm_ta(audio, text_feat, text_feat, g)], dim=1)
+        final_feat = torch.cat([cm_tav(ta, vision, vision, g),
+                                cm_tav(vision, ta, ta, g)], dim=1)
         final_mask = torch.cat([text_mask, audio_mask.to(text_mask.dtype),
                                 vision_mask.to(text_mask.dtype)], dim=1)
         pooled, _ = self.attention(final_feat, final_mask)
+        pooled = dropout(pooled, cfg.encoder.hidden_dropout_prob,
+                         self.training, g)
         return self.classifier(pooled)

@@ -26,11 +26,14 @@ class SwinForAffwildClassification(nn.Module):
 
     def forward(self, images, *, is_trg_task: bool = False,
                 generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None):
+                noise: torch.Tensor | None = None, keeps=None):
         """images (N, H, W, 3) normalised, channel-last.  Returns logits, or
         in target-task mode the gumbel-softmax distribution (sampled from
-        `generator` / `noise` unless runtime.deterministic_gumbel)."""
-        x = torch.relu(self.linear(self.swin(images)))
+        `generator` / `noise` unless runtime.deterministic_gumbel).  In train
+        mode `generator` also feeds the backbone's stochastic depth (`keeps`
+        overrides that draw, see SwinTransformer.forward)."""
+        x = torch.relu(self.linear(self.swin(images, generator=generator,
+                                             keeps=keeps)))
         logits = self.classifier(x)
         if not is_trg_task:
             return logits

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from facialmmt_tpu_torch.ops.encoder import multihead_attention
-from facialmmt_tpu_torch.ops.layers import LayerNormTF, XavierLinear, gelu_erf
+from facialmmt_tpu_torch.ops.layers import (LayerNormTF, XavierLinear, dropout,
+                                            gelu_erf)
 
 
 def sinusoidal_table(num_rows: int, embedding_dim: int) -> np.ndarray:
@@ -59,16 +60,18 @@ def banded_future_mask(tq: int, tk: int, device) -> torch.Tensor:
 class PackedMultiheadAttention(nn.Module):
     """fairseq-style MHA with one packed (3E, E) qkv projection."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int,
+                 attn_dropout: float = 0.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.attn_dropout = attn_dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = XavierLinear(embed_dim, embed_dim)
 
-    def forward(self, query, key, value, attn_bias=None):
+    def forward(self, query, key, value, attn_bias=None, generator=None):
         """query (B, Tq, E), key/value (B, Tk, E), attn_bias (Tq, Tk) or None."""
         e = self.embed_dim
         w = self.in_proj_weight
@@ -78,36 +81,46 @@ class PackedMultiheadAttention(nn.Module):
         k = F.linear(key.to(cd), w[e:2 * e], bias[e:2 * e])
         v = F.linear(value.to(cd), w[2 * e:], bias[2 * e:])
         # no key-padding mask; the banded mask keeps the plain path
-        ctx = multihead_attention(q, k, v, self.num_heads, attn_mask=attn_bias)
+        ctx = multihead_attention(
+            q, k, v, self.num_heads, attn_mask=attn_bias,
+            attn_dropout=self.attn_dropout if self.training else 0.0,
+            generator=generator)
         return self.out_proj(ctx)
 
 
 class CrossModalLayer(nn.Module):
     """Pre-LN block (reference modules/CrossmodalTransformer.py:98-171)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, attn_mask: bool = False):
+    def __init__(self, embed_dim: int, num_heads: int, attn_mask: bool = False,
+                 attn_dropout: float = 0.0, gelu_dropout: float = 0.0,
+                 res_dropout: float = 0.0):
         super().__init__()
         self.attn_mask = attn_mask
-        self.self_attn = PackedMultiheadAttention(embed_dim, num_heads)
+        self.gelu_dropout = gelu_dropout
+        self.res_dropout = res_dropout
+        self.self_attn = PackedMultiheadAttention(embed_dim, num_heads,
+                                                  attn_dropout)
         self.fc1 = XavierLinear(embed_dim, 4 * embed_dim)
         self.fc2 = XavierLinear(4 * embed_dim, embed_dim)
         self.layer_norms = nn.ModuleList([LayerNormTF(embed_dim, 1e-5),
                                           LayerNormTF(embed_dim, 1e-5)])
 
-    def forward(self, x, x_k=None, x_v=None):
+    def forward(self, x, x_k=None, x_v=None, generator=None):
         ln0, ln1 = self.layer_norms
+        train = self.training
         xq = ln0(x)
         bias = None
         if self.attn_mask:
             tk = xq.shape[1] if x_k is None else x_k.shape[1]
             bias = banded_future_mask(xq.shape[1], tk, x.device)
         if x_k is None and x_v is None:
-            h = self.self_attn(xq, xq, xq, bias)
+            h = self.self_attn(xq, xq, xq, bias, generator)
         else:
-            h = self.self_attn(xq, ln0(x_k), ln0(x_v), bias)
-        x = x + h
-        h = self.fc2(gelu_erf(self.fc1(ln1(x))))
-        return x + h
+            h = self.self_attn(xq, ln0(x_k), ln0(x_v), bias, generator)
+        x = x + dropout(h, self.res_dropout, train, generator)
+        h = dropout(gelu_erf(self.fc1(ln1(x))), self.gelu_dropout, train,
+                    generator)
+        return x + dropout(self.fc2(h), self.res_dropout, train, generator)
 
 
 class CrossModalTransformerEncoder(nn.Module):
@@ -115,9 +128,12 @@ class CrossModalTransformerEncoder(nn.Module):
     shapes (batch, seq, embed_dim)."""
 
     def __init__(self, embed_dim: int, num_heads: int, layers: int,
-                 attn_mask: bool = False, max_positions: int = 1024):
+                 attn_mask: bool = False, max_positions: int = 1024,
+                 attn_dropout: float = 0.0, gelu_dropout: float = 0.0,
+                 res_dropout: float = 0.0, embed_dropout: float = 0.0):
         super().__init__()
         self.embed_scale = math.sqrt(embed_dim)
+        self.embed_dropout = embed_dropout
         self.register_buffer("version", torch.tensor([2.0]))
         self.embed_positions = nn.Module()
         self.embed_positions.register_buffer("_float_tensor", torch.zeros(1))
@@ -126,19 +142,23 @@ class CrossModalTransformerEncoder(nn.Module):
             torch.from_numpy(sinusoidal_table(max_positions + 1, embed_dim)),
             persistent=False)
         self.layers = nn.ModuleList(
-            CrossModalLayer(embed_dim, num_heads, attn_mask)
+            CrossModalLayer(embed_dim, num_heads, attn_mask, attn_dropout,
+                            gelu_dropout, res_dropout)
             for _ in range(layers))
         self.layer_norm = LayerNormTF(embed_dim, 1e-5)
 
-    def _embed(self, z):
+    def _embed(self, z, generator):
         pe = channel0_positional_embedding(z, self.pos_table).to(z.dtype)
-        return self.embed_scale * z + pe
+        return dropout(self.embed_scale * z + pe, self.embed_dropout,
+                       self.training, generator)
 
-    def forward(self, x_in, x_in_k=None, x_in_v=None):
-        x = self._embed(x_in)
+    def forward(self, x_in, x_in_k=None, x_in_v=None, generator=None):
+        x = self._embed(x_in, generator)
         cross = x_in_k is not None and x_in_v is not None
         if cross:
-            x_k, x_v = self._embed(x_in_k), self._embed(x_in_v)
+            x_k = self._embed(x_in_k, generator)
+            x_v = self._embed(x_in_v, generator)
         for layer in self.layers:
-            x = layer(x, x_k, x_v) if cross else layer(x)
+            x = (layer(x, x_k, x_v, generator) if cross
+                 else layer(x, generator=generator))
         return self.layer_norm(x)

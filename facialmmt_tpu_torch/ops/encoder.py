@@ -14,7 +14,8 @@ from torch import nn
 
 from facialmmt_tpu_torch.config import EncoderConfig
 from facialmmt_tpu_torch.ops.kernels.attention import fused_attention
-from facialmmt_tpu_torch.ops.layers import LayerNormTF, TorchLinear, gelu_erf
+from facialmmt_tpu_torch.ops.layers import (LayerNormTF, TorchLinear, dropout,
+                                            gelu_erf)
 
 ADDITIVE_MASK_VALUE = -10000.0  # reference convention (src/models.py:157)
 # Key length from which the fusion stacks take the attention kernel, as the
@@ -24,18 +25,21 @@ FUSED_MIN_KEYS = 256
 
 
 def multihead_attention(q, k, v, num_heads: int, key_bias=None,
-                        attn_mask=None):
+                        attn_mask=None, attn_dropout: float = 0.0,
+                        generator: torch.Generator | None = None):
     """q (B, Sq, E) unscaled, k/v (B, Sk, E) -> (B, Sq, E).  key_bias (B, Sk)
     is an additive padding bias, attn_mask an additive (Sq, Sk) mask.  Kernel
-    1 on a CUDA tensor when Sk >= FUSED_MIN_KEYS and there is no attn_mask;
-    plain fp32-softmax attention otherwise."""
+    1 on a CUDA tensor when Sk >= FUSED_MIN_KEYS, there is no attn_mask and
+    no attention-probability dropout is active (attn_dropout is the ACTIVE
+    rate: 0 in eval); plain fp32-softmax attention otherwise."""
     b, sq, e = q.shape
     sk = k.shape[1]
     hd = e // num_heads
     qh = (q * hd ** -0.5).reshape(b, sq, num_heads, hd).transpose(1, 2)
     kh = k.reshape(b, sk, num_heads, hd).transpose(1, 2)
     vh = v.reshape(b, sk, num_heads, hd).transpose(1, 2)
-    if q.is_cuda and sk >= FUSED_MIN_KEYS and attn_mask is None:
+    if (q.is_cuda and sk >= FUSED_MIN_KEYS and attn_mask is None
+            and attn_dropout == 0.0):
         if key_bias is None:
             key_bias = torch.zeros((b, sk), device=q.device)
         ctx = fused_attention(qh.contiguous(), kh.contiguous(),
@@ -47,6 +51,7 @@ def multihead_attention(q, k, v, num_heads: int, key_bias=None,
         if attn_mask is not None:
             scores = scores + attn_mask.float()
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        probs = dropout(probs, attn_dropout, True, generator)
         ctx = torch.matmul(probs, vh)
     return ctx.transpose(1, 2).reshape(b, sq, e)
 
@@ -73,6 +78,8 @@ class EncoderLayer(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
+        self.hidden_dropout = cfg.hidden_dropout_prob
+        self.attn_dropout = cfg.attention_probs_dropout_prob
         self.transformer_self_attention = nn.Module()
         self.transformer_self_attention.selfatt = _SelfAtt(h)
         self.transformer_self_attention.dense_norm = _DenseNorm(
@@ -81,13 +88,21 @@ class EncoderLayer(nn.Module):
         self.intermediate.dense = TorchLinear(h, cfg.intermediate_size)
         self.output = _DenseNorm(cfg.intermediate_size, h, cfg.layer_norm_eps)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, generator=None):
         sa = self.transformer_self_attention
-        ctx = multihead_attention(sa.selfatt.query(x), sa.selfatt.key(x),
-                                  sa.selfatt.value(x), self.num_heads, bias)
-        x = sa.dense_norm.LayerNorm(sa.dense_norm.dense(ctx) + x)
+        train = self.training
+        ctx = multihead_attention(
+            sa.selfatt.query(x), sa.selfatt.key(x), sa.selfatt.value(x),
+            self.num_heads, bias,
+            attn_dropout=self.attn_dropout if train else 0.0,
+            generator=generator)
+        attn_out = dropout(sa.dense_norm.dense(ctx), self.hidden_dropout,
+                           train, generator)
+        x = sa.dense_norm.LayerNorm(attn_out + x)
         inter = gelu_erf(self.intermediate.dense(x))
-        return self.output.LayerNorm(self.output.dense(inter) + x)
+        out = dropout(self.output.dense(inter), self.hidden_dropout, train,
+                      generator)
+        return self.output.LayerNorm(out + x)
 
 
 class UttTransEncoder(nn.Module):
@@ -100,13 +115,14 @@ class UttTransEncoder(nn.Module):
         self.layer = nn.ModuleList(EncoderLayer(cfg)
                                    for _ in range(num_layers))
 
-    def forward(self, feature_input, mask=None):
-        """feature_input (B, S, H); mask (B, S) binary, 1 = valid."""
+    def forward(self, feature_input, mask=None, generator=None):
+        """feature_input (B, S, H); mask (B, S) binary, 1 = valid; `generator`
+        feeds the dropouts in train mode."""
         s = feature_input.shape[1]
         pos = self.position_embeddings.weight[:s].to(feature_input.dtype)
         x = feature_input + pos[None]
         bias = (None if mask is None
                 else (1.0 - mask.float()) * ADDITIVE_MASK_VALUE)
         for layer in self.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, generator)
         return x

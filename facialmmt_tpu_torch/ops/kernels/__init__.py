@@ -1,19 +1,23 @@
 """Hand-written Hopper kernels and their build.
 
 The CUDA C++ sources under ``facialmmt_tpu_torch/csrc/`` compile with nvcc
-into ONE shared library with a plain C interface, bound with ctypes:
+into ONE shared library with a plain C interface, bound with ctypes.  Every
+source is compiled by its own nvcc process, all started together, and the
+objects are linked once:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libfmmt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o _build/<hash>_<name>.o
+    nvcc -shared -o _build/libfmmt_kernels_<hash>.so _build/<hash>_*.o
 
 The build runs at first use of a kernel on a CUDA tensor and is cached by a
 hash of the sources in ``facialmmt_tpu_torch/_build/``; nothing is built when
 the package is imported, and nothing on the CPU path needs nvcc.
 
 Each kernel module (attention, fused_block, block_mlp) holds the plain
-PyTorch version, the kernel wrapper with its launch counter, and the dispatch
-the model calls: a CPU tensor takes the plain version, a CUDA tensor the
-kernel, which raises on anything it cannot take.
+PyTorch versions, the kernel wrappers with their launch counters, and the
+dispatch the model calls: a CPU tensor takes the plain version, a CUDA tensor
+the kernel, which raises on anything it cannot take.  The Swin block halves
+are torch.autograd.Functions whose backward follows the same rule.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -33,7 +38,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources() -> list[Path]:
@@ -66,16 +71,31 @@ def build() -> tuple[Path, float]:
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}_{src.stem}.o" for src in sources]
+
+    def run(cmd):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return " ".join(cmd) + "\n" + proc.stdout + proc.stderr, proc.returncode
+
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        results = list(pool.map(
+            lambda so: run([nvcc, *NVCC_FLAGS, "-c", str(so[0]), "-o",
+                            str(so[1])]), zip(sources, objects)))
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    if all(rc == 0 for _, rc in results):
+        results.append(run([nvcc, "-shared", "-o", str(tmp),
+                            *[str(o) for o in objects]]))
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    (BUILD_DIR / "build.log").write_text("".join(out for out, _ in results))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    failed = [out for out, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, path)
     return path, seconds
 
@@ -87,6 +107,12 @@ _SIGNATURES = {
     "fmmt_fused_attention_block_smem": ([_I] * 3, ctypes.c_longlong),
     "fmmt_fused_ln_mlp_residual": ([_VP] * 9 + [_I] * 3 + [_F, _VP], _I),
     "fmmt_fused_ln_mlp_residual_smem": ([_I], ctypes.c_longlong),
+    "fmmt_fused_ln_mlp_residual_bwd": ([_VP] * 15 + [_I] * 3 + [_F, _VP], _I),
+    "fmmt_fused_ln_mlp_residual_bwd_smem": ([_I], ctypes.c_longlong),
+    "fmmt_fused_attention_block_bwd": ([_VP] * 17 + [_I] * 5 + [_F, _VP], _I),
+    "fmmt_fused_attention_block_bwd_spill": ([_VP] * 16 + [_I] * 5 + [_F, _VP],
+                                             _I),
+    "fmmt_fused_attention_block_bwd_smem": ([_I] * 3, ctypes.c_longlong),
 }
 
 
@@ -100,6 +126,17 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  Entry points default to the card;
+    without one they raise rather than move to the CPU, which the caller must
+    ask for by name."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
+                           "run on the CPU")
+    return dev
 
 
 def check_launch(name: str, err: int) -> None:
@@ -136,13 +173,18 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def kernel_wrappers():
-    """name -> CUDA wrapper of every kernel of the serving path; each wrapper
-    carries a `launches` count of the kernels it launched."""
+    """name -> CUDA wrapper of every kernel of the port; each wrapper carries
+    a `launches` count of the kernels it launched."""
     from facialmmt_tpu_torch.ops.kernels import attention, block_mlp, fused_block
 
     return {"fused_attention": attention.fused_attention_cuda,
             "fused_attention_block": fused_block.fused_attention_block_cuda,
-            "fused_ln_mlp_residual": block_mlp.fused_ln_mlp_residual_cuda}
+            "fused_ln_mlp_residual": block_mlp.fused_ln_mlp_residual_cuda,
+            "fused_ln_mlp_residual_bwd": block_mlp.fused_ln_mlp_residual_bwd_cuda,
+            "fused_attention_block_bwd":
+                fused_block.fused_attention_block_bwd_cuda,
+            "fused_attention_block_bwd_spill":
+                fused_block.fused_attention_block_bwd_spill_cuda}
 
 
 def launch_counts() -> dict:

@@ -9,6 +9,16 @@ from torch import nn
 NEG_INF = -1e30  # large-negative instead of -inf: fully masked rows stay finite
 
 
+def dropout(x, p: float, training: bool,
+            generator: torch.Generator | None = None):
+    """Inverted dropout whose mask is drawn from an explicit generator (the
+    default generator of x's device when None); identity in eval or p = 0."""
+    if not training or p == 0.0:
+        return x
+    mask = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * mask.to(x.dtype) / (1.0 - p)
+
+
 class TorchLinear(nn.Linear):
     """nn.Linear (default torch init) that computes in its weight's dtype:
     the input is cast first, as the JAX TorchLinear casts to its `dtype`."""

@@ -4,11 +4,16 @@ modules/SwinTransformer/Swin_Transformer.py).
 Window-resident layout: each stage partitions its tokens into windows once;
 every block works on (B, H*W, C) rows in window layout, and a shifted block's
 cyclic shift + re-partition is one static row gather before the attention
-half and its inverse after it.  The attention half of every block is kernel 2
-(ops/kernels/fused_block.py) and the MLP half is kernel 3
-(ops/kernels/block_mlp.py).  Patch embedding is a patch matmul; patch merging
-uses the raster layout; the head is LN -> flatten -> Linear -> BatchNorm1d
-with running statistics.
+half and its inverse after it.  The attention half of every block is
+ops/kernels/fused_block.py and the MLP half ops/kernels/block_mlp.py, each an
+autograd Function with hand-written forward and backward kernels.  Patch
+embedding is a patch matmul; patch merging uses the raster layout; the head
+is LN -> flatten -> Linear -> BatchNorm1d.
+
+Train mode (module.train()): stochastic depth draws one multiplier per image
+and block half (0 with probability rate, else 1/keep_prob) from a
+torch.Generator and hands it to the kernels as `keep`; the head's BatchNorm
+normalises with batch statistics and updates its running statistics in place.
 
 Parameter and buffer names follow the reference state_dict
 (torch_export.export_swin_backbone), including the persistent
@@ -55,6 +60,14 @@ def shifted_window_mask(h: int, w: int, window_size: int,
     win = win.reshape(-1, window_size * window_size)
     mask = win[:, None, :] - win[:, :, None]
     return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
+
+
+def sample_drop_path_keep(b: int, rate: float, generator, device):
+    """(b,) fp32 stochastic-depth multipliers, timm DropPath semantics: 0 with
+    probability `rate`, else 1 / (1 - rate)."""
+    keep_prob = 1.0 - rate
+    mask = torch.rand(b, generator=generator, device=device) < keep_prob
+    return mask.float() / keep_prob
 
 
 def window_partition(x, ws: int):
@@ -125,8 +138,10 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, input_resolution: tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path
         h, w = input_resolution
         ws, shift = window_size, shift_size
         if min(h, w) <= ws:
@@ -152,7 +167,9 @@ class SwinBlock(nn.Module):
             return rel.contiguous()
         return (rel + self.attn_mask.float()[:, None]).contiguous()
 
-    def forward(self, x):
+    def forward(self, x, keep_attn=None, keep_mlp=None):
+        """keep_attn / keep_mlp: optional (B,) per-image stochastic-depth
+        multipliers of the two halves, repeated per window / per token."""
         b, l, c = x.shape
         n = self.ws * self.ws
         a = self.attn
@@ -162,14 +179,16 @@ class SwinBlock(nn.Module):
         y = fused_attention_block(
             xp.reshape(b * (l // n), n, c).contiguous(), self.norm1.weight,
             self.norm1.bias, a.qkv.weight, qkv_b, a.proj.weight, a.proj.bias,
-            self.window_bias())
+            self.window_bias(),
+            None if keep_attn is None else keep_attn.repeat_interleave(l // n))
         x = y.reshape(b, l, c)
         if self.shift > 0:
             x = x[:, self.inv]
         out = fused_ln_mlp_residual(
             x.reshape(b * l, c).contiguous(), self.norm2.weight,
             self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
-            self.mlp.fc2.weight, self.mlp.fc2.bias)
+            self.mlp.fc2.weight, self.mlp.fc2.bias,
+            None if keep_mlp is None else keep_mlp.repeat_interleave(l))
         return out.reshape(b, l, c)
 
 
@@ -226,21 +245,27 @@ class BasicLayer(nn.Module):
         self.downsample = downsample
 
 
+BN_MOMENTUM = 0.9   # share of the old running statistic kept per update
+
+
 class SwinTransformer(nn.Module):
-    """patchify -> stages -> LN -> flatten -> Linear -> BatchNorm1d (eval)."""
+    """patchify -> stages -> LN -> flatten -> Linear -> BatchNorm1d."""
 
     def __init__(self, cfg: SwinConfig):
         super().__init__()
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg)
         res = cfg.patches_resolution
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
         self.layers = nn.ModuleList()
         for s, depth in enumerate(cfg.depths):
             sres = (res[0] // 2 ** s, res[1] // 2 ** s)
             dim = cfg.embed_dim * 2 ** s
+            first = sum(cfg.depths[:s])
             blocks = [SwinBlock(dim, sres, cfg.num_heads[s], cfg.window_size,
                                 0 if d % 2 == 0 else cfg.window_size // 2,
-                                cfg.mlp_ratio, cfg.qkv_bias)
+                                cfg.mlp_ratio, cfg.qkv_bias,
+                                float(dpr[first + d]))
                       for d in range(depth)]
             down = (PatchMerging(sres, dim) if s < len(cfg.depths) - 1
                     else None)
@@ -253,25 +278,60 @@ class SwinTransformer(nn.Module):
             nn.Linear(final_tokens * final, cfg.out_feature_dim),
             nn.BatchNorm1d(cfg.out_feature_dim, eps=1e-5, momentum=0.1))
 
-    def forward(self, x):
-        """x (B, H, W, 3) normalised, channel-last -> (B, out_feature_dim)."""
+    def forward(self, x, *, generator: torch.Generator | None = None,
+                use_running_average: bool | None = None, keeps=None):
+        """x (B, H, W, 3) normalised, channel-last -> (B, out_feature_dim).
+
+        In train mode each block half with a drop-path rate > 0 draws its
+        per-image multiplier from `generator`; `keeps`, a list of
+        (keep_attn, keep_mlp) per block, overrides the draw.
+        `use_running_average` overrides the BatchNorm mode, which otherwise
+        follows the module's (running statistics in eval, batch statistics
+        in train)."""
         cfg = self.cfg
+        if cfg.drop_rate or cfg.attn_drop_rate:
+            raise NotImplementedError(
+                "Swin drop_rate / attn_drop_rate > 0 (the reference config "
+                "has both at 0.0; the block kernels carry drop-path only)")
         x = self.patch_embed(x)
         res = cfg.patches_resolution
+        blk = 0
         for s, layer in enumerate(self.layers):
             sh, sw = res[0] // 2 ** s, res[1] // 2 ** s
             ws = min(cfg.window_size, sh, sw)
             b, _, c = x.shape
             x = window_partition(x.reshape(b, sh, sw, c), ws).reshape(b, sh * sw, c)
             for block in layer.blocks:
-                x = block(x)
+                if keeps is not None:
+                    keep_attn, keep_mlp = keeps[blk]
+                elif self.training and block.drop_path > 0.0:
+                    keep_attn, keep_mlp = (
+                        sample_drop_path_keep(b, block.drop_path, generator,
+                                              x.device) for _ in range(2))
+                else:
+                    keep_attn = keep_mlp = None
+                x = block(x, keep_attn, keep_mlp)
+                blk += 1
             x = window_reverse(x.reshape(-1, ws * ws, c), ws, sh, sw)
             x = x.reshape(b, sh * sw, c)
             if layer.downsample is not None:
                 x = layer.downsample(x)
         ln, _, lin, bn = self.output_layer
         x = layer_norm(ln, x).flatten(1)
-        x = lin(x.to(lin.weight.dtype))
-        return F.batch_norm(x.float(), bn.running_mean.float(),
-                            bn.running_var.float(), bn.weight.float(),
-                            bn.bias.float(), training=False, eps=bn.eps)
+        x = lin(x.to(lin.weight.dtype)).float()
+        ura = (not self.training if use_running_average is None
+               else use_running_average)
+        if ura:
+            mean, var = bn.running_mean.float(), bn.running_var.float()
+        else:
+            # batch statistics; the running variance takes the BIASED batch
+            # variance, as flax's BatchNorm does (torch's takes the unbiased)
+            mean = x.mean(0)
+            var = (x - mean).square().mean(0)
+            with torch.no_grad():
+                bn.running_mean.mul_(BN_MOMENTUM).add_(
+                    mean.to(bn.running_mean.dtype), alpha=1 - BN_MOMENTUM)
+                bn.running_var.mul_(BN_MOMENTUM).add_(
+                    var.to(bn.running_var.dtype), alpha=1 - BN_MOMENTUM)
+        return ((x - mean) * torch.rsqrt(var + bn.eps) * bn.weight.float()
+                + bn.bias.float())

@@ -22,51 +22,32 @@ import torch
 
 from facialmmt_tpu_torch.config import FacialMMTConfig
 from facialmmt_tpu_torch.data.image_pipeline import meld_face_eval_transform
-from facialmmt_tpu_torch.models.pipeline import FacialMMTPipeline, init_random_
+from facialmmt_tpu_torch.data.meld import FaceCapacityError  # noqa: F401
+from facialmmt_tpu_torch.models.pipeline import build_pipeline
+from facialmmt_tpu_torch.ops.kernels import resolve_device
 
 FACE_SHAPE = (160, 160, 3)
-
-
-class FaceCapacityError(ValueError):
-    """A pack needs more face slots than the server's static buffer holds.
-    `required` is the slot count it needs."""
-
-    def __init__(self, required: int, capacity: int, split: str = ""):
-        self.required = required
-        self.capacity = capacity
-        super().__init__(
-            f"face-packing overflow{f' ({split})' if split else ''}: batch "
-            f"needs {required} face slots but face_capacity={capacity}; "
-            f"escalate the capacity bucket or lower the batch size")
 
 
 class EmotionServer:
     def __init__(self, cfg: FacialMMTConfig, state_dict=None,
                  max_batch: int = 8, face_capacity: int = 64,
                  dtype: torch.dtype = torch.bfloat16,
-                 transfer_dtype=np.float16, device="cpu"):
+                 transfer_dtype=np.float16, device="cuda"):
         """`state_dict`: the pipeline's weights under the reference names
         (checkpoint/from_jax.py builds one from JAX variables); None draws
         random weights from runtime.seed.  `transfer_dtype` is the host wire
         format of the padded audio/vision features, restored to fp32 on the
-        device.  The server warms up with one all-padding pack."""
+        device.  `device` defaults to the card; without a CUDA device the
+        constructor raises (pass "cpu" to serve on the CPU).  The server warms
+        up with one all-padding pack."""
         self.cfg = cfg
         self.max_batch = max_batch
         self.face_capacity = face_capacity
         self.dtype = dtype
         self.transfer_dtype = transfer_dtype
-        self.device = torch.device(device)
-        with torch.device(self.device):  # build the weights on the device
-            model = FacialMMTPipeline(cfg)
-        model.to(self.device)  # buffers made from numpy start on the host
-        if state_dict is None:
-            init_random_(model, torch.Generator(self.device)
-                         .manual_seed(cfg.runtime.seed))
-        else:
-            model.load_state_dict(
-                {k: v if isinstance(v, torch.Tensor)
-                 else torch.as_tensor(np.asarray(v))
-                 for k, v in state_dict.items()}, strict=True)
+        self.device = resolve_device(device)
+        model = build_pipeline(cfg, self.device, state_dict)
         self.model = model.to(dtype).eval()
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.runtime.seed)

@@ -6,7 +6,9 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
 
 The `gpu` tests skip without a CUDA device.  Each holds a kernel against its
 plain PyTorch version on the same bf16 inputs at max|d| <= 2e-2 * max|out|
-(both round to bf16 at different points; the JAX suite's kernel bound).
+per output (both round to bf16 at different points; the JAX suite's kernel
+bound).  The backward kernels sum across blocks with fp32 atomics, so two
+runs agree to rounding, not bit for bit: REPEAT_BOUND.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ from facialmmt_tpu_torch.ops import kernels
 from facialmmt_tpu_torch.ops.kernels import attention, block_mlp, fused_block
 
 BOUND = 2e-2
+REPEAT_BOUND = 1e-3   # run-to-run, relative to max|out|: fp32 atomic order
 
 
 @pytest.fixture
@@ -122,6 +125,99 @@ def test_fused_ln_mlp_residual_kernel(rng, cuda_device, t, c):
     assert _rel(got, want) <= BOUND
 
 
+BWD_NAMES = ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwproj", "dbproj",
+             "dbias")
+
+
+def _hold_grads(names, got, want, bound=BOUND):
+    """Every output within bound * max|want|; a bias cotangent by its group
+    sum (only that sum is defined, ops/kernels/fused_block.py)."""
+    for name, g, w in zip(names, got, want):
+        if name == "dbias":
+            g, w = g.sum(0), w.sum(0)
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, w) <= bound, (name, _rel(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,c,h,nw,keep", [
+    (16, 49, 96, 3, 4, True), (8, 49, 192, 6, 1, False),
+    (8, 49, 384, 12, 4, True), (6, 16, 32, 2, 1, True)],
+    ids=["stage0-shifted-keep", "stage1", "stage2-shifted-keep", "tiny-keep"])
+def test_fused_attention_block_bwd_kernel(rng, cuda_device, w, n, c, h, nw,
+                                          keep):
+    args = _block_inputs(rng, cuda_device, w, n, c, h, nw)
+    args = (args[0], torch.randn_like(args[0]), *args[1:6], args[7])
+    k = (torch.tensor([0.0, 1.25] * (w // 2), device=cuda_device)
+         if keep else None)
+    got = fused_block.fused_attention_block_bwd_cuda(*args, k)
+    want = fused_block.fused_attention_block_bwd_plain(*args, k)
+    torch.cuda.synchronize()
+    _hold_grads(BWD_NAMES, got, want)
+    again = fused_block.fused_attention_block_bwd_cuda(*args, k)
+    _hold_grads(BWD_NAMES, again, got, REPEAT_BOUND)
+    assert not got[-1][1:].any()          # everything in bias group 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,n,c,h,nw,keep", [
+    (6, 49, 768, 24, 1, True), (8, 49, 384, 12, 4, False),
+    (4, 16, 64, 4, 1, False)], ids=["stage3-keep", "stage2-shifted", "tiny"])
+def test_fused_attention_block_bwd_spill_kernel(rng, cuda_device, w, n, c, h,
+                                                nw, keep):
+    args = _block_inputs(rng, cuda_device, w, n, c, h, nw)
+    args = (args[0], torch.randn_like(args[0]), *args[1:6], args[7])
+    k = (torch.tensor([0.0, 1.25] * (w // 2), device=cuda_device)
+         if keep else None)
+    got = fused_block.fused_attention_block_bwd_spill_cuda(*args, k)
+    want = fused_block.fused_attention_block_bwd_spill_plain(*args, k)
+    torch.cuda.synchronize()
+    _hold_grads(BWD_NAMES, got, want)
+    again = fused_block.fused_attention_block_bwd_spill_cuda(*args, k)
+    _hold_grads(BWD_NAMES, again, got, REPEAT_BOUND)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c,keep", [(1000, 96, True), (3136, 768, True),
+                                      (6272, 192, False), (1568, 384, False),
+                                      (50, 16, True)])
+def test_fused_ln_mlp_residual_bwd_kernel(rng, cuda_device, t, c, keep):
+    """T = 1000 and 50 are not multiples of the 32-token tile."""
+    args = _mlp_inputs(rng, cuda_device, t, c)
+    args = (args[0], torch.randn_like(args[0]), *args[1:6])
+    k = (torch.tensor((rng.random(t) > 0.3) / 0.7, dtype=torch.float32,
+                      device=cuda_device) if keep else None)
+    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    got = block_mlp.fused_ln_mlp_residual_bwd_cuda(*args, k)
+    want = block_mlp.fused_ln_mlp_residual_bwd_plain(*args, k)
+    torch.cuda.synchronize()
+    _hold_grads(names, got, want)
+    again = block_mlp.fused_ln_mlp_residual_bwd_cuda(*args, k)
+    _hold_grads(names, again, got, REPEAT_BOUND)
+
+
+@pytest.mark.gpu
+def test_autograd_functions_launch_the_backward_kernels(rng, cuda_device):
+    """fp32 parameters, bf16 kernels: backward goes through kernels 4-6 and
+    returns every gradient in its parameter's dtype."""
+    kernels.reset_launch_counts()
+    for c, h, name in ((96, 3, "fused_attention_block_bwd"),
+                       (768, 24, "fused_attention_block_bwd_spill")):
+        args = [a.float().requires_grad_() for a in
+                _block_inputs(rng, cuda_device, 4, 49, c, h, 1)]
+        out = fused_block.fused_attention_block(*args)
+        out.square().mean().backward()
+        assert all(a.grad is not None and a.grad.dtype == torch.float32
+                   and torch.isfinite(a.grad).all() for a in args)
+        assert kernels.launch_counts()[name] == 1
+    args = [a.float().requires_grad_() for a in
+            _mlp_inputs(rng, cuda_device, 100, 96)]
+    block_mlp.fused_ln_mlp_residual(*args).square().mean().backward()
+    assert all(a.grad is not None and a.grad.dtype == torch.float32
+               for a in args)
+    assert kernels.launch_counts()["fused_ln_mlp_residual_bwd"] == 1
+
+
 @pytest.mark.gpu
 def test_tiny_server_runs_every_kernel(cuda_device):
     """A tiny serving path on the card goes through all three kernels and
@@ -140,12 +236,93 @@ def test_tiny_server_runs_every_kernel(cuda_device):
     sd = {k: v.float().cpu() if v.is_floating_point() else v.cpu()
           for k, v in gpu.model.state_dict().items()}
     cpu = EmotionServer(cfg, sd, max_batch=2, face_capacity=4,
-                        dtype=torch.float32, transfer_dtype=np.float32)
+                        dtype=torch.float32, transfer_dtype=np.float32,
+                        device="cpu")
     req = [{"input_ids": np.arange(2, 40), "sep_mask": np.eye(38)[20],
             "faces": np.full((3, 160, 160, 3), 90, np.uint8),
             "audio": np.ones((4, cfg.data.audio_feat_dim))}]
     kernels.reset_launch_counts()
     out = gpu.predict(req)
     counts = kernels.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[k] > 0 for k in ("fused_attention",
+                                       "fused_attention_block",
+                                       "fused_ln_mlp_residual")), counts
     np.testing.assert_allclose(out[0], cpu.predict(req)[0], atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_full_width_aux_step(cuda_device):
+    """One auxiliary step of Swin-tiny at 224 px on the card (48 images, the
+    text tower cut to its tiny config: the auxiliary pass never runs it):
+    finite loss, every backward kernel launched once per block half it
+    serves, Swin moved and the multimodal branch did not, and the step is
+    repeatable from the same weights to the fp32-atomics tolerance."""
+    from facialmmt_tpu_torch.config import FacialMMTConfig, TextEncoderConfig
+    from facialmmt_tpu_torch.models.pipeline import (FacialMMTPipeline,
+                                                     init_random_)
+    from facialmmt_tpu_torch.train.optim import MultiTaskState
+    from facialmmt_tpu_torch.train.steps import make_aux_train_step
+
+    cfg = FacialMMTConfig().replace(text=TextEncoderConfig.tiny())
+    gen = torch.Generator(cuda_device)
+    images = torch.randn(48, 224, 224, 3, device=cuda_device,
+                         generator=gen.manual_seed(5))
+    labels = torch.randint(0, 7, (48,), device=cuda_device,
+                           generator=gen.manual_seed(6))
+    results = []
+    for _ in range(2):
+        model = FacialMMTPipeline(cfg).to(cuda_device)
+        init_random_(model, gen.manual_seed(7))
+        mm_before = {k: v.clone() for k, v in
+                     model.multimodal.state_dict().items()}
+        state = MultiTaskState.create(model, cfg.optim, 10, 10)
+        state.swin_opt.set_count(5)         # past warm-up: a non-zero lr
+        kernels.reset_launch_counts()
+        loss = make_aux_train_step(model)(state, images, labels,
+                                          gen.manual_seed(8))
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        counts = kernels.launch_counts()
+        assert counts["fused_attention_block"] == 12
+        assert counts["fused_ln_mlp_residual"] == 12
+        assert counts["fused_ln_mlp_residual_bwd"] == 12
+        assert counts["fused_attention_block_bwd"] == 10
+        assert counts["fused_attention_block_bwd_spill"] == 2
+        assert all(torch.equal(v, mm_before[k]) for k, v in
+                   model.multimodal.state_dict().items())
+        results.append((float(loss), {k: v.clone() for k, v in
+                                      model.swin_model.state_dict().items()}))
+    (loss_a, sd_a), (loss_b, sd_b) = results
+    assert abs(loss_a - loss_b) <= 1e-3 * abs(loss_a)
+    moved = 0
+    for k, p in model.swin_model.named_parameters():
+        # one AdamW step moves an element by at most lr, whatever its gradient
+        assert float((sd_a[k] - sd_b[k]).abs().max()) <= 2.1 * cfg.optim.aux_lr
+        moved += 1
+    assert moved > 100
+
+
+@pytest.mark.gpu
+def test_tiny_trainer_on_the_card(cuda_device):
+    """Trainer defaults to the card and runs the whole loop there."""
+    import dataclasses
+
+    from facialmmt_tpu_torch.config import FacialMMTConfig
+    from facialmmt_tpu_torch.data.meld import (SyntheticFerDataset,
+                                               SyntheticMeldDataset)
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    cfg = FacialMMTConfig.tiny()
+    # Swin widths the kernels take (channels and head dims multiples of 16)
+    cfg = cfg.replace(optim=dataclasses.replace(
+        cfg.optim, aux_batch_size=6, trg_batch_size=2,
+        trg_accumulation_steps=2), swin_from_target=True,
+        swin=dataclasses.replace(cfg.swin, embed_dim=32))
+    trainer = Trainer(cfg)
+    assert trainer.device.type == "cuda"
+    ds = SyntheticMeldDataset(cfg, 8, 2, 3, seed=2)
+    f1 = trainer.run_multimodal(SyntheticFerDataset(12, 24, seed=1), ds, ds, ds)
+    assert np.isfinite(f1)
+    assert (trainer.state.swin_step, trainer.state.mm_step) == (4, 2)
+    counts = kernels.launch_counts()
+    assert all(n > 0 for n in counts.values()), counts

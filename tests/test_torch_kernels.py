@@ -134,4 +134,5 @@ def test_dispatch_takes_plain_version_on_cpu(rng):
     attention.fused_attention(T(q), T(k), T(v), T(bias))
     assert kernels.launch_counts() == {
         "fused_attention": 0, "fused_attention_block": 0,
-        "fused_ln_mlp_residual": 0}
+        "fused_ln_mlp_residual": 0, "fused_ln_mlp_residual_bwd": 0,
+        "fused_attention_block_bwd": 0, "fused_attention_block_bwd_spill": 0}

@@ -18,6 +18,7 @@ from facialmmt_tpu.config import (FacialMMTConfig, RuntimeConfig, SwinConfig,
 from facialmmt_tpu_torch.checkpoint import from_jax
 from tests.test_models import make_multimodal_batch
 from tests.test_torch_ops import TOL, T, bridged, random_params
+from tests.torch_bridge import port_config
 
 
 def _load(module, sd):
@@ -45,7 +46,7 @@ def test_text_encoder_matches_jax(rng, model_type):
     ids[2, :] = cfg.pad_token_id
     jm = J(cfg)
     v = random_params(jm, rng, ids, mask)
-    tm = P(cfg)
+    tm = P(port_config(cfg)).eval()
     tm.load_state_dict(bridged(from_jax._text_encoder, v["params"]),
                        strict=True)
     with torch.no_grad():
@@ -69,7 +70,7 @@ def test_swin_fer_matches_jax(rng):
     imgs = rng.normal(size=(3, 32, 32, 3)).astype(np.float32)
     jm = J(cfg)
     v = random_params(jm, rng, imgs)
-    tm = _load(P(cfg), from_jax.swin_fer_state_dict(v))
+    tm = _load(P(port_config(cfg)), from_jax.swin_fer_state_dict(v))
     assert tm.swin.layers[0].blocks[1].shift == 2
     assert tm.swin.layers[0].blocks[1].attn_mask.shape == (4, 16, 16)
     assert tm.swin.layers[1].blocks[1].shift == 0
@@ -109,7 +110,7 @@ def test_multimodal_matches_jax(rng):
     args = _multimodal_args(rng, cfg)
     jm = J(cfg)
     v = random_params(jm, rng, *args)
-    tm = _load(P(cfg), from_jax.multimodal_state_dict(v))
+    tm = _load(P(port_config(cfg)), from_jax.multimodal_state_dict(v))
     with torch.no_grad():
         got = tm(*[T(a) for a in args]).numpy()
     want = np.asarray(jax.jit(jm.apply)(v, *args))
@@ -129,7 +130,7 @@ def test_pipeline_matches_jax(rng):
     batch["n_faces"][-1] = 2
     jm = J(cfg)
     v = random_params(jm, rng, batch)
-    tm = _load(P(cfg), from_jax.pipeline_state_dict(v))
+    tm = _load(P(port_config(cfg)), from_jax.pipeline_state_dict(v))
     with torch.no_grad():
         got = tm({k: T(a) for k, a in batch.items()}).numpy()
     want = np.asarray(jax.jit(jm.apply)(v, batch))
@@ -166,9 +167,84 @@ def test_bridge_matches_torch_export(rng, plm_name, text):
         for k in ours:
             assert ours[k].dtype == theirs[k].dtype, k
             np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
-    port = P(cfg)
+    port = P(port_config(cfg))
     sd = from_jax.pipeline_state_dict(v, plm_name)
     assert sorted(sd) == sorted(port.state_dict())
     _load(port, sd)
     assert hasattr(port.multimodal, "roberta" if "roberta" in plm_name
                    else "bert")
+
+
+def test_swin_train_mode_batch_stats_match_flax(rng):
+    """A train-mode forward at batch 4: logits (BatchNorm on batch
+    statistics) and the updated running statistics match flax, whose running
+    variance takes the BIASED batch variance; torch.nn.BatchNorm1d would
+    store the unbiased one, 4/3 of it at batch 4."""
+    from facialmmt_tpu.models.swin_fer import SwinForAffwildClassification as J
+    from facialmmt_tpu_torch.models.swin_fer import \
+        SwinForAffwildClassification as P
+
+    cfg = FacialMMTConfig.tiny()
+    imgs = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+    jm = J(cfg)
+    v = random_params(jm, rng, imgs)
+    tm = _load(P(port_config(cfg)), from_jax.swin_fer_state_dict(v)).train()
+    bn = tm.swin.output_layer[3]
+    var_before = bn.running_var.clone()
+    got = tm(T(imgs)).detach().numpy()
+    want, mutated = jm.apply(v, imgs, deterministic=False,
+                             rngs={"dropout": jax.random.PRNGKey(0)},
+                             mutable=["batch_stats"])
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    stats = mutated["batch_stats"]["swin"]["head_bn"]
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(stats["mean"]), **TOL)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(stats["var"]), **TOL)
+    # what torch's own BatchNorm would have stored differs measurably
+    batch_var = (bn.running_var - 0.9 * var_before) / 0.1
+    unbiased = 0.9 * var_before + 0.1 * batch_var * 4 / 3
+    assert float((unbiased - bn.running_var).abs().max()) > 1e-3
+    assert int(bn.num_batches_tracked) == 0     # the update is by hand
+    # use_running_average=True in train mode: running statistics, no update
+    mean_before = bn.running_mean.clone()
+    tm.swin(T(imgs), use_running_average=True)
+    assert torch.equal(bn.running_mean, mean_before)
+    # eval mode uses the running statistics
+    tm.eval()
+    got = tm(T(imgs)).detach().numpy()
+    want = jm.apply({"params": v["params"], "batch_stats":
+                     mutated["batch_stats"]}, imgs)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_pipeline_train_mode_paths_match_jax(rng):
+    """aux_logits, fer_probs and a precomputed 'face_probs' entry, against
+    the JAX pipeline with the same weights (eval mode, deterministic gumbel);
+    stop_swin_gradient leaves Swin without gradients."""
+    from facialmmt_tpu.models.pipeline import FacialMMTPipeline as J
+    from facialmmt_tpu_torch.models.pipeline import FacialMMTPipeline as P
+
+    cfg = FacialMMTConfig.tiny().replace(
+        runtime=RuntimeConfig(deterministic_gumbel=True))
+    batch = make_multimodal_batch(rng, cfg, b=2)
+    jm = J(cfg)
+    v = random_params(jm, rng, batch)
+    tm = _load(P(port_config(cfg)), from_jax.pipeline_state_dict(v))
+    tb = {k: T(a) for k, a in batch.items()}
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            tm.aux_logits(tb["faces"]).numpy(),
+            np.asarray(jm.apply(v, batch["faces"], method=J.aux_logits)), **TOL)
+        probs = tm.fer_probs(tb["faces"])
+        np.testing.assert_allclose(
+            probs.numpy(),
+            np.asarray(jm.apply(v, batch["faces"], method=J.fer_probs)), **TOL)
+        full = tm(tb).numpy()
+        pre = tm(dict({k: a for k, a in tb.items() if k != "faces"},
+                      face_probs=probs)).numpy()
+    np.testing.assert_allclose(pre, full, rtol=1e-6, atol=1e-6)
+    tm.train()
+    tm(tb, stop_swin_gradient=True).sum().backward()
+    assert all(p.grad is None for p in tm.swin_model.parameters())
+    assert any(p.grad is not None for p in tm.multimodal.parameters())

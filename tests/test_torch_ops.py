@@ -16,6 +16,7 @@ import torch
 
 from facialmmt_tpu.config import EncoderConfig
 from facialmmt_tpu_torch.checkpoint import from_jax
+from tests.torch_bridge import port_config
 
 def T(a):
     return torch.tensor(np.asarray(a))
@@ -203,7 +204,7 @@ def test_utt_encoder_matches_jax(rng):
     mask[2, :] = 0
     jm = J(cfg, num_layers=2, max_len=12)
     v = random_params(jm, rng, x, mask)
-    tm = P(cfg, num_layers=2, max_len=12)
+    tm = P(port_config(cfg), num_layers=2, max_len=12).eval()
     tm.load_state_dict(bridged(from_jax._utt_encoder, v["params"]), strict=True)
     with torch.no_grad():
         got = tm(T(x), T(mask)).numpy()
@@ -250,3 +251,116 @@ def test_eval_transform_matches_jax(rng, size):
         np.asarray(jp.meld_face_eval_transform(imgs.astype(np.float32),
                                                img_size=size)),
         atol=5e-3 / 127.5, rtol=0)
+
+
+# --------------------------------------------------------------- drop path --
+
+@pytest.mark.parametrize("shift", [0, 2], ids=["unshifted", "shifted"])
+def test_swin_block_with_injected_keep_matches_jax_references(rng, shift):
+    """A SwinBlock in window layout with an injected per-image `keep`: output
+    and every gradient against the JAX kernels' `_reference` functions (the
+    attention half, then the MLP half) given the same keep, repeated per
+    window and per token.  2e-2 of each output's max: the JAX references round
+    their matmul operands to bf16, the port runs fp32 here."""
+    from facialmmt_tpu.ops.pallas import block_mlp as jm
+    from facialmmt_tpu.ops.pallas import fused_block as jb
+    from facialmmt_tpu_torch.ops.swin import SwinBlock
+
+    b, res, c, heads, ws = 3, 8, 16, 2, 4
+    n, l = ws * ws, res * res
+    block = SwinBlock(c, (res, res), heads, ws, shift)
+    with torch.no_grad():
+        for name, prm in block.named_parameters():
+            noise = rng.normal(size=tuple(prm.shape)).astype(np.float32)
+            if prm.dim() > 1:
+                prm.copy_(T(0.2 * noise))
+            else:      # norm scales around 1, biases around 0
+                prm.copy_(T(0.1 * noise + (1.0 if name in (
+                    "norm1.weight", "norm2.weight") else 0.0)))
+    keep_a = np.asarray([0.0, 1 / 0.7, 1 / 0.7], np.float32)
+    keep_m = np.asarray([1 / 0.7, 0.0, 1 / 0.7], np.float32)
+    x = rng.normal(size=(b, l, c)).astype(np.float32)
+
+    xt = T(x).requires_grad_()
+    out = block(xt, T(keep_a), T(keep_m))
+    out.square().sum().backward()
+
+    a = block.attn
+    names = ["norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+             "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
+             "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias"]
+    sd = dict(block.named_parameters())
+    jparams = [jnp.asarray(sd[k].detach().numpy().T if sd[k].dim() == 2
+                           else sd[k].detach().numpy()) for k in names]
+    bias = jnp.asarray(block.window_bias().detach().numpy())
+    perm = None if shift == 0 else block.perm.numpy()
+    inv = None if shift == 0 else block.inv.numpy()
+
+    def reference(xj, *prm):
+        xp = xj if perm is None else xj[:, perm]
+        y = jb._reference(xp.reshape(b * (l // n), n, c), *prm[:6], bias,
+                          jnp.repeat(jnp.asarray(keep_a), l // n), 1e-5)
+        y = y.reshape(b, l, c)
+        y = y if inv is None else y[:, inv]
+        z = jm._reference(y.reshape(b * l, c), *prm[6:],
+                          jnp.repeat(jnp.asarray(keep_m), l), 1e-5)
+        return z.reshape(b, l, c)
+
+    want = reference(jnp.asarray(x), *jparams)
+    grads = jax.grad(lambda *args: jnp.sum(reference(*args) ** 2),
+                     argnums=tuple(range(13)))(jnp.asarray(x), *jparams)
+
+    def hold(got, ref, what):
+        ref = np.asarray(ref)
+        assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max(), what
+
+    hold(out.detach().numpy(), want, "output")
+    # image 0 lost its attention branch, image 1 its MLP branch
+    hold(xt.grad.numpy(), grads[0], "dx")
+    for k, g in zip(names, grads[1:]):
+        got = sd[k].grad.numpy()
+        hold(got.T if got.ndim == 2 else got, g, k)
+    assert a.relative_position_bias_table.grad is not None
+
+
+def test_sampled_keep_is_zero_or_inverse_keep_prob_per_image():
+    from facialmmt_tpu_torch.config import SwinConfig
+    from facialmmt_tpu_torch.ops import swin as pswin
+
+    g = torch.Generator().manual_seed(0)
+    keep = pswin.sample_drop_path_keep(4000, 0.3, g, "cpu")
+    np.testing.assert_allclose(keep.unique().numpy(), [0.0, 1 / 0.7],
+                               rtol=1e-6)
+    # 4,000 Bernoulli(0.7) draws: 4 sigma is under 0.03
+    assert abs(float((keep > 0).float().mean()) - 0.7) < 0.03
+
+    cfg = SwinConfig(img_size=32, patch_size=4, embed_dim=8, depths=(2, 2),
+                     num_heads=(2, 4), window_size=4, drop_path_rate=0.5,
+                     out_feature_dim=16)
+    model = pswin.SwinTransformer(cfg)
+    assert [blk.drop_path for layer in model.layers for blk in layer.blocks] \
+        == pytest.approx([0.0, 1 / 6, 1 / 3, 0.5])
+    seen = []
+    orig = pswin.SwinBlock.forward
+
+    def spy(self, x, keep_attn=None, keep_mlp=None):
+        seen.append((x.shape[0], keep_attn, keep_mlp))
+        return orig(self, x, keep_attn, keep_mlp)
+
+    pswin.SwinBlock.forward = spy
+    try:
+        x = torch.randn(5, 32, 32, 3)
+        model.train()
+        a = model(x, generator=torch.Generator().manual_seed(1))
+        model.eval()
+        model(x)
+    finally:
+        pswin.SwinBlock.forward = orig
+    train, evalm = seen[:4], seen[4:]
+    assert train[0][1] is None and train[0][2] is None      # rate 0: no draw
+    for bsz, ka, km in train[1:]:
+        assert ka.shape == km.shape == (bsz,)                # one per image
+    assert all(ka is None and km is None for _, ka, km in evalm)
+    model.train()
+    again = model(x, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, again)                  # same seed, same draw

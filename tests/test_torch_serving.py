@@ -20,6 +20,7 @@ from facialmmt_tpu.config import FacialMMTConfig, RuntimeConfig
 from facialmmt_tpu_torch.checkpoint import from_jax
 from tests.test_models import make_multimodal_batch
 from tests.test_torch_ops import random_params
+from tests.torch_bridge import port_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,8 +51,9 @@ def test_emotion_server_matches_jax(rng):
     variables = random_params(J(cfg), rng, make_multimodal_batch(rng, cfg, b=2))
     kw = dict(max_batch=4, face_capacity=8, transfer_dtype=np.float32)
     ref = JaxServer(cfg, variables, dtype=jnp.float32, **kw)
-    port = EmotionServer(cfg, from_jax.pipeline_state_dict(variables),
-                         dtype=torch.float32, **kw)
+    port = EmotionServer(port_config(cfg),
+                         from_jax.pipeline_state_dict(variables),
+                         dtype=torch.float32, device="cpu", **kw)
 
     reqs = _requests(rng, cfg.data, cfg.text.vocab_size)
     batch, faces = port.build_pack(reqs)
@@ -92,12 +94,13 @@ def test_port_imports_no_jax():
         from facialmmt_tpu_torch.serving import EmotionServer
         cfg = FacialMMTConfig.tiny()
         server = EmotionServer(cfg, max_batch=2, face_capacity=4,
-                               dtype=torch.float32)
+                               dtype=torch.float32, device="cpu")
         out = server.predict([{"input_ids": np.arange(2, 12),
                                "faces": np.zeros((2, 160, 160, 3), np.uint8)}])
         assert out[0].shape == (7,) and abs(out[0].sum() - 1) < 1e-5
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                               "facialmmt_tpu"))
         assert not loaded, loaded
         print("ok")
     """)
@@ -106,3 +109,21 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_sources_import_nothing_of_jax_or_the_jax_package():
+    """Every source of the port and chip_smoke.py: no import of jax, flax,
+    optax or facialmmt_tpu (the port keeps its own copy of what it needs)."""
+    import pathlib
+    import re
+
+    banned = re.compile(
+        r"^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|facialmmt_tpu)(?:[.\s]|$)",
+        re.MULTILINE)
+    root = pathlib.Path(REPO)
+    sources = sorted((root / "facialmmt_tpu_torch").rglob("*.py"))
+    sources.append(root / "chip_smoke.py")
+    assert len(sources) > 20
+    for path in sources:
+        hits = banned.findall(path.read_text())
+        assert not hits, (str(path.relative_to(root)), hits)
