@@ -12,22 +12,40 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      attention; the forward Swin halves at every stage at 64 faces (serving)
      and, with a stochastic-depth `keep`, at 150 images (the auxiliary batch);
      the three backward kernels at every stage they serve at 150 images, with
-     and without `keep`, shifted and unshifted bias, every output compared.
-     Median times from CUDA events stand next to each call's bound: the
-     larger of its matmul FLOPs over the dense bf16 peak and the bytes it
-     must move (inputs read once, outputs written once) over the HBM rate;
+     and without `keep`, shifted and unshifted bias, every output compared;
+     the three window-attention entry points at every stage of a 64-face pack
+     (shifted bias, nW = 64 / 16 / 4, and nW = 1) and the merge tail at the
+     three stage transitions.  Median times from CUDA events (5 launches
+     between two events for every kernel, since the window-attention kernels
+     were added: `ms` values taken before that, with one launch between two
+     events, are not comparable with these), and the kernels' own durations from torch.profiler
+     (no host time in them), stand next to each call's bound: the larger of its matmul FLOPs over the dense bf16
+     peak and the bytes it must move (inputs read once, outputs written once)
+     over the HBM rate;
   4. serving: the headline model (FacialMMTConfig(): RoBERTa-large, Swin-tiny
      at 224 px, the 768-wide fusion stack) behind EmotionServer(max_batch=8,
      face_capacity=64), random bf16 weights from the config's seed: packs of
      synthetic requests through predict(), launch counts > 0, one pack held
-     against the same weights on the CPU in fp32, benchmark_latency;
-  5. training: Trainer(FacialMMTConfig()).run_multimodal on synthetic
+     against the same weights on the CPU in fp32, benchmark_latency.  Then
+     the same weights behind servers whose Swin takes the routes
+     (attention_impl, mlp_impl, merge_impl) = ('pallas', 'xla', 'window') and
+     ('pair', 'auto', 'raster'): the same packs, their own kernels launched
+     12 times a pack and the fused block kernel never, the answers held
+     against the default server's, benchmark_latency per route;
+  5. Swin routes: one 64-face forward on the ('pallas', 'xla', 'window')
+     route whose q, k, v, bias of every block and gathered rows of every
+     stage transition are captured: fused_window_attention_v2 on them against
+     what fused_window_attention returned, fused_merge against the module's
+     LayerNorm + Linear; a 63-face forward under 'pair', whose last stage
+     (an odd window count) must launch fused_window_attention; the forward's
+     time under nine routes;
+  6. training: Trainer(FacialMMTConfig()).run_multimodal on synthetic
      in-memory datasets (300 auxiliary images at 150 a step, 8 utterances at 4
      a step): 2 auxiliary steps, 2 target steps, validation and the test
      eval, with the parameter-movement and launch-count assertions per pass;
      one joint step (swin_from_target, the microbatch step); a step-time
      breakdown; one auxiliary batch's gradients on the card held against the
-     CPU in fp32.
+     CPU in fp32; two auxiliary steps under ('pallas', 'xla', 'window').
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -49,6 +67,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FACES = 64                # the serving bucket's packed-face capacity
 AUX_IMAGES = 150          # the auxiliary FER batch (optim.aux_batch_size)
 KERNEL_BOUND = 2e-2       # max|kernel - plain| <= KERNEL_BOUND * max|plain|
+KERNEL_REPS = 5           # launches between two timing events (cuda_ms)
 # bf16 serving vs fp32 on the CPU, compared on the logits the probabilities
 # imply (log p centred per row): max|d| <= SERVING_BOUND * max|logit|.  bf16
 # keeps 8 bits of mantissa (relative rounding 2^-9 per op), compounded
@@ -77,14 +96,33 @@ KERNELS = {
     "fused_attention_block_bwd_spill": (
         "facialmmt_tpu_torch/csrc/fused_block_bwd.cu",
         "facialmmt_tpu/ops/pallas/fused_block.py:573"),
+    "fused_window_attention": (
+        "facialmmt_tpu_torch/csrc/window_attention.cu",
+        "facialmmt_tpu/ops/pallas/window_attention.py:57"),
+    "paired_window_attention": (
+        "facialmmt_tpu_torch/csrc/window_attention.cu",
+        "facialmmt_tpu/ops/pallas/window_attention.py:252"),
+    "fused_window_attention_v2": (
+        "facialmmt_tpu_torch/csrc/window_attention.cu",
+        "facialmmt_tpu/ops/pallas/window_attention.py:290"),
+    "fused_merge": ("facialmmt_tpu_torch/csrc/merge_kernel.cu",
+                    "facialmmt_tpu/ops/pallas/merge_kernel.py:103"),
 }
+WINDOW_KERNELS = ("fused_window_attention", "paired_window_attention",
+                  "fused_window_attention_v2")
+# Swin routes (attention_impl, mlp_impl, merge_impl) beside the default
+ROUTE_PALLAS = ("pallas", "xla", "window")
+ROUTE_PAIR = ("pair", "auto", "raster")
 MLP_BWD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 ATTN_BWD_NAMES = ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwproj",
                   "dbproj", "dbias")
 
 
-def cuda_ms(torch, fn, iters: int = 10) -> float:
-    """Median device time of fn() in ms (CUDA events, after one warm-up)."""
+def cuda_ms(torch, fn, iters: int = 10, reps: int = 1) -> float:
+    """Median device time of one fn() in ms (CUDA events, after one warm-up).
+    `reps` calls go between each pair of events, so that a call shorter than
+    the host takes to launch it is timed back to back and not with the card
+    idle in between."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -92,11 +130,46 @@ def cuda_ms(torch, fn, iters: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, iters: int = 5):
+    """Device time of one fn() in ms: the durations of the kernels it
+    launches, summed, from torch.profiler's trace of `iters` calls.  Unlike
+    cuda_ms it holds none of the host's time to launch them.  Once in a
+    hundred or so traces the profiler hands back no kernel event; after one
+    more try the answer is None (not measured), never a guess."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # kernel events only: an operator's entry repeats its kernels' time
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
+
+
+def add_ms(total, part):
+    """Sum of per-shape times; None (not measured) if any part is."""
+    return None if total is None or part is None else total + part
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def tensor_bytes(*tensors) -> int:
@@ -127,9 +200,9 @@ def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
                                  f"{KERNEL_BOUND} * {scale}")
         worst = max(worst, err / max(scale, 1e-30))
     r = results.setdefault(name, {
-        "max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-        "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0, "library_ms": None,
-        "shapes": []})
+        "max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "device_ms": 0.0,
+        "plain_ms": 0.0, "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0,
+        "library_ms": None, "library_device_ms": None, "shapes": []})
     first = outs[0]
     r["max_abs_err"] = max(r["max_abs_err"], float(
         (first[1].float() - first[2].float()).abs().max()))
@@ -140,20 +213,29 @@ def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
                              *[g for _, g, _ in outs])
         flops_ms = flops / PEAK_BF16_FLOPS * 1e3
         bytes_ms = moved / PEAK_HBM_BYTES * 1e3
-        ms = cuda_ms(torch, lambda: kernel(*args))
+        ms = cuda_ms(torch, lambda: kernel(*args), reps=KERNEL_REPS)
         plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
-        entry = {"shape": label, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": max(flops_ms, bytes_ms),
+        dev_ms = device_ms(torch, lambda: kernel(*args))
+        entry = {"shape": label, "ms": ms, "device_ms": dev_ms,
+                 "plain_ms": plain_ms, "bound_ms": max(flops_ms, bytes_ms),
                  "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
                  "gflop": flops / 1e9, "mbytes": moved / 1e6}
-        line += (f", {ms:.4f} ms vs bound {entry['bound_ms']:.4f} ms "
+        line += (f", {ms:.4f} ms ({fmt_ms(dev_ms)} on the device alone) vs "
+                 f"bound {entry['bound_ms']:.4f} ms "
                  f"({entry['bound_by']}: {entry['gflop']:.2f} GFLOP, "
                  f"{entry['mbytes']:.1f} MB), plain {plain_ms:.4f} ms")
         if library is not None:
-            entry["library_ms"] = cuda_ms(torch, library)
+            entry["library_ms"] = cuda_ms(torch, library, reps=KERNEL_REPS)
+            entry["library_device_ms"] = device_ms(torch, library)
             r["library_ms"] = (r["library_ms"] or 0.0) + entry["library_ms"]
-            line += f", library call {entry['library_ms']:.4f} ms"
+            r["library_device_ms"] = add_ms(
+                0.0 if len(r["shapes"]) == 0 else r["library_device_ms"],
+                entry["library_device_ms"])
+            line += (f", library call {entry['library_ms']:.4f} ms "
+                     f"({fmt_ms(entry['library_device_ms'])} on the device "
+                     f"alone)")
         r["ms"] += ms
+        r["device_ms"] = add_ms(r["device_ms"], dev_ms)
         r["plain_ms"] += plain_ms
         r["bound_ms"] += entry["bound_ms"]
         r["flops_ms"] += flops_ms
@@ -182,7 +264,9 @@ def mlp_flops(t, c, backward: bool) -> float:
 def phase_kernels(torch, dev, rng):
     import torch.nn.functional as F
 
-    from facialmmt_tpu_torch.ops.kernels import attention, block_mlp, fused_block
+    from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
+                                                 fused_block, merge_kernel,
+                                                 window_attention)
     from facialmmt_tpu_torch.ops.swin import shifted_window_mask
 
     bf = lambda a: torch.tensor(a).to(dev, torch.bfloat16).contiguous()
@@ -312,6 +396,51 @@ def phase_kernels(torch, dev, rng):
             (x, bf(rng.normal(size=(w, 49, c))), *params[:5], params[6], None),
             results, flops=0, out_names=ATTN_BWD_NAMES, timed=False,
             label=f"stage 2 W={w} C={c} shifted (off its dispatch)")
+
+    # kernels 8, 9, 10: the window-attention core at every stage of a 64-face
+    # pack, with the shifted blocks' bias (nW = 64 / 16 / 4) and the unshifted
+    # blocks' (nW = 1).  The library call is scaled_dot_product_attention with
+    # the bf16 bias as attn_mask: faces as its batch, (window, head) as its
+    # heads, so that the (nW, h, N, N) bias broadcasts over the faces.
+    n, hd = 49, 32
+    for stage, (res, c, heads) in enumerate(SWIN_STAGES):
+        w = FACES * (res // 7) ** 2
+        for nw in (((res // 7) ** 2, 1) if res > 7 else (1,)):
+            rel = rng.normal(size=(1, heads, n, n)) * 0.5
+            mask = shifted_window_mask(res, res, 7, 3)[:, None] if nw > 1 else 0
+            q, k, v = (bf(rng.normal(size=(w, heads, n, hd)) * scale)
+                       for scale in (hd ** -0.5, 1.0, 1.0))
+            bias = f32(rel + mask)
+            sdpa = [t.view(w // nw, nw * heads, n, hd) for t in (q, k, v)]
+            sdpa_mask = bias.to(torch.bfloat16).view(1, nw * heads, n, n)
+            for name in WINDOW_KERNELS:
+                compare(torch, name, getattr(window_attention, name + "_cuda"),
+                        window_attention.window_attention_plain,
+                        (q, k, v, bias), results,
+                        flops=4.0 * w * heads * n * n * hd,
+                        label=f"stage {stage} W={w} h={heads} nW={nw}",
+                        library=lambda: F.scaled_dot_product_attention(
+                            *sdpa, attn_mask=sdpa_mask, scale=1.0))
+    # kernel 11: the merge tail at the three stage transitions of a 64-face
+    # pack.  No single PyTorch call computes it; layer_norm + linear, two
+    # calls, are timed for information.
+    for stage, (res, c, _) in enumerate(SWIN_STAGES[:-1]):
+        rows = (res // 2) ** 2
+        args = (bf(rng.normal(size=(FACES, rows, 4 * c))),
+                bf(1 + 0.1 * rng.normal(size=4 * c)),
+                bf(0.1 * rng.normal(size=4 * c)),
+                bf(rng.normal(size=(4 * c, 2 * c)) / np.sqrt(4 * c)))
+        label = f"transition {stage} T={FACES * rows} 4C={4 * c}"
+        compare(torch, "fused_merge", merge_kernel.fused_merge_cuda,
+                merge_kernel.fused_merge_plain, args, results,
+                flops=2.0 * FACES * rows * 4 * c * 2 * c, label=label)
+        x, gamma, beta, wt = args[0], args[1], args[2], args[3].t().contiguous()
+        two_calls = lambda: F.linear(
+            F.layer_norm(x, (4 * c,), gamma, beta, 1e-5), wt)
+        print(f"kernel fused_merge {label}: F.layer_norm + F.linear (two "
+              f"library calls, bf16) "
+              f"{cuda_ms(torch, two_calls, reps=KERNEL_REPS):.4f} ms "
+              f"({fmt_ms(device_ms(torch, two_calls))} on the device alone)")
     for r in results.values():
         r["bound_by"] = ("operations" if r.pop("flops_ms") >= r.pop("bytes_ms")
                          else "bytes")
@@ -396,7 +525,231 @@ def phase_serving(torch, dev, rng, gpu_name):
     lat = server.benchmark_latency(10)
     print(f"serving: benchmark_latency(10) p50 {lat['p50_ms']:.2f} ms, p99 "
           f"{lat['p99_ms']:.2f} ms, mean {lat['mean_ms']:.2f} ms on {gpu_name}")
-    return launches
+    paths = {"serving": launches}
+
+    # the same weights behind the two other Swin routes: the same packs
+    blocks = sum(cfg.swin.depths) * len(packs)
+    for key, route, own in (
+            ("serving_pallas", ROUTE_PALLAS, "fused_window_attention"),
+            ("serving_pair", ROUTE_PAIR, "paired_window_attention")):
+        routed = EmotionServer(swin_route(det, route), sd, max_batch=8,
+                               face_capacity=FACES, device=dev)
+        kernels.reset_launch_counts()
+        outs = [routed.predict(reqs) for reqs in packs]
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        rows = np.concatenate([np.stack(out) for out in outs])
+        if not (np.isfinite(rows).all()
+                and np.allclose(rows.sum(-1), 1.0, atol=1e-3)):
+            raise AssertionError(f"route {route}: bad probabilities {rows}")
+        expect = dict.fromkeys(WINDOW_KERNELS + ("fused_attention_block",), 0)
+        expect[own] = blocks
+        expect["fused_ln_mlp_residual"] = 0 if route[1] == "xla" else blocks
+        expect["fused_attention"] = paths["serving"]["fused_attention"]
+        wrong = {k: launches[k] for k, n in expect.items() if launches[k] != n}
+        if wrong:
+            raise AssertionError(f"route {route}: launches {wrong}, expected "
+                                 f"{expect}")
+        p = routed.predict_raw(batch, faces).astype(np.float64)
+        z = np.log(p) - np.log(p).mean(-1, keepdims=True)
+        diff = float(np.abs(z - z_got).max())
+        scale = float(np.abs(z_got).max())
+        if not (np.isfinite(z).all() and diff <= SERVING_BOUND * scale):
+            raise AssertionError(f"route {route} vs the default route: logits "
+                                 f"max|d| {diff} > {SERVING_BOUND} * {scale}")
+        lat = routed.benchmark_latency(10)
+        print(f"serving: route {route}: {len(packs)} packs answered, {own} "
+              f"launched {launches[own]} times ({blocks // len(packs)} a "
+              f"pack), fused_attention_block 0; logits vs the default route "
+              f"max|d| {diff:.3g} <= {SERVING_BOUND} * {scale:.3g}; "
+              f"benchmark_latency(10) p50 {lat['p50_ms']:.2f} ms, p99 "
+              f"{lat['p99_ms']:.2f} ms on {gpu_name}")
+        paths[key] = launches
+        del routed
+    return paths, server
+
+
+def swin_route(cfg, route):
+    """cfg with its Swin on (attention_impl, mlp_impl, merge_impl) = route."""
+    attention_impl, mlp_impl, merge_impl = route
+    return cfg.replace(swin=dataclasses.replace(
+        cfg.swin, attention_impl=attention_impl, mlp_impl=mlp_impl,
+        merge_impl=merge_impl))
+
+
+def phase_swin_routes(torch, dev, rng, server, gpu_name):
+    """Kernels 10 and 11 on the tensors of a full-width forward, and the
+    forward's time per route.  No module calls fused_window_attention_v2 or
+    fused_merge (in the JAX package neither); their path is the public
+    function, driven here on what one 64-face forward on ROUTE_PALLAS hands
+    fused_window_attention (q, k, v, bias of every block) and PatchMerging
+    (the gathered rows of every stage transition)."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch.data.image_pipeline import \
+        meld_face_eval_transform
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.ops import swin as swin_ops
+    from facialmmt_tpu_torch.ops.kernels import merge_kernel, window_attention
+
+    cfg = server.cfg
+    base = server.model.swin_model.swin
+
+    def routed(route):
+        with torch.device(dev):
+            module = swin_ops.SwinTransformer(swin_route(cfg, route).swin)
+        module.to(dev, torch.bfloat16).eval()
+        module.load_state_dict(base.state_dict(), strict=True)
+        return module
+
+    def held(what, got, want):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if not (torch.isfinite(got).all() and err <= KERNEL_BOUND * scale):
+            raise AssertionError(f"{what}: max|d| {err} > {KERNEL_BOUND} * "
+                                 f"{scale}")
+        return err / scale
+
+    faces = torch.from_numpy(rng.integers(0, 256, (FACES, 160, 160, 3),
+                                          dtype=np.uint8)).to(dev)
+    x = meld_face_eval_transform(faces.float(), cfg.data.swin_img_size).to(
+        torch.bfloat16)
+    swin = routed(ROUTE_PALLAS)
+    attn, merges = [], []
+    real = swin_ops.fused_window_attention
+
+    def recording(q, k, v, bias):
+        out = real(q, k, v, bias)
+        attn.append((q, k, v, bias, out))
+        return out
+
+    hooks = [layer.downsample.register_forward_hook(
+        lambda module, args, out: merges.append((module, args[0], out)))
+        for layer in swin.layers if layer.downsample is not None]
+    with torch.no_grad():
+        want = base(x)                      # the default route's features
+    kernels.reset_launch_counts()
+    with torch.no_grad(), mock.patch.object(swin_ops, "fused_window_attention",
+                                            recording):
+        feats = swin(x)
+        worst_attn = max(held(
+            f"fused_window_attention_v2 on block {i}'s q, k, v, bias",
+            window_attention.fused_window_attention_v2(q, k, v, bias), out)
+            for i, (q, k, v, bias, out) in enumerate(attn))
+        worst_merge = max(held(
+            f"fused_merge on the rows of transition {i}",
+            merge_kernel.fused_merge(
+                module.gather(rows), module.norm.weight, module.norm.bias,
+                module.reduction.weight.t().contiguous()), out)
+            for i, (module, rows, out) in enumerate(merges))
+    torch.cuda.synchronize()
+    for hook in hooks:
+        hook.remove()
+    launches = kernels.launch_counts()
+    blocks, transitions = sum(cfg.swin.depths), len(cfg.swin.depths) - 1
+    expect = {"fused_window_attention": blocks,
+              "fused_window_attention_v2": blocks, "fused_merge": transitions,
+              "fused_attention_block": 0}
+    wrong = {k: launches[k] for k, n in expect.items() if launches[k] != n}
+    if wrong or len(attn) != blocks or len(merges) != transitions:
+        raise AssertionError(f"route forward: launches {wrong}, expected "
+                             f"{expect}")
+    rel = float((feats.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    if not (torch.isfinite(feats).all() and rel <= SERVING_BOUND):
+        raise AssertionError(f"route {ROUTE_PALLAS} features vs the default "
+                             f"route: max|d| {rel} of max|features|")
+    print(f"routes: one {FACES}-face forward on {ROUTE_PALLAS}: "
+          f"fused_window_attention_v2 on the {blocks} captured (q, k, v, "
+          f"bias) vs fused_window_attention's outputs worst max|d|/max "
+          f"{worst_attn:.3g}; fused_merge on the {transitions} captured "
+          f"transitions vs LayerNorm + Linear worst {worst_merge:.3g} (bound "
+          f"{KERNEL_BOUND}); features vs the default route {rel:.3g}")
+    del swin, attn, merges
+
+    # the forward's time per route: every route once in this order, then once
+    # in the reverse order (medians of 10 launches each)
+    routes = (("auto", "auto", "raster"), ("auto", "auto", "window"),
+              ("pallas", "auto", "raster"), ROUTE_PAIR, ("xla", "auto", "raster"),
+              ("auto", "xla", "raster"), ("xla", "xla", "raster"),
+              ("pallas", "xla", "raster"), ROUTE_PALLAS)
+    modules = {route: routed(route) for route in routes}
+    # 'pair' at an odd face count: the last stage's windows (one a face, an
+    # odd count) do not pair and go one to a block through
+    # fused_window_attention; no block leaves the kernels
+    odd = x[:FACES - 1]
+    with torch.no_grad():
+        want = base(odd)
+        kernels.reset_launch_counts()
+        got = modules[ROUTE_PAIR](odd)
+    odd_launches = kernels.launch_counts()
+    last = cfg.swin.depths[-1]
+    expect = {"paired_window_attention": blocks - last,
+              "fused_window_attention": last, "fused_attention_block": 0}
+    wrong = {k: odd_launches[k] for k, n in expect.items()
+             if odd_launches[k] != n}
+    if wrong:
+        raise AssertionError(f"route {ROUTE_PAIR} at {FACES - 1} faces: "
+                             f"launches {wrong}, expected {expect}")
+    rel = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    if not (torch.isfinite(got).all() and rel <= SERVING_BOUND):
+        raise AssertionError(f"route {ROUTE_PAIR} at {FACES - 1} faces vs the "
+                             f"default route: max|d| {rel} of max|features|")
+    print(f"routes: {ROUTE_PAIR} at {FACES - 1} faces: paired_window_attention "
+          f"launched {blocks - last} times, fused_window_attention {last} "
+          f"times (the last stage's odd window count), features vs the "
+          f"default route {rel:.3g}")
+    times = {route: [] for route in routes}
+    with torch.no_grad():
+        for route in routes + routes[::-1]:
+            times[route].append(cuda_ms(torch, lambda: modules[route](x)))
+    for route in routes:
+        a, b = times[route]
+        print(f"routes: Swin forward of {FACES} faces, bf16, route {route}: "
+              f"{a:.3f} ms then {b:.3f} ms on {gpu_name}")
+    route_ms = {"/".join(route): ms for route, ms in times.items()}
+
+    # the three stage transitions alone, both layouts on the same
+    # window-layout rows (what merge_impl='auto' is decided on): raster is
+    # window_reverse -> PatchMerging -> window_partition, window the one
+    # gather; forward, and forward + backward, order raster window window
+    # raster
+    raster_swin = modules[("auto", "auto", "raster")]
+    window_swin = modules[("auto", "auto", "window")]
+    ws = cfg.swin.window_size
+    totals = {"raster": [0.0, 0.0], "window": [0.0, 0.0]}
+    for s, (res, c, _) in enumerate(SWIN_STAGES[:-1]):
+        rows = torch.randn(FACES, res * res, c, device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+        cot = torch.randn(FACES, res * res // 4, 2 * c, device=dev,
+                          dtype=torch.bfloat16)
+
+        def raster(x, merge=raster_swin.layers[s].downsample):
+            grid = swin_ops.window_reverse(x.reshape(-1, ws * ws, c), ws, res,
+                                           res).reshape(x.shape)
+            y = merge(grid)
+            return swin_ops.window_partition(
+                y.reshape(FACES, res // 2, res // 2, 2 * c), ws).reshape(y.shape)
+
+        window = window_swin.layers[s].downsample
+        with torch.no_grad():
+            held(f"transition {s}: window layout vs raster layout",
+                 window(rows), raster(rows))
+        for name, fn in (("raster", raster), ("window", window),
+                         ("window", window), ("raster", raster)):
+            with torch.no_grad():
+                totals[name][0] += cuda_ms(torch, lambda: fn(rows),
+                                           reps=KERNEL_REPS) / 2
+            totals[name][1] += cuda_ms(
+                torch, lambda: torch.autograd.grad(fn(rows), rows, cot),
+                reps=KERNEL_REPS) / 2
+    for name, (fwd, both) in totals.items():
+        print(f"routes: the three stage transitions of {FACES} faces, "
+              f"merge layout {name}: forward {fwd:.4f} ms, forward + backward "
+              f"{both:.4f} ms (mean of two medians) on {gpu_name}")
+        route_ms[f"transitions/{name}"] = [fwd, both]
+    return {"swin_route_forward": launches}, route_ms
 
 
 SERVING_KERNELS = ("fused_attention", "fused_attention_block",
@@ -572,7 +925,60 @@ def phase_training(torch, dev, gpu_name, base=None, aux_size=112):
 
     step_breakdown(torch, trainer, aux_ds, train_ds, gpu_name)
     grad_check(torch, dev, cfg, model, aux_ds, trainer.generator)
+    paths["aux_pallas"] = route_aux_steps(torch, cfg, aux_ds, train_ds,
+                                          aux_size, gpu_name)
     return paths
+
+
+def route_aux_steps(torch, cfg, aux_ds, train_ds, aux_size, gpu_name):
+    """Two auxiliary steps of 150 images under ROUTE_PALLAS, with a Trainer's
+    own model, state and step.  The first step runs at learning rate 0 (the
+    warm-up's first count); the second is timed and must move every Swin
+    parameter through fused_window_attention forward and torch autograd of
+    the plain versions backward, with no launch of kernels 2 to 6."""
+    from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    rcfg = swin_route(cfg, ROUTE_PALLAS)
+    trainer = Trainer(rcfg)
+    model = trainer._build_model()
+    state, _, _ = trainer._init_multitask_state(model, train_ds, len(aux_ds))
+    aux_step = trainer._make_steps(model)[0]
+    for i in range(2):
+        images, labels = aux_ds.get_batch(range(i * AUX_IMAGES,
+                                                (i + 1) * AUX_IMAGES))
+        images = affwild2_train_augment(
+            trainer.generator, trainer._to_device(images).float(),
+            img_size=rcfg.data.swin_img_size)
+        labels = trainer._to_device(labels)
+        before = snapshot(model.swin_model)
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(aux_step(state, images, labels, trainer.generator))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.launch_counts()
+    params = {k for k, _ in model.swin_model.named_parameters()}
+    still = params - changed_names(model.swin_model, before)
+    blocks = sum(rcfg.swin.depths)
+    expect = dict.fromkeys(SERVING_KERNELS[1:] + BACKWARD_KERNELS, 0)
+    expect["fused_window_attention"] = blocks
+    wrong = {k: launches[k] for k, n in expect.items() if launches[k] != n}
+    if still or wrong or not np.isfinite(loss):
+        raise AssertionError(f"aux step on {ROUTE_PALLAS}: loss {loss}, Swin "
+                             f"parameters unchanged {sorted(still)}, launches "
+                             f"{wrong} (expected {expect})")
+    print(f"training: aux step ({AUX_IMAGES} images of {aux_size} px, augment "
+          f"not included) on route {ROUTE_PALLAS}: loss {loss:.4f}, all "
+          f"{len(params)} Swin parameters moved, fused_window_attention "
+          f"launched {blocks} times, kernels 2-6 never; second step "
+          f"{step_ms:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
+          f"{gpu_name}")
+    return launches
 
 
 def step_breakdown(torch, trainer, aux_ds, train_ds, gpu_name, repeats=3):
@@ -757,7 +1163,10 @@ def main(json_out: str = "") -> int:
     rng = np.random.default_rng(0)
     results = phase_kernels(torch, dev, rng)
     torch.cuda.empty_cache()
-    paths = {"serving": phase_serving(torch, dev, rng, gpu_name)}
+    paths, server = phase_serving(torch, dev, rng, gpu_name)
+    route_paths, route_ms = phase_swin_routes(torch, dev, rng, server, gpu_name)
+    paths.update(route_paths)
+    del server
     torch.cuda.empty_cache()
     paths.update(phase_training(torch, dev, gpu_name))
 
@@ -765,7 +1174,8 @@ def main(json_out: str = "") -> int:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)
         with open(json_out, "w") as f:
             json.dump({"card": gpu_name, "kernels": results,
-                       "launches": paths}, f, indent=1)
+                       "launches": paths,
+                       "swin_forward_ms_by_route": route_ms}, f, indent=1)
     print(gpu_name)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -2,9 +2,11 @@
 
 The port's own typed dataclass tree: the same classes, fields and defaults as
 the JAX package's config (and the reference's argparse flags, reference
-main.py:12-105), minus the fields that only select a TPU kernel variant or a
-JAX PRNG implementation.  Kernel dispatch in the port is by the tensor's
-device and shape (ops/kernels/), not by a config field.
+main.py:12-105), minus the fields that only select a JAX PRNG implementation
+or the `fused_attention` switches of the encoder, crossmodal and text stacks.  Whether a kernel or its plain version
+runs is decided by the tensor's device (ops/kernels/), never by a config
+field; SwinConfig's three `*_impl` fields choose between formulations of the
+Swin backbone that each have their own kernels.
 """
 
 from __future__ import annotations
@@ -67,6 +69,26 @@ class SwinConfig:
     # resolves by the packed image count (resolve_remat).  Not wired into the
     # port's Swin yet: its block halves already save only their inputs.
     remat: "bool | str" = "auto"
+    # 'xla' | 'pallas' | 'pair' | 'auto': the attention half of every block.
+    # 'auto' (default) is the fused block kernel with its backward kernels
+    # (ops/kernels/fused_block.py); 'xla' the plain composition LN1 -> qkv ->
+    # per-head attention with fp32 scores -> proj, differentiated by torch
+    # autograd; 'pallas' and 'pair' that composition with the attention core
+    # on the window-attention kernels (ops/kernels/window_attention.py:
+    # fused_window_attention, resp. paired_window_attention where the window
+    # count is even, else fused_window_attention).  All compute the same
+    # function.
+    attention_impl: str = "auto"
+    # 'xla' | 'pallas' | 'auto': the MLP half.  'auto' and 'pallas' are the
+    # fused LN+MLP+residual kernel with its backward kernel
+    # (ops/kernels/block_mlp.py), 'xla' the plain LN2 -> fc1 -> GELU -> fc2.
+    mlp_impl: str = "auto"
+    # 'raster' | 'window' | 'auto': the stage transition.  'window' gathers
+    # a stage's window-layout rows straight into the next stage's window
+    # layout (one index_select, ops/swin.py::merge_gather_index); 'raster'
+    # goes window_reverse -> strided 2x2 concat -> window_partition.  The same
+    # rows in another order; 'auto' is ops/swin.py::MERGE_AUTO.
+    merge_impl: str = "auto"
     out_feature_dim: int = 512  # LN -> flatten -> Linear(49*768, 512) -> BatchNorm1d
                                 # (reference Swin_Transformer.py:491-494)
 

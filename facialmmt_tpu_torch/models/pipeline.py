@@ -35,16 +35,21 @@ class FacialMMTPipeline(nn.Module):
         self.multimodal = MultiModalTransformerForClassification(cfg)
 
     def fer_probs(self, faces, *, generator: torch.Generator | None = None,
-                  noise: torch.Tensor | None = None):
-        """Frame-level FER distributions (N, num_labels) for packed faces."""
+                  noise: torch.Tensor | None = None,
+                  attention_impl: str | None = None):
+        """Frame-level FER distributions (N, num_labels) for packed faces.
+        `attention_impl` overrides swin.attention_impl for this call.  (The
+        JAX pipeline resolves 'auto' to a grad-bearing variant per call; the
+        port's 'auto' route is one autograd Function for both, so nothing is
+        resolved here.)"""
         return self.swin_model(faces, is_trg_task=True, generator=generator,
-                               noise=noise)
+                               noise=noise, attention_impl=attention_impl)
 
     def aux_logits(self, images, *, generator: torch.Generator | None = None,
-                   keeps=None):
+                   keeps=None, attention_impl: str | None = None):
         """Auxiliary FER logits (N, num_labels) for an image batch."""
         return self.swin_model(images, is_trg_task=False, generator=generator,
-                               keeps=keeps)
+                               keeps=keeps, attention_impl=attention_impl)
 
     def forward(self, batch, *, generator: torch.Generator | None = None,
                 noise: torch.Tensor | None = None,

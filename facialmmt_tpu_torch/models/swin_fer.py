@@ -26,14 +26,17 @@ class SwinForAffwildClassification(nn.Module):
 
     def forward(self, images, *, is_trg_task: bool = False,
                 generator: torch.Generator | None = None,
-                noise: torch.Tensor | None = None, keeps=None):
+                noise: torch.Tensor | None = None, keeps=None,
+                attention_impl: str | None = None):
         """images (N, H, W, 3) normalised, channel-last.  Returns logits, or
         in target-task mode the gumbel-softmax distribution (sampled from
         `generator` / `noise` unless runtime.deterministic_gumbel).  In train
         mode `generator` also feeds the backbone's stochastic depth (`keeps`
-        overrides that draw, see SwinTransformer.forward)."""
-        x = torch.relu(self.linear(self.swin(images, generator=generator,
-                                             keeps=keeps)))
+        overrides that draw) and `attention_impl` overrides
+        swin.attention_impl for this call (see SwinTransformer.forward)."""
+        x = torch.relu(self.linear(self.swin(
+            images, generator=generator, keeps=keeps,
+            attention_impl=attention_impl)))
         logits = self.classifier(x)
         if not is_trg_task:
             return logits

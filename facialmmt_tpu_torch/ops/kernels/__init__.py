@@ -13,11 +13,14 @@ The build runs at first use of a kernel on a CUDA tensor and is cached by a
 hash of the sources in ``facialmmt_tpu_torch/_build/``; nothing is built when
 the package is imported, and nothing on the CPU path needs nvcc.
 
-Each kernel module (attention, fused_block, block_mlp) holds the plain
-PyTorch versions, the kernel wrappers with their launch counters, and the
-dispatch the model calls: a CPU tensor takes the plain version, a CUDA tensor
-the kernel, which raises on anything it cannot take.  The Swin block halves
-are torch.autograd.Functions whose backward follows the same rule.
+Each kernel module (attention, fused_block, block_mlp, window_attention,
+merge_kernel) holds the plain PyTorch versions, the kernel wrappers with
+their launch counters, and the dispatch the model calls: a CPU tensor takes
+the plain version, a CUDA tensor the kernel, which raises on anything it
+cannot take.  The Swin block halves are torch.autograd.Functions whose
+backward follows the same rule; the window-attention cores and the merge tail
+are Functions whose backward differentiates their plain version
+(`grads_of_recomputed`), as the JAX package has no backward kernel for them.
 """
 
 from __future__ import annotations
@@ -113,6 +116,10 @@ _SIGNATURES = {
     "fmmt_fused_attention_block_bwd_spill": ([_VP] * 16 + [_I] * 5 + [_F, _VP],
                                              _I),
     "fmmt_fused_attention_block_bwd_smem": ([_I] * 3, ctypes.c_longlong),
+    "fmmt_window_attention": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
+    "fmmt_window_attention_smem": ([_I] * 2, ctypes.c_longlong),
+    "fmmt_fused_merge": ([_VP] * 5 + [_I] * 3 + [_F, _VP], _I),
+    "fmmt_fused_merge_smem": ([_I], ctypes.c_longlong),
 }
 
 
@@ -172,10 +179,25 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     require(t.data_ptr() % 32 == 0, f"{name}: must be 32-byte aligned")
 
 
+def grads_of_recomputed(fn, inputs, needs_grad, dout):
+    """Cotangents of fn(*inputs) under `dout`, one per input and None where
+    `needs_grad` is false: torch autograd of `fn` recomputed from the saved
+    inputs, outside autocast so that fp32 stays fp32."""
+    leaves = [t.detach().requires_grad_(need)
+              for t, need in zip(inputs, needs_grad)]
+    with torch.enable_grad(), torch.autocast(dout.device.type, enabled=False):
+        out = fn(*leaves)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in leaves if t.requires_grad], dout.to(out.dtype)))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
 def kernel_wrappers():
     """name -> CUDA wrapper of every kernel of the port; each wrapper carries
     a `launches` count of the kernels it launched."""
-    from facialmmt_tpu_torch.ops.kernels import attention, block_mlp, fused_block
+    from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
+                                                 fused_block, merge_kernel,
+                                                 window_attention)
 
     return {"fused_attention": attention.fused_attention_cuda,
             "fused_attention_block": fused_block.fused_attention_block_cuda,
@@ -184,7 +206,14 @@ def kernel_wrappers():
             "fused_attention_block_bwd":
                 fused_block.fused_attention_block_bwd_cuda,
             "fused_attention_block_bwd_spill":
-                fused_block.fused_attention_block_bwd_spill_cuda}
+                fused_block.fused_attention_block_bwd_spill_cuda,
+            "fused_window_attention":
+                window_attention.fused_window_attention_cuda,
+            "paired_window_attention":
+                window_attention.paired_window_attention_cuda,
+            "fused_window_attention_v2":
+                window_attention.fused_window_attention_v2_cuda,
+            "fused_merge": merge_kernel.fused_merge_cuda}
 
 
 def launch_counts() -> dict:

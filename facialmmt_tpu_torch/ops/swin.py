@@ -4,16 +4,40 @@ modules/SwinTransformer/Swin_Transformer.py).
 Window-resident layout: each stage partitions its tokens into windows once;
 every block works on (B, H*W, C) rows in window layout, and a shifted block's
 cyclic shift + re-partition is one static row gather before the attention
-half and its inverse after it.  The attention half of every block is
-ops/kernels/fused_block.py and the MLP half ops/kernels/block_mlp.py, each an
-autograd Function with hand-written forward and backward kernels.  Patch
-embedding is a patch matmul; patch merging uses the raster layout; the head
+half and its inverse after it.  Patch embedding is a patch matmul; the head
 is LN -> flatten -> Linear -> BatchNorm1d.
+
+SwinConfig's three implementation fields choose the route (every route
+computes the same function; a value outside the sets below raises ValueError
+when the module is built):
+  attention_impl  'auto'   the block's attention half in one kernel with its
+                           backward kernels (ops/kernels/fused_block.py);
+                  'xla'    plain LN1 -> qkv -> per-head attention with fp32
+                           scores -> proj, torch autograd;
+                  'pallas' that composition, the attention core on
+                           ops/kernels/window_attention.py::
+                           fused_window_attention;
+                  'pair'   the same on paired_window_attention where the
+                           window count is even and the shift mask's group
+                           count even or 1, on fused_window_attention
+                           elsewhere (the last stage at an odd face count);
+  mlp_impl        'auto', 'pallas'  the MLP half in one kernel with its
+                           backward kernel (ops/kernels/block_mlp.py);
+                  'xla'    plain LN2 -> fc1 -> exact GELU -> fc2;
+  merge_impl      'raster' window_reverse -> strided 2x2 concat ->
+                           window_partition around each PatchMerging;
+                  'window' one index_select from a stage's window layout into
+                           the next one's (merge_gather_index);
+                  'auto'   MERGE_AUTO.
+Each field selects its own half; none overrides another.
 
 Train mode (module.train()): stochastic depth draws one multiplier per image
 and block half (0 with probability rate, else 1/keep_prob) from a
-torch.Generator and hands it to the kernels as `keep`; the head's BatchNorm
-normalises with batch statistics and updates its running statistics in place.
+torch.Generator, handed to the kernels as `keep` or multiplied in on the plain
+routes; the head's BatchNorm normalises with batch statistics and updates its
+running statistics in place.  drop_rate / attn_drop_rate > 0 run (from the
+same generator) only with both halves on 'xla': the kernels carry drop-path
+only.
 
 Parameter and buffer names follow the reference state_dict
 (torch_export.export_swin_backbone), including the persistent
@@ -30,6 +54,26 @@ from torch import nn
 from facialmmt_tpu_torch.config import SwinConfig
 from facialmmt_tpu_torch.ops.kernels.block_mlp import fused_ln_mlp_residual
 from facialmmt_tpu_torch.ops.kernels.fused_block import fused_attention_block
+from facialmmt_tpu_torch.ops.kernels.window_attention import (
+    fused_window_attention, paired_window_attention)
+from facialmmt_tpu_torch.ops.layers import dropout, gelu_erf
+
+ATTENTION_IMPLS = ("xla", "pallas", "pair", "auto")
+MLP_IMPLS = ("xla", "pallas", "auto")
+MERGE_IMPLS = ("raster", "window", "auto")
+# What merge_impl='auto' resolves to.  Timed by chip_smoke.py on the three
+# stage transitions of a 64-face Swin-tiny pack in bf16, six runs (NVIDIA H100
+# 80GB HBM3, 700.00 W): window layout 0.56-0.71 ms forward and 1.5-4.2 ms
+# forward + backward, raster layout 0.76-1.00 and 2.8-7.0 ms, the window layout
+# faster in every run; the whole forward is 0.1 to 0.5 ms shorter of 22 ms.
+# The rows are the same, so no result changes.
+MERGE_AUTO = "window"
+
+
+def _check_impl(field: str, value, allowed) -> None:
+    if value not in allowed:
+        raise ValueError(f"SwinConfig.{field}={value!r}: expected one of "
+                         f"{allowed}")
 
 
 def relative_position_index(window_size: int) -> np.ndarray:
@@ -90,6 +134,24 @@ def _window_layout_index(h: int, w: int, ws: int) -> np.ndarray:
     return ((i // ws) * (w // ws) + (j // ws)) * (ws * ws) + (i % ws) * ws + j % ws
 
 
+def merge_gather_index(sh: int, sw: int, ws_s: int, ws_n: int) -> np.ndarray:
+    """(L/4, 4) row map of window-resident patch merging: row j of the NEXT
+    stage's window layout (windows of ws_n) concatenates rows [g0, g1, g2, g3]
+    of the CURRENT stage's window layout (windows of ws_s) in the reference's
+    x0, x1, x2, x3 order.  One gather in place of window_reverse + strided
+    slices + window_partition."""
+    nh, nw = sh // 2, sw // 2
+    cur = _window_layout_index(sh, sw, ws_s).flatten()   # raster -> row
+    nxt = _window_layout_index(nh, nw, ws_n).flatten()   # merged raster -> row
+    raster_of_next = np.empty(nh * nw, np.int64)
+    raster_of_next[nxt] = np.arange(nh * nw)
+    rows, cols = np.divmod(raster_of_next, nw)
+    out = np.empty((nh * nw, 4), np.int64)
+    for t, (dr, dc) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):
+        out[:, t] = cur[(2 * rows + dr) * sw + (2 * cols + dc)]
+    return out
+
+
 def shifted_window_perms(h: int, w: int, ws: int,
                          shift: int) -> tuple[np.ndarray, np.ndarray]:
     """Row permutations of the window layout that realise roll(-shift) +
@@ -104,7 +166,9 @@ def shifted_window_perms(h: int, w: int, ws: int,
 
 
 class WindowAttention(nn.Module):
-    """Holds the attention half's parameters under the reference's names."""
+    """W-MSA with relative position bias; holds the attention half's
+    parameters under the reference's names.  The 'auto' route reads them from
+    SwinBlock and never calls forward."""
 
     def __init__(self, dim: int, window_size: int, eff_window: int,
                  num_heads: int, qkv_bias: bool = True):
@@ -125,6 +189,49 @@ class WindowAttention(nn.Module):
         bias = self.relative_position_bias_table.float()[idx]
         return bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
 
+    def forward(self, x, mask=None, impl: str = "xla", *,
+                attn_drop: float = 0.0, proj_drop: float = 0.0,
+                generator: torch.Generator | None = None):
+        """x (W, N, C) normalised window rows; mask (nW, N, N) additive or
+        None.  impl 'pallas' / 'pair' put the attention core on its kernel
+        ('pair' where W is even and nW even or 1; windows that do not pair
+        go one to a block through fused_window_attention), 'xla' on per-head
+        slices of the packed qkv with fp32 scores."""
+        w, n, c = x.shape
+        nh = self.num_heads
+        hd = c // nh
+        scale = hd ** -0.5
+        qkv = self.qkv(x)
+        rel = self.relative_bias()
+        nw = 1 if mask is None else mask.shape[0]
+        if impl == "pair" and (w % 2 or (nw > 1 and nw % 2)):
+            impl = "pallas"
+        if impl in ("pallas", "pair"):
+            # the kernels take (W, h, N, hd); the transposes are copies here
+            q, k, v = qkv.reshape(w, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+            bias = rel[None] if mask is None else rel[None] + mask.float()[:, None]
+            core = (fused_window_attention if impl == "pallas"
+                    else paired_window_attention)
+            out = core((q * scale).contiguous(), k.contiguous(),
+                       v.contiguous(), bias)
+            out = out.permute(0, 2, 1, 3).reshape(w, n, c)
+        else:
+            outs = []
+            with torch.autocast(x.device.type, enabled=False):
+                for head in range(nh):
+                    q, k, v = (qkv[..., i * c + head * hd:i * c + (head + 1) * hd]
+                               for i in range(3))
+                    s = torch.bmm((q * scale).float(),
+                                  k.float().transpose(1, 2)) + rel[head]
+                    if mask is not None:
+                        s = (s.reshape(w // nw, nw, n, n)
+                             + mask.float()).reshape(w, n, n)
+                    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+                    p = dropout(p, attn_drop, self.training, generator)
+                    outs.append(torch.bmm(p, v))
+            out = torch.cat(outs, dim=-1)
+        return dropout(self.proj(out), proj_drop, self.training, generator)
+
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
@@ -139,9 +246,10 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: tuple[int, int],
                  num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path: float = 0.0):
         super().__init__()
-        self.drop_path = drop_path
+        self.drop, self.attn_drop, self.drop_path = drop, attn_drop, drop_path
         h, w = input_resolution
         ws, shift = window_size, shift_size
         if min(h, w) <= ws:
@@ -167,9 +275,30 @@ class SwinBlock(nn.Module):
             return rel.contiguous()
         return (rel + self.attn_mask.float()[:, None]).contiguous()
 
-    def forward(self, x, keep_attn=None, keep_mlp=None):
+    def forward(self, x, keep_attn=None, keep_mlp=None,
+                attention_impl: str = "auto", mlp_impl: str = "auto",
+                generator: torch.Generator | None = None):
         """keep_attn / keep_mlp: optional (B,) per-image stochastic-depth
-        multipliers of the two halves, repeated per window / per token."""
+        multipliers of the two halves.  attention_impl / mlp_impl: the route
+        of each half (module docstring); `generator` feeds the dropouts of
+        the 'xla' routes."""
+        if attention_impl == "auto":
+            x = self._attention_half_fused(x, keep_attn)
+        else:
+            x = self._attention_half(x, keep_attn, attention_impl, generator)
+        if mlp_impl == "xla":
+            return self._mlp_half(x, keep_mlp, generator)
+        b, l, c = x.shape
+        out = fused_ln_mlp_residual(
+            x.reshape(b * l, c).contiguous(), self.norm2.weight,
+            self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+            self.mlp.fc2.weight, self.mlp.fc2.bias,
+            None if keep_mlp is None else keep_mlp.repeat_interleave(l))
+        return out.reshape(b, l, c)
+
+    def _attention_half_fused(self, x, keep):
+        """LN1 commutes with the row gather, so a shifted block permutes raw x
+        and the residual is added inside the kernel before the inverse."""
         b, l, c = x.shape
         n = self.ws * self.ws
         a = self.attn
@@ -180,34 +309,70 @@ class SwinBlock(nn.Module):
             xp.reshape(b * (l // n), n, c).contiguous(), self.norm1.weight,
             self.norm1.bias, a.qkv.weight, qkv_b, a.proj.weight, a.proj.bias,
             self.window_bias(),
-            None if keep_attn is None else keep_attn.repeat_interleave(l // n))
+            None if keep is None else keep.repeat_interleave(l // n))
         x = y.reshape(b, l, c)
+        return x[:, self.inv] if self.shift > 0 else x
+
+    def _attention_half(self, x, keep, impl, generator):
+        b, l, c = x.shape
+        n = self.ws * self.ws
+        y = layer_norm(self.norm1, x)
         if self.shift > 0:
-            x = x[:, self.inv]
-        out = fused_ln_mlp_residual(
-            x.reshape(b * l, c).contiguous(), self.norm2.weight,
-            self.norm2.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
-            self.mlp.fc2.weight, self.mlp.fc2.bias,
-            None if keep_mlp is None else keep_mlp.repeat_interleave(l))
-        return out.reshape(b, l, c)
+            y = y[:, self.perm]
+        y = self.attn(y.reshape(b * (l // n), n, c), self.attn_mask, impl,
+                      attn_drop=self.attn_drop, proj_drop=self.drop,
+                      generator=generator).reshape(b, l, c)
+        if self.shift > 0:
+            y = y[:, self.inv]
+        return x + _drop_path(y, keep)
+
+    def _mlp_half(self, x, keep, generator):
+        y = gelu_erf(self.mlp.fc1(layer_norm(self.norm2, x)))
+        y = dropout(y, self.drop, self.training, generator)
+        y = dropout(self.mlp.fc2(y), self.drop, self.training, generator)
+        return x + _drop_path(y, keep)
+
+
+def _drop_path(y, keep):
+    """y (B, L, C) scaled per image by the (B,) multipliers, in y's dtype."""
+    return y if keep is None else (y * keep[:, None, None]).to(y.dtype)
 
 
 class PatchMerging(nn.Module):
-    """Raster 2x2 concat (x0, x1, x2, x3 order) + LN + Linear(4C -> 2C, no bias)."""
+    """2x2 concat (x0, x1, x2, x3 order) + LN + Linear(4C -> 2C, no bias).
 
-    def __init__(self, input_resolution: tuple[int, int], dim: int):
+    layout='raster': the input is (B, H*W, C) raster rows and so is the
+    output.  layout='window': the input is the stage's window-layout rows
+    (windows of `window_size`) and the output comes out in the NEXT stage's
+    window layout (windows of `next_window_size`) through one row gather.  The
+    per-row arithmetic is the same, so the two agree exactly up to row order."""
+
+    def __init__(self, input_resolution: tuple[int, int], dim: int,
+                 layout: str = "raster", window_size: int = 7,
+                 next_window_size: int = 7):
         super().__init__()
         self.input_resolution = input_resolution
+        self.layout = layout
         self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        if layout == "window":
+            idx = merge_gather_index(*input_resolution, window_size,
+                                     next_window_size)
+            self.register_buffer("index", torch.from_numpy(idx.reshape(-1)),
+                                 persistent=False)
 
-    def forward(self, x):
+    def gather(self, x):
+        """(B, L, C) -> (B, L/4, 4C): each output row's 2x2 neighbourhood."""
         h, w = self.input_resolution
         b, l, c = x.shape
+        if self.layout == "window":
+            return x.index_select(1, self.index).reshape(b, l // 4, 4 * c)
         x = x.reshape(b, h, w, c)
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
-                       x[:, 1::2, 1::2]], dim=-1).reshape(b, l // 4, 4 * c)
-        return self.reduction(layer_norm(self.norm, x))
+        return torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
+                          x[:, 1::2, 1::2]], dim=-1).reshape(b, l // 4, 4 * c)
+
+    def forward(self, x):
+        return self.reduction(layer_norm(self.norm, self.gather(x)))
 
 
 class PatchEmbed(nn.Module):
@@ -253,7 +418,12 @@ class SwinTransformer(nn.Module):
 
     def __init__(self, cfg: SwinConfig):
         super().__init__()
+        _check_impl("attention_impl", cfg.attention_impl, ATTENTION_IMPLS)
+        _check_impl("mlp_impl", cfg.mlp_impl, MLP_IMPLS)
+        _check_impl("merge_impl", cfg.merge_impl, MERGE_IMPLS)
         self.cfg = cfg
+        self.merge_layout = (MERGE_AUTO if cfg.merge_impl == "auto"
+                             else cfg.merge_impl)
         self.patch_embed = PatchEmbed(cfg)
         res = cfg.patches_resolution
         dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
@@ -264,11 +434,15 @@ class SwinTransformer(nn.Module):
             first = sum(cfg.depths[:s])
             blocks = [SwinBlock(dim, sres, cfg.num_heads[s], cfg.window_size,
                                 0 if d % 2 == 0 else cfg.window_size // 2,
-                                cfg.mlp_ratio, cfg.qkv_bias,
-                                float(dpr[first + d]))
+                                cfg.mlp_ratio, cfg.qkv_bias, cfg.drop_rate,
+                                cfg.attn_drop_rate, float(dpr[first + d]))
                       for d in range(depth)]
-            down = (PatchMerging(sres, dim) if s < len(cfg.depths) - 1
-                    else None)
+            down = None
+            if s < len(cfg.depths) - 1:
+                down = PatchMerging(
+                    sres, dim, self.merge_layout,
+                    min(cfg.window_size, *sres),
+                    min(cfg.window_size, sres[0] // 2, sres[1] // 2))
             self.layers.append(BasicLayer(blocks, down))
         final = cfg.num_features
         final_tokens = (res[0] // 2 ** (len(cfg.depths) - 1)) * \
@@ -279,7 +453,8 @@ class SwinTransformer(nn.Module):
             nn.BatchNorm1d(cfg.out_feature_dim, eps=1e-5, momentum=0.1))
 
     def forward(self, x, *, generator: torch.Generator | None = None,
-                use_running_average: bool | None = None, keeps=None):
+                use_running_average: bool | None = None, keeps=None,
+                attention_impl: str | None = None):
         """x (B, H, W, 3) normalised, channel-last -> (B, out_feature_dim).
 
         In train mode each block half with a drop-path rate > 0 draws its
@@ -287,20 +462,31 @@ class SwinTransformer(nn.Module):
         (keep_attn, keep_mlp) per block, overrides the draw.
         `use_running_average` overrides the BatchNorm mode, which otherwise
         follows the module's (running statistics in eval, batch statistics
-        in train)."""
+        in train).  `attention_impl` overrides cfg.attention_impl for this
+        call."""
         cfg = self.cfg
-        if cfg.drop_rate or cfg.attn_drop_rate:
+        attn_impl = attention_impl or cfg.attention_impl
+        _check_impl("attention_impl", attn_impl, ATTENTION_IMPLS)
+        if (cfg.drop_rate or cfg.attn_drop_rate) and \
+                (attn_impl, cfg.mlp_impl) != ("xla", "xla"):
             raise NotImplementedError(
-                "Swin drop_rate / attn_drop_rate > 0 (the reference config "
-                "has both at 0.0; the block kernels carry drop-path only)")
-        x = self.patch_embed(x)
+                "Swin drop_rate / attn_drop_rate > 0 need attention_impl='xla' "
+                "and mlp_impl='xla' (the reference config has both rates at "
+                "0.0; the kernels carry drop-path only)")
+        x = dropout(self.patch_embed(x), cfg.drop_rate, self.training,
+                    generator)
         res = cfg.patches_resolution
         blk = 0
+        in_window_layout = False
         for s, layer in enumerate(self.layers):
             sh, sw = res[0] // 2 ** s, res[1] // 2 ** s
             ws = min(cfg.window_size, sh, sw)
             b, _, c = x.shape
-            x = window_partition(x.reshape(b, sh, sw, c), ws).reshape(b, sh * sw, c)
+            # enter the window layout once per stage, unless the previous
+            # stage's window-layout merge already emitted it
+            if not in_window_layout:
+                x = window_partition(x.reshape(b, sh, sw, c), ws).reshape(
+                    b, sh * sw, c)
             for block in layer.blocks:
                 if keeps is not None:
                     keep_attn, keep_mlp = keeps[blk]
@@ -310,10 +496,14 @@ class SwinTransformer(nn.Module):
                                               x.device) for _ in range(2))
                 else:
                     keep_attn = keep_mlp = None
-                x = block(x, keep_attn, keep_mlp)
+                x = block(x, keep_attn, keep_mlp, attn_impl, cfg.mlp_impl,
+                          generator)
                 blk += 1
-            x = window_reverse(x.reshape(-1, ws * ws, c), ws, sh, sw)
-            x = x.reshape(b, sh * sw, c)
+            in_window_layout = (layer.downsample is not None
+                                and self.merge_layout == "window")
+            if not in_window_layout:
+                x = window_reverse(x.reshape(-1, ws * ws, c), ws, sh, sw)
+                x = x.reshape(b, sh * sw, c)
             if layer.downsample is not None:
                 x = layer.downsample(x)
         ln, _, lin, bn = self.output_layer

@@ -11,12 +11,16 @@ bound).  The backward kernels sum across blocks with fp32 atomics, so two
 runs agree to rounding, not bit for bit: REPEAT_BOUND.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from facialmmt_tpu_torch.ops import kernels
-from facialmmt_tpu_torch.ops.kernels import attention, block_mlp, fused_block
+from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
+                                             fused_block, merge_kernel,
+                                             window_attention)
 
 BOUND = 2e-2
 REPEAT_BOUND = 1e-3   # run-to-run, relative to max|out|: fp32 atomic order
@@ -218,13 +222,185 @@ def test_autograd_functions_launch_the_backward_kernels(rng, cuda_device):
     assert kernels.launch_counts()["fused_ln_mlp_residual_bwd"] == 1
 
 
+WINDOW_KERNELS = {
+    "fused": window_attention.fused_window_attention_cuda,
+    "paired": window_attention.paired_window_attention_cuda,
+    "v2": window_attention.fused_window_attention_v2_cuda}
+
+
+def _window_inputs(rng, dev, w, h, n, hd, nw):
+    bf = lambda a: torch.tensor(a).to(dev, torch.bfloat16).contiguous()
+    bias = rng.normal(size=(nw, h, n, n))
+    if nw > 1:
+        bias += np.where(rng.random((nw, 1, n, n)) > 0.7, -100.0, 0.0)
+    return (bf(rng.normal(size=(w, h, n, hd)) * hd ** -0.5),
+            bf(rng.normal(size=(w, h, n, hd))),
+            bf(rng.normal(size=(w, h, n, hd))),
+            torch.tensor(bias, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,h,n,hd,nw", [(128, 3, 49, 32, 64),
+                                         (12, 24, 49, 32, 1),
+                                         (8, 2, 16, 16, 4),
+                                         (6, 1, 64, 64, 1)])
+@pytest.mark.parametrize("variant", sorted(WINDOW_KERNELS))
+def test_window_attention_kernels(rng, cuda_device, variant, w, h, n, hd, nw):
+    """Every entry point at stage shapes, a tiny one and the largest tile;
+    W = 12 and 6 make v2 shrink its group to 4 and 3."""
+    args = _window_inputs(rng, cuda_device, w, h, n, hd, nw)
+    got = WINDOW_KERNELS[variant](*args)
+    want = window_attention.window_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= BOUND
+
+
+@pytest.mark.gpu
+def test_window_attention_tilings_agree_bit_for_bit(rng, cuda_device):
+    """Windows per block (side by side or one after another) change no
+    arithmetic: every tiling of every entry point gives the same bits."""
+    args = _window_inputs(rng, cuda_device, 24, 3, 49, 32, 4)
+    base = window_attention.fused_window_attention_cuda(*args)
+    for out in (window_attention.fused_window_attention_cuda(*args, 4),
+                window_attention.fused_window_attention_cuda(*args, 5),
+                window_attention.paired_window_attention_cuda(*args),
+                window_attention.fused_window_attention_v2_cuda(*args, 4),
+                window_attention.fused_window_attention_v2_cuda(*args, 3)):
+        assert torch.equal(out, base)
+    with pytest.raises(ValueError, match="even W"):
+        window_attention.paired_window_attention_cuda(
+            *_window_inputs(rng, cuda_device, 3, 1, 16, 16, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c4", [(1568, 384), (1000, 768), (196, 1536),
+                                  (50, 32)])
+def test_fused_merge_kernel(rng, cuda_device, t, c4):
+    """T = 1000 and 50 are not multiples of the 32-row tile."""
+    bf = lambda a: torch.tensor(a).to(cuda_device, torch.bfloat16).contiguous()
+    args = (bf(rng.normal(size=(2, t // 2, c4))),
+            bf(1 + 0.1 * rng.normal(size=c4)), bf(0.1 * rng.normal(size=c4)),
+            bf(rng.normal(size=(c4, c4 // 2)) / np.sqrt(c4)))
+    got = merge_kernel.fused_merge_cuda(*args)
+    want = merge_kernel.fused_merge_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (2, t // 2, c4 // 2)
+    assert _rel(got, want) <= BOUND
+
+
+@pytest.mark.gpu
+def test_window_and_merge_functions_differentiate_their_plain_versions(
+        rng, cuda_device):
+    """fp32 leaves, bf16 kernels forward, torch autograd of the plain version
+    backward: gradients in the leaves' dtype, close to the plain version's
+    own gradients."""
+    kernels.reset_launch_counts()
+    for fn, name in ((window_attention.fused_window_attention,
+                      "fused_window_attention"),
+                     (window_attention.paired_window_attention,
+                      "paired_window_attention"),
+                     (window_attention.fused_window_attention_v2,
+                      "fused_window_attention_v2")):
+        args = [a.float().requires_grad_() for a in
+                _window_inputs(rng, cuda_device, 8, 3, 49, 32, 4)]
+        fn(*args).square().mean().backward()
+        got = [a.grad.clone() for a in args]
+        assert kernels.launch_counts()[name] == 1
+        for a in args:
+            a.grad = None
+        window_attention.window_attention_plain(*args).square().mean().backward()
+        for g, a in zip(got, args):
+            assert g.dtype == torch.float32 and _rel(g, a.grad) <= BOUND
+    bf = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda_device)
+    args = [bf(rng.normal(size=(2, 98, 384))).requires_grad_(),
+            bf(1 + 0.1 * rng.normal(size=384)).requires_grad_(),
+            bf(0.1 * rng.normal(size=384)).requires_grad_(),
+            bf(rng.normal(size=(384, 192)) / 20).requires_grad_()]
+    merge_kernel.fused_merge(*args).square().mean().backward()
+    assert kernels.launch_counts()["fused_merge"] == 1
+    assert all(a.grad is not None and torch.isfinite(a.grad).all()
+               for a in args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [("pallas", "xla", "window"),
+                                   ("pair", "auto", "raster"),
+                                   ("xla", "xla", "window")])
+def test_swin_routes_on_the_card(rng, cuda_device, route):
+    """A narrow two-stage Swin in bf16 on the card under each route against
+    the default route with the same weights; the routes launch their own
+    kernels and not the fused block's."""
+    from facialmmt_tpu_torch.config import SwinConfig
+    from facialmmt_tpu_torch.ops.swin import SwinTransformer
+
+    cfg = SwinConfig(img_size=32, patch_size=4, embed_dim=32, depths=(2, 2),
+                     num_heads=(2, 4), window_size=4, drop_path_rate=0.0,
+                     out_feature_dim=16)
+    torch.manual_seed(0)
+    base = SwinTransformer(cfg).to(cuda_device, torch.bfloat16).eval()
+    attention_impl, mlp_impl, merge_impl = route
+    routed = SwinTransformer(dataclasses.replace(
+        cfg, attention_impl=attention_impl, mlp_impl=mlp_impl,
+        merge_impl=merge_impl)).to(cuda_device, torch.bfloat16).eval()
+    routed.load_state_dict(base.state_dict(), strict=True)
+    x = torch.tensor(rng.normal(size=(4, 32, 32, 3))).to(cuda_device,
+                                                         torch.bfloat16)
+    with torch.no_grad():
+        want = base(x)
+        kernels.reset_launch_counts()
+        got = routed(x)
+    counts = kernels.launch_counts()
+    assert counts["fused_attention_block"] == 0
+    assert counts["fused_window_attention"] == (4 if attention_impl == "pallas"
+                                                else 0)
+    assert counts["paired_window_attention"] == (4 if attention_impl == "pair"
+                                                 else 0)
+    assert counts["fused_ln_mlp_residual"] == (0 if mlp_impl == "xla" else 4)
+    assert _rel(got, want) <= 5e-2      # bf16 through four blocks
+
+
+@pytest.mark.gpu
+def test_pair_route_at_an_odd_face_count_stays_on_the_kernels(rng,
+                                                              cuda_device):
+    """3 faces under 'pair': stage 0 has 12 windows and 4 mask groups
+    (paired), stage 1 one window a face, an odd count, which goes one to a
+    block through fused_window_attention; the plain core never runs on the
+    card."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch.config import SwinConfig
+    from facialmmt_tpu_torch.ops.swin import SwinTransformer
+
+    cfg = SwinConfig(img_size=32, patch_size=4, embed_dim=32, depths=(2, 2),
+                     num_heads=(2, 4), window_size=4, drop_path_rate=0.0,
+                     out_feature_dim=16, mlp_impl="xla")
+    torch.manual_seed(0)
+    base = SwinTransformer(dataclasses.replace(cfg, attention_impl="xla"))
+    base.to(cuda_device, torch.bfloat16).eval()
+    pair = SwinTransformer(dataclasses.replace(cfg, attention_impl="pair"))
+    pair.to(cuda_device, torch.bfloat16).eval()
+    pair.load_state_dict(base.state_dict(), strict=True)
+    x = torch.tensor(rng.normal(size=(3, 32, 32, 3))).to(cuda_device,
+                                                         torch.bfloat16)
+    with torch.no_grad():
+        want = base(x)
+        kernels.reset_launch_counts()
+        with mock.patch.object(torch, "bmm", side_effect=AssertionError(
+                "the plain attention core ran on a CUDA tensor")):
+            got = pair(x)
+    counts = kernels.launch_counts()
+    assert counts["paired_window_attention"] == 2
+    assert counts["fused_window_attention"] == 2
+    assert counts["fused_attention_block"] == 0
+    assert _rel(got, want) <= 5e-2      # bf16 through four blocks
+
+
 @pytest.mark.gpu
 def test_tiny_server_runs_every_kernel(cuda_device):
     """A tiny serving path on the card goes through all three kernels and
     agrees with the same weights on the CPU in fp32 (bound 2e-2 on the
     probabilities: bf16 rounding through the tiny stack)."""
-    import dataclasses
-
     from facialmmt_tpu_torch.config import FacialMMTConfig, RuntimeConfig
     from facialmmt_tpu_torch.serving import EmotionServer
 
@@ -305,8 +481,6 @@ def test_full_width_aux_step(cuda_device):
 @pytest.mark.gpu
 def test_tiny_trainer_on_the_card(cuda_device):
     """Trainer defaults to the card and runs the whole loop there."""
-    import dataclasses
-
     from facialmmt_tpu_torch.config import FacialMMTConfig
     from facialmmt_tpu_torch.data.meld import (SyntheticFerDataset,
                                                SyntheticMeldDataset)
@@ -325,4 +499,11 @@ def test_tiny_trainer_on_the_card(cuda_device):
     assert np.isfinite(f1)
     assert (trainer.state.swin_step, trainer.state.mm_step) == (4, 2)
     counts = kernels.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    default_route = ("fused_attention", "fused_attention_block",
+                     "fused_ln_mlp_residual", "fused_ln_mlp_residual_bwd",
+                     "fused_attention_block_bwd",
+                     "fused_attention_block_bwd_spill")
+    assert all(counts[k] > 0 for k in default_route), counts
+    # the window-attention and merge kernels are on other routes only
+    assert all(n == 0 for k, n in counts.items()
+               if k not in default_route), counts

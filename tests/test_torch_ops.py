@@ -343,9 +343,9 @@ def test_sampled_keep_is_zero_or_inverse_keep_prob_per_image():
     seen = []
     orig = pswin.SwinBlock.forward
 
-    def spy(self, x, keep_attn=None, keep_mlp=None):
+    def spy(self, x, keep_attn=None, keep_mlp=None, *route):
         seen.append((x.shape[0], keep_attn, keep_mlp))
-        return orig(self, x, keep_attn, keep_mlp)
+        return orig(self, x, keep_attn, keep_mlp, *route)
 
     pswin.SwinBlock.forward = spy
     try:

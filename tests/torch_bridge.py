@@ -26,7 +26,10 @@ def _build(cls, values: dict):
 
 def port_config(jax_cfg):
     """The port's config object of the same class name, from
-    dataclasses.asdict() of a JAX-package config (fields the port does not
-    have, the TPU kernel selectors, are dropped)."""
+    dataclasses.asdict() of a JAX-package config.  Every field the port has
+    is carried across, SwinConfig's attention_impl / mlp_impl / merge_impl
+    included; the few it lacks (the PRNG implementation, the
+    `fused_attention` switches of the encoder, crossmodal and text stacks)
+    are dropped."""
     cls = getattr(port_config_module, type(jax_cfg).__name__)
     return _build(cls, dataclasses.asdict(jax_cfg))
