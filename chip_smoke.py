@@ -15,7 +15,10 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      and without `keep`, shifted and unshifted bias, every output compared;
      the three window-attention entry points at every stage of a 64-face pack
      (shifted bias, nW = 64 / 16 / 4, and nW = 1) and the merge tail at the
-     three stage transitions.  Median times from CUDA events (5 launches
+     three stage transitions; the whole block at every stage shape of a
+     64-face pack (beside it the split, kernel 2 then kernel 3, on the same
+     inputs) and the shift permutation both ways at stages 0-2, bit for bit.
+     Median times from CUDA events (5 launches
      between two events for every kernel, since the window-attention kernels
      were added: `ms` values taken before that, with one launch between two
      events, are not comparable with these), and the kernels' own durations from torch.profiler
@@ -39,13 +42,25 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      LayerNorm + Linear; a 63-face forward under 'pair', whose last stage
      (an odd window count) must launch fused_window_attention; the forward's
      time under nine routes;
-  6. training: Trainer(FacialMMTConfig()).run_multimodal on synthetic
+  6. whole block and shift permutation: kernels 7 and 12 on every block's
+     input of one 64-face forward on the default route, composed as the
+     block (shift_permute, fused_whole_block, the inverse), held against the
+     block's own output, the whole block against its plain version, the
+     permutations and one backward bit for bit against the index gathers,
+     exact launch counts; the 12 blocks timed three ways (this composition,
+     the default route, ('pallas', 'xla'));
+  7. training: Trainer(FacialMMTConfig()).run_multimodal on synthetic
      in-memory datasets (300 auxiliary images at 150 a step, 8 utterances at 4
      a step): 2 auxiliary steps, 2 target steps, validation and the test
-     eval, with the parameter-movement and launch-count assertions per pass;
+     eval, with the parameter-movement and launch-count assertions per pass,
+     checkpoints to a temporary directory (size and write time of each);
      one joint step (swin_from_target, the microbatch step); a step-time
      breakdown; one auxiliary batch's gradients on the card held against the
-     CPU in fp32; two auxiliary steps under ('pallas', 'xla', 'window').
+     CPU in fp32; two auxiliary steps under ('pallas', 'xla', 'window');
+  8. resume: the same run preempted after its first target step and resumed
+     by a fresh Trainer, its final resume file held against the
+     uninterrupted run's; the trained model out as the reference's two
+     released files and back in behind an EmotionServer, answers unchanged.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -53,12 +68,15 @@ device is visible or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,6 +95,18 @@ SERVING_BOUND = 0.1
 # per leaf max|d| <= GRAD_BOUND * max|grad|, the same compounding through 12
 # Swin blocks forward and backward
 GRAD_BOUND = 0.1
+# two runs of the same training on the card: the backward kernels add across
+# blocks with fp32 atomics in an order that changes from run to run, so
+# max|d| <= REPEAT_BOUND * max|value| over each kind of tensor, not bit for bit
+# (tests/test_torch_gpu.py's bound)
+REPEAT_BOUND = 1e-3
+# a resumed run vs the uninterrupted one, per kind of tensor: no further apart
+# than RESUME_SPREAD times a second uninterrupted run is (or REPEAT_BOUND).
+# Two uninterrupted runs already differ by more than REPEAT_BOUND in the AdamW
+# moments and the BatchNorm running statistics (3 % of max|exp_avg| in
+# patch_embed.proj.bias, whose gradient sums 150 x 3136 nearly cancelling
+# terms; 0.5 % of running_var), so resume is held to the card's own spread
+RESUME_SPREAD = 4.0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 PEAK_HBM_BYTES = 3.35e12  # per second
 SWIN_STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))
@@ -107,6 +137,10 @@ KERNELS = {
         "facialmmt_tpu/ops/pallas/window_attention.py:290"),
     "fused_merge": ("facialmmt_tpu_torch/csrc/merge_kernel.cu",
                     "facialmmt_tpu/ops/pallas/merge_kernel.py:103"),
+    "fused_whole_block": ("facialmmt_tpu_torch/csrc/fused_block.cu",
+                          "facialmmt_tpu/ops/pallas/fused_block.py:848"),
+    "shift_permute": ("facialmmt_tpu_torch/csrc/shift_permute.cu",
+                      "facialmmt_tpu/ops/pallas/shift_permute.py:122"),
 }
 WINDOW_KERNELS = ("fused_window_attention", "paired_window_attention",
                   "fused_window_attention_v2")
@@ -266,8 +300,10 @@ def phase_kernels(torch, dev, rng):
 
     from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
                                                  fused_block, merge_kernel,
+                                                 shift_permute,
                                                  window_attention)
-    from facialmmt_tpu_torch.ops.swin import shifted_window_mask
+    from facialmmt_tpu_torch.ops.swin import (shifted_window_mask,
+                                              shifted_window_perms)
 
     bf = lambda a: torch.tensor(a).to(dev, torch.bfloat16).contiguous()
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
@@ -441,6 +477,57 @@ def phase_kernels(torch, dev, rng):
               f"library calls, bf16) "
               f"{cuda_ms(torch, two_calls, reps=KERNEL_REPS):.4f} ms "
               f"({fmt_ms(device_ms(torch, two_calls))} on the device alone)")
+    # kernel 7: the whole block at every Swin-tiny stage of a 64-face pack
+    # (stage 3 in two column passes).  No single PyTorch call computes it;
+    # beside it the split (kernel 2, then kernel 3) on the same inputs.
+    split_ms = split_dev = 0.0
+    for stage, (res, c, heads) in enumerate(SWIN_STAGES):
+        nw = (res // 7) ** 2
+        for shifted in ((False, True) if res > 7 else (False,)):
+            w = FACES * nw
+            args = (*block_args(w, c, heads, res, shifted),
+                    *mlp_args(1, c)[1:])
+            label = (f"stage {stage} W={w} C={c} h={heads} "
+                     f"{'shifted' if shifted else 'unshifted'}")
+            compare(torch, "fused_whole_block",
+                    fused_block.fused_whole_block_cuda,
+                    fused_block.fused_whole_block_plain, args, results,
+                    flops=(attn_block_flops(w, 49, c, False)
+                           + mlp_flops(w * 49, c, False)), label=label)
+            split = lambda: block_mlp.fused_ln_mlp_residual_cuda(
+                fused_block.fused_attention_block_cuda(*args[:8]).view(-1, c),
+                *args[8:])
+            ms = cuda_ms(torch, split, reps=KERNEL_REPS)
+            dev_ms = device_ms(torch, split)
+            split_ms += ms
+            split_dev = add_ms(split_dev, dev_ms)
+            results["fused_whole_block"]["shapes"][-1]["split_ms"] = ms
+            print(f"kernel fused_whole_block {label}: the split (kernel 2 + "
+                  f"kernel 3) on the same inputs {ms:.4f} ms "
+                  f"({fmt_ms(dev_ms)} on the device alone)")
+        torch.cuda.empty_cache()
+    whole = results["fused_whole_block"]
+    whole["split_ms"], whole["split_device_ms"] = split_ms, split_dev
+
+    # kernel 12: the shifted blocks' permutation and its inverse at 64 faces
+    # (stages 0-2; stage 3 has no shift), bit for bit; the library call is
+    # the index gather itself, x.index_select(1, perm)
+    for stage, (res, c, _) in enumerate(SWIN_STAGES[:-1]):
+        x = bf(rng.normal(size=(FACES, res * res, c)))
+        for inverse, idx in zip((False, True),
+                                shifted_window_perms(res, res, 7, 3)):
+            idx = torch.from_numpy(idx).to(dev)
+            kernel = lambda x, inverse=inverse: shift_permute.shift_permute_cuda(
+                x, res, res, 7, 3, inverse)
+            plain = lambda x, inverse=inverse: shift_permute.shift_permute_plain(
+                x, res, res, 7, 3, inverse)
+            compare(torch, "shift_permute", kernel, plain, (x,), results,
+                    flops=0, library=lambda: x.index_select(1, idx),
+                    label=f"stage {stage} B={FACES} L={res * res} C={c} "
+                          f"{'inverse' if inverse else 'forward'}")
+            if not torch.equal(kernel(x), x.index_select(1, idx)):
+                raise AssertionError(f"shift_permute stage {stage}: not bit "
+                                     f"for bit the index gather")
     for r in results.values():
         r["bound_by"] = ("operations" if r.pop("flops_ms") >= r.pop("bytes_ms")
                          else "bytes")
@@ -752,6 +839,137 @@ def phase_swin_routes(torch, dev, rng, server, gpu_name):
     return {"swin_route_forward": launches}, route_ms
 
 
+def phase_whole_shift(torch, dev, rng, server, gpu_name):
+    """Kernels 7 and 12 on the tensors of one 64-face Swin forward on the
+    default route.  No module calls fused_whole_block or shift_permute (in
+    the JAX package neither); their path is the public functions, driven
+    here on every block's input x as SwinBlock would use them: the shifted
+    blocks' permutation by shift_permute, the block by fused_whole_block,
+    the inverse permutation by shift_permute again.  Each result is held
+    against the block's own output (kernels 2 and 3 with the index gathers);
+    the whole block against its plain version, the permutations against the
+    gathers bit for bit, one backward through ShiftPermute against the
+    inverse gather of the cotangent bit for bit.  Then the 12 blocks' time
+    three ways: this composition, the block on the default route (the
+    split), and the block on ('pallas', 'xla') (cuBLAS GEMMs and kernel 8)."""
+    from facialmmt_tpu_torch.data.image_pipeline import \
+        meld_face_eval_transform
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.ops.kernels import fused_block, shift_permute
+
+    cfg = server.cfg
+    swin = server.model.swin_model.swin
+    faces = torch.from_numpy(rng.integers(0, 256, (FACES, 160, 160, 3),
+                                          dtype=np.uint8)).to(dev)
+    x = meld_face_eval_transform(faces.float(), cfg.data.swin_img_size).to(
+        torch.bfloat16)
+    seen = []
+    side = cfg.swin.patches_resolution[0]
+    blocks = [(s, side // 2 ** s, block) for s, layer in enumerate(swin.layers)
+              for block in layer.blocks]
+    hooks = [block.register_forward_hook(
+        lambda module, args, out: seen.append((args[0], out)))
+        for _, _, block in blocks]
+    with torch.no_grad():
+        swin(x)
+    for hook in hooks:
+        hook.remove()
+    if len(seen) != len(blocks):
+        raise AssertionError(f"captured {len(seen)} blocks of {len(blocks)}")
+
+    def whole_args(block, xp):
+        b, l, c = xp.shape
+        n = block.ws * block.ws
+        a, mlp = block.attn, block.mlp
+        return (xp.reshape(b * (l // n), n, c), block.norm1.weight,
+                block.norm1.bias, a.qkv.weight, a.qkv.bias, a.proj.weight,
+                a.proj.bias, block.window_bias(), block.norm2.weight,
+                block.norm2.bias, mlp.fc1.weight, mlp.fc1.bias,
+                mlp.fc2.weight, mlp.fc2.bias)
+
+    def composed(block, res, xb):
+        """The block as shift_permute -> fused_whole_block -> inverse."""
+        geo = (res, res, block.ws, block.shift)
+        xp = shift_permute.shift_permute(xb, *geo) if block.shift else xb
+        y = fused_block.fused_whole_block(*whole_args(block, xp)).view(
+            xb.shape)
+        return (shift_permute.shift_permute(y, *geo, inverse=True)
+                if block.shift else y), xp, y
+
+    worst = {"plain": 0.0, "block": 0.0}
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        for i, ((s, res, block), (xb, want)) in enumerate(zip(blocks, seen)):
+            out, xp, y = composed(block, res, xb)
+            if block.shift:
+                geo = (res, res, block.ws, block.shift)
+                back = shift_permute.shift_permute(xp, *geo, inverse=True)
+                if not (torch.equal(xp, xb[:, block.perm])
+                        and torch.equal(out, y[:, block.inv])
+                        and torch.equal(back, xb)):
+                    raise AssertionError(f"block {i}: shift_permute is not "
+                                         f"bit for bit the index gather")
+            plain = fused_block.fused_whole_block_plain(
+                *whole_args(block, xp)).view(xb.shape)
+            for key, ref, bound in (("plain", plain, KERNEL_BOUND),
+                                    ("block", want, SERVING_BOUND)):
+                err = float((y.float() - ref.float()).abs().max()
+                            if key == "plain" else
+                            (out.float() - ref.float()).abs().max())
+                rel = err / float(ref.float().abs().max())
+                if not (torch.isfinite(out).all() and rel <= bound):
+                    raise AssertionError(f"fused_whole_block on block {i} "
+                                         f"vs {key}: {rel} > {bound}")
+                worst[key] = max(worst[key], rel)
+    # one backward through ShiftPermute: the inverse kernel on the cotangent
+    i = next(i for i, (_, _, b) in enumerate(blocks) if b.shift)
+    _, res, block = blocks[i]
+    xg = seen[i][0].detach().requires_grad_()
+    cot = torch.randn_like(xg)
+    (grad,) = torch.autograd.grad(
+        shift_permute.shift_permute(xg, res, res, block.ws, block.shift), xg,
+        cot)
+    torch.cuda.synchronize()
+    if not torch.equal(grad, cot[:, block.inv]):
+        raise AssertionError("ShiftPermute backward is not the inverse gather")
+    launches = kernels.launch_counts()
+    shifted = sum(1 for _, _, b in blocks if b.shift)
+    expect = {"fused_whole_block": len(blocks), "shift_permute": 3 * shifted + 2,
+              "fused_attention_block": 0, "fused_ln_mlp_residual": 0}
+    wrong = {k: launches[k] for k, n in expect.items() if launches[k] != n}
+    if wrong:
+        raise AssertionError(f"whole-block path: launches {wrong}, expected "
+                             f"{expect}")
+    print(f"whole block: fused_whole_block on the {len(blocks)} blocks of one "
+          f"{FACES}-face forward vs its plain version worst max|d|/max "
+          f"{worst['plain']:.3g} (bound {KERNEL_BOUND}), composed with "
+          f"shift_permute vs the blocks' own outputs {worst['block']:.3g} "
+          f"(bound {SERVING_BOUND}); shift_permute on the {shifted} shifted "
+          f"blocks bit for bit the gathers both ways and round trip, its "
+          f"backward the inverse gather; launches {expect}")
+
+    # the 12 blocks three ways, each timed once in this order and once in the
+    # reverse order (medians of 10 calls)
+    ways = {"whole": lambda blk, res, xb: composed(blk, res, xb)[0],
+            "split": lambda blk, res, xb: blk(xb),
+            "pallas_xla": lambda blk, res, xb: blk(
+                xb, attention_impl="pallas", mlp_impl="xla")}
+    order = list(ways) + list(ways)[::-1]
+    times = {k: [] for k in ways}
+    with torch.no_grad():
+        for way in order:
+            times[way].append(sum(
+                cuda_ms(torch, lambda: ways[way](blk, res, xb))
+                for (_, res, blk), (xb, _) in zip(blocks, seen)))
+    for way, (a, b) in times.items():
+        print(f"whole block: the {len(blocks)} blocks of a {FACES}-face "
+              f"forward, bf16, {way}: {a:.3f} ms then {b:.3f} ms on "
+              f"{gpu_name}")
+    del seen
+    return {"swin_whole_shift": launches}, {k: statistics.mean(v)
+                                            for k, v in times.items()}
+
+
 SERVING_KERNELS = ("fused_attention", "fused_attention_block",
                    "fused_ln_mlp_residual")
 BACKWARD_KERNELS = ("fused_ln_mlp_residual_bwd", "fused_attention_block_bwd",
@@ -777,9 +995,13 @@ def torch_equal(a, b):
     return bool((a == b).all())
 
 
-def phase_training(torch, dev, gpu_name, base=None, aux_size=112):
+def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
     """`base`: the model configuration, FacialMMTConfig() unless a rehearsal
-    at a small size passes another."""
+    at a small size passes another.  The run's checkpoints go to `save_dir`;
+    its final resume file is read back and returned, with the run's
+    configuration, datasets and test F1, for phase_resume, and the files
+    are deleted."""
+    from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
     from facialmmt_tpu_torch.config import FacialMMTConfig
     from facialmmt_tpu_torch.data.meld import (SyntheticFerDataset,
                                                SyntheticMeldDataset)
@@ -789,7 +1011,8 @@ def phase_training(torch, dev, gpu_name, base=None, aux_size=112):
     base = base or FacialMMTConfig()
     cfg = base.replace(optim=dataclasses.replace(
         base.optim, num_epochs=1, aux_batch_size=AUX_IMAGES, trg_batch_size=1,
-        trg_accumulation_steps=4))
+        trg_accumulation_steps=4), runtime=dataclasses.replace(
+            base.runtime, save_model_path=save_dir))
     aux_ds = SyntheticFerDataset(2 * AUX_IMAGES, aux_size, cfg.num_labels,
                                  seed=11)
     faces = [8, 7, 9, 8, 6, 10, 8, 8]
@@ -853,12 +1076,15 @@ def phase_training(torch, dev, gpu_name, base=None, aux_size=112):
             torch.cuda.reset_peak_memory_stats()
         mark["t"] = time.perf_counter()
 
+    print(f"training: checkpoints to a temporary directory with "
+          f"{shutil.disk_usage(save_dir).free / 2 ** 30:.1f} GiB free")
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mark["t"] = t0
-    f1 = trainer.run_multimodal(aux_ds, train_ds, eval_ds, eval_ds,
-                                on_event=on_event)
+    with timed_saves(gpu_name):
+        f1 = trainer.run_multimodal(aux_ds, train_ds, eval_ds, eval_ds,
+                                    on_event=on_event)
     torch.cuda.synchronize()
     seen["launches"]["eval"] = kernels.launch_counts()
     require_launched(seen["launches"]["eval"], SERVING_KERNELS,
@@ -923,11 +1149,201 @@ def phase_training(torch, dev, gpu_name, base=None, aux_size=112):
           f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
           f"launches {paths['joint']} on {gpu_name}")
 
+    ckpt = CheckpointManager(save_dir)
+    run = {"cfg": cfg, "datasets": (aux_ds, train_ds, eval_ds), "f1": f1,
+           "final": ckpt.restore(f"step_{cfg.optim.num_epochs}")}
+    for name in os.listdir(save_dir):
+        os.remove(os.path.join(save_dir, name))
+
     step_breakdown(torch, trainer, aux_ds, train_ds, gpu_name)
     grad_check(torch, dev, cfg, model, aux_ds, trainer.generator)
     paths["aux_pallas"] = route_aux_steps(torch, cfg, aux_ds, train_ds,
                                           aux_size, gpu_name)
-    return paths
+    return paths, run
+
+
+@contextlib.contextmanager
+def timed_saves(gpu_name):
+    """Print the size and write time of every checkpoint file written inside
+    the block (CheckpointManager.save, timed on the host clock around the
+    write, which ends in an fsync)."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
+
+    real = CheckpointManager.save
+
+    def save(manager, tag, tree):
+        t0 = time.perf_counter()
+        path = real(manager, tag, tree)
+        seconds = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        print(f"checkpoint: {tag} {size / 1e9:.3f} GB written in "
+              f"{seconds:.2f} s ({size / 1e9 / seconds:.2f} GB/s) on "
+              f"{gpu_name}")
+        return path
+
+    with mock.patch.object(CheckpointManager, "save", save):
+        yield
+
+
+def phase_resume(torch, dev, gpu_name, run, save_dir):
+    """run_multimodal of phase_training twice more: once uninterrupted (the
+    card's run-to-run spread: the backward kernels add with fp32 atomics, so
+    two runs differ at rounding), once preempted (guard.trigger()) right
+    after its first target step and resumed by a fresh Trainer.  The resumed
+    run's final resume file against the first run's: parameters, BatchNorm
+    statistics and both AdamW moments no further apart than RESUME_SPREAD
+    times the second uninterrupted run is; step counts, schedules, generator
+    state and test F1 exactly equal.
+    Then the trained model goes out as the reference's two released files
+    and back in through load_torch_state_dict + released_state_dict, behind
+    an EmotionServer whose answers must not change."""
+    from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
+    from facialmmt_tpu_torch.checkpoint.torch_load import (released_state_dict,
+                                                           save_released)
+    from facialmmt_tpu_torch.config import RuntimeConfig
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.serving import EmotionServer
+    from facialmmt_tpu_torch.train.trainer import Trainer
+    from facialmmt_tpu_torch.utils import preemption
+
+    cfg = run["cfg"].replace(runtime=dataclasses.replace(
+        run["cfg"].runtime, save_model_path=save_dir))
+    guard = preemption.install_preemption_guard()
+    fired = []
+
+    def preempt_after_first_target_step(name, **info):
+        if name == "trg_step" and not fired:
+            fired.append(info["index"])
+            guard.trigger()
+
+    ckpt = CheckpointManager(save_dir)
+    final = f"step_{cfg.optim.num_epochs}"
+
+    def take_final():
+        payload = ckpt.restore(final)
+        for name in os.listdir(save_dir):
+            os.remove(os.path.join(save_dir, name))
+        return payload
+
+    # the same run again, uninterrupted: the card's run-to-run spread
+    with timed_saves(gpu_name):
+        f1_rerun = Trainer(cfg).run_multimodal(*run["datasets"],
+                                               run["datasets"][2])
+    rerun = take_final()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with timed_saves(gpu_name):
+            try:
+                Trainer(cfg).run_multimodal(
+                    *run["datasets"], run["datasets"][2],
+                    on_event=preempt_after_first_target_step)
+                raise AssertionError("the preemption request was not taken")
+            except preemption.Preempted as e:
+                print(f"resume: preempted after target step {fired}: {e}")
+            preempted_s = time.perf_counter() - t0
+            preemption.install_preemption_guard()     # clears the request
+            t0 = time.perf_counter()
+            trainer = Trainer(cfg)
+            f1 = trainer.run_multimodal(*run["datasets"], run["datasets"][2],
+                                        resume=True)
+    finally:
+        guard.uninstall()
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    require_launched(launches, SERVING_KERNELS + BACKWARD_KERNELS,
+                     "the preempted and resumed run")
+    got = ckpt.restore(final)
+    want = run["final"]
+
+    model = trainer.state.model
+    trainable = {name for name, _ in model.named_parameters()}
+
+    def named(payload):
+        """kind -> {name: tensor} of a resume file."""
+        out = {"trainable parameters": {}, "BatchNorm running statistics": {},
+               "exp_avg": {}, "exp_avg_sq": {}}
+        for name, t in payload["model"].items():
+            if name in trainable:
+                out["trainable parameters"][name] = t
+            elif "running_" in name:
+                out["BatchNorm running statistics"][name] = t
+        for opt, branch in (("swin_opt", model.swin_model),
+                            ("mm_opt", model.multimodal)):
+            names = [name for name, _ in branch.named_parameters()]
+            for i, st in payload["optim"][opt]["adamw"]["state"].items():
+                for key in ("exp_avg", "exp_avg_sq"):
+                    out[key][f"{opt} {names[int(i)]}"] = st[key]
+        return out
+
+    def worst(a, b):
+        return max((float((a[k].float() - b[k].float()).abs().max()), k)
+                   for k in a)
+
+    ref, res, again = named(want), named(got), named(rerun)
+    for kind, a in ref.items():
+        if not (a and a.keys() == res[kind].keys() == again[kind].keys()):
+            raise AssertionError(f"resume files differ in their {kind}")
+        d_resume, at = worst(a, res[kind])
+        d_rerun, at_rerun = worst(a, again[kind])
+        scale = max(float(t.float().abs().max()) for t in a.values())
+        bound = max(RESUME_SPREAD * d_rerun, REPEAT_BOUND * scale)
+        if d_resume > bound:
+            raise AssertionError(
+                f"resume vs uninterrupted, {kind}: max|d| {d_resume} at {at} "
+                f"> {bound} (a second uninterrupted run: {d_rerun} at "
+                f"{at_rerun})")
+        print(f"resume: {kind} ({len(a)} tensors, largest |value| "
+              f"{scale:.3g}) vs the uninterrupted run: max|d| {d_resume:.3g} "
+              f"at {at}; a second uninterrupted run {d_rerun:.3g} at "
+              f"{at_rerun}; bound max({RESUME_SPREAD} x that, "
+              f"{REPEAT_BOUND} x largest) {bound:.3g}")
+    exact = {"steps": [(p["optim"]["swin_step"], p["optim"]["mm_step"])
+                       for p in (want, got, rerun)],
+             "schedules": [[p["optim"][o]["schedule"]["last_epoch"]
+                            for o in ("swin_opt", "mm_opt")]
+                           for p in (want, got, rerun)],
+             "generator": [want["generator"].tolist(),
+                           got["generator"].tolist(),
+                           rerun["generator"].tolist()],
+             "test F1": [run["f1"], f1, f1_rerun]}
+    wrong = {k: v for k, v in exact.items() if not v[0] == v[1] == v[2]}
+    if wrong:
+        raise AssertionError(f"resume vs uninterrupted: {sorted(wrong)} "
+                             f"differ: {wrong}")
+    print(f"resume: preempted run {preempted_s:.1f} s, resumed run "
+          f"{resumed_s:.1f} s; steps {exact['steps'][1]}, schedules "
+          f"{exact['schedules'][1]}, generator state and test W-F1 "
+          f"{f1:.4f} equal to the uninterrupted runs'; launches {launches} "
+          f"on {gpu_name}")
+
+    # released weights: out as the reference's two files, in again
+    det = cfg.replace(runtime=RuntimeConfig(deterministic_gumbel=True))
+    sd = trainer.state.model.state_dict()
+    mm_pt, swin_pt = (os.path.join(save_dir, name)
+                      for name in ("multimodal.pt", "swin.pt"))
+    save_released(sd, mm_pt, swin_pt)
+    loaded = released_state_dict(mm_pt, swin_pt)
+    rng = np.random.default_rng(3)
+    pack = synthetic_requests(rng, det, [8] * 8, 512)
+    answers = []
+    for weights in (sd, loaded):
+        server = EmotionServer(det, weights, max_batch=8, face_capacity=FACES,
+                               device=dev)
+        answers.append(server.predict_raw(*server.build_pack(pack)))
+        del server
+    if not np.array_equal(*answers):
+        raise AssertionError("released files: the server's answers changed")
+    print(f"resume: the trained model as the reference's two files "
+          f"({os.path.getsize(mm_pt) / 1e9:.3f} + "
+          f"{os.path.getsize(swin_pt) / 1e9:.3f} GB), loaded back with "
+          f"released_state_dict (strict): an EmotionServer's answers on one "
+          f"8-request pack unchanged")
+    return {"resume": launches}
 
 
 def route_aux_steps(torch, cfg, aux_ds, train_ds, aux_size, gpu_name):
@@ -1166,16 +1582,24 @@ def main(json_out: str = "") -> int:
     paths, server = phase_serving(torch, dev, rng, gpu_name)
     route_paths, route_ms = phase_swin_routes(torch, dev, rng, server, gpu_name)
     paths.update(route_paths)
+    whole_paths, whole_ms = phase_whole_shift(torch, dev, rng, server, gpu_name)
+    paths.update(whole_paths)
     del server
     torch.cuda.empty_cache()
-    paths.update(phase_training(torch, dev, gpu_name))
+    with tempfile.TemporaryDirectory() as save_dir:
+        train_paths, run = phase_training(torch, dev, gpu_name, save_dir)
+        paths.update(train_paths)
+        torch.cuda.empty_cache()
+        paths.update(phase_resume(torch, dev, gpu_name, run, save_dir))
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)
         with open(json_out, "w") as f:
             json.dump({"card": gpu_name, "kernels": results,
                        "launches": paths,
-                       "swin_forward_ms_by_route": route_ms}, f, indent=1)
+                       "swin_forward_ms_by_route": route_ms,
+                       "swin_blocks_ms_whole_split_pallas_xla": whole_ms},
+                      f, indent=1)
     print(gpu_name)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

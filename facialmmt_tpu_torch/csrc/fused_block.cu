@@ -33,6 +33,31 @@
 // Rounding follows the JAX kernel: xn, q (after scale), k, v, the softmax
 // probabilities and the concatenated head outputs are rounded to bf16; the
 // residual add is in fp32 and rounded once.
+//
+// The same device code, instantiated with kWhole, is the WHOLE Swin block
+// (second entry point, fmmt_fused_whole_block):
+//   y = attention half as above (no keep), rounded to bf16
+//   out = y + fc2(GELU_erf(fc1(LN2(y))))
+// with fc1 weight (HID,C) / bias (HID) and fc2 weight (C,HID) / bias (C) in
+// torch Linear layout, LN2 gamma2/beta2 (C), all bf16.
+//
+// Replaces: facialmmt_tpu/ops/pallas/fused_block.py::fused_whole_block.
+//
+// What bounds it: the attention half's work plus the MLP's 16*N*C*C FLOP per
+// window, against the same 4*N*C bytes of token traffic; the split pair of
+// kernels (attention half, then the MLP half) moves the (T, C) activations
+// through device memory twice more.  What the design does about it: once proj
+// is done the window's rows never leave the SM.  The attention half's buffers
+// are reused: y (bf16, the rounding _whole_reference makes between the
+// halves) goes into the xn buffer, LN2(y) into the attn buffer, and the
+// hidden dimension is walked in chunks of 64 units as in csrc/block_mlp.cu:
+// fc1's 64 x 64 tile per chunk (bias, GELU) lands in bf16 where the
+// probabilities were, and fc2's (64 x C) fp32 result accumulates in wmma
+// fragments held in registers, kAcc per warp (at most 12, 96 registers).
+// Where 64 x C needs more than 8 x 12 fragments (C = 768, stage 3: 192 tiles)
+// the output columns are taken in passes of 384, each pass walking the
+// hidden dimension again: fc1 runs twice there, and no fp32 (64 x 768)
+// accumulator (196 KB) has to fit in shared memory beside y and LN2(y).
 #include "common.cuh"
 
 #include <math.h>
@@ -83,6 +108,28 @@ __host__ __device__ inline Layout layout(int C, int hd) {
   return L;
 }
 
+// The MLP half's operands (kernel 7 only).
+struct MlpArgs {
+  const __nv_bfloat16* gamma2;
+  const __nv_bfloat16* beta2;
+  const __nv_bfloat16* w1;
+  const __nv_bfloat16* b1;
+  const __nv_bfloat16* w2;
+  const __nv_bfloat16* b2;
+  int HID;
+};
+
+constexpr int kChunk = 64;  // hidden units per chunk of the MLP half
+static_assert(kChunk == kRows, "the GELU chunk takes the place of the "
+              "(kRows x kRows) probabilities");
+
+template <int kAcc>
+__device__ void mlp_half(const __nv_bfloat16* y, __nv_bfloat16* yn,
+                         __nv_bfloat16* hb, float* stage,
+                         const MlpArgs& m, __nv_bfloat16* ow, int N, int C,
+                         int ldx, float eps, int warp, int lane);
+
+template <bool kWhole, int kAcc>
 __global__ void __launch_bounds__(kThreads)
 fused_block_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ gamma,
@@ -94,7 +141,7 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ bias,
                    const float* __restrict__ keep,
                    __nv_bfloat16* __restrict__ out, int N, int C, int heads,
-                   int nW, float eps) {
+                   int nW, float eps, const MlpArgs mlp) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int hd = C / heads;
   const Layout L = layout(C, hd);
@@ -250,7 +297,13 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x,
     for (int e = lane; e < 256; e += 32) {
       const int r = m * 16 + e / 16;
       const int c = n * 16 + e % 16;
-      if (r < N) {
+      if constexpr (kWhole) {
+        // y, rounded to bf16, over the dead xn buffer (padded rows zero)
+        xn[(size_t)r * L.ldx + c] = __float2bfloat16(
+            r < N ? stage[e] + fmmt::bf(bproj[c])
+                        + fmmt::bf(xw[(size_t)r * C + c])
+                  : 0.f);
+      } else if (r < N) {
         const float y = (stage[e] + fmmt::bf(bproj[c])) * kw;
         ow[(size_t)r * C + c] =
             __float2bfloat16(y + fmmt::bf(xw[(size_t)r * C + c]));
@@ -258,6 +311,132 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x,
     }
     __syncwarp();
   }
+  if constexpr (kWhole) {
+    __syncthreads();
+    // 4. the MLP half on the resident rows: LN2(y) over the dead attn
+    //    buffer, the GELU chunk and the staging tiles in the score region
+    mlp_half<kAcc>(xn, attn, P, stage, mlp, ow, N, C, L.ldx, eps, warp, lane);
+  }
+}
+
+template <int kAcc>
+__device__ void mlp_half(const __nv_bfloat16* y, __nv_bfloat16* yn,
+                         __nv_bfloat16* hb, float* stage,
+                         const MlpArgs& m, __nv_bfloat16* ow, int N, int C,
+                         int ldx, float eps, int warp, int lane) {
+  constexpr int ldh = kChunk + 8;   // bf16 row stride of the GELU chunk
+  for (int r = warp; r < kRows; r += kWarps) {
+    if (r < N) {
+      fmmt::warp_layernorm_row(y + (size_t)r * ldx, m.gamma2, m.beta2,
+                               yn + (size_t)r * ldx, C, eps, lane);
+    } else {
+      for (int i = lane; i < C; i += 32)
+        yn[(size_t)r * ldx + i] = __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+
+  // output column tiles per pass: at most 2 * kAcc (4 row tiles x 2 * kAcc
+  // column tiles = 8 warps x kAcc fragments)
+  const int ctiles = C / 16;
+  for (int c0 = 0; c0 < ctiles; c0 += 2 * kAcc) {
+    const int cpass = min(2 * kAcc, ctiles - c0);
+    const int ntiles = 4 * cpass;
+    FragC yacc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) wmma::fill_fragment(yacc[i], 0.f);
+
+    for (int j0 = 0; j0 < m.HID; j0 += kChunk) {
+      // fc1 for the chunk: 4 x 4 tiles of 16 x 16, two per warp; bias and
+      // GELU in fp32 on the warp's staging tile, the result in bf16
+      for (int t = warp; t < 16; t += kWarps) {
+        const int fm = t / 4;
+        const int fn = t % 4;
+        FragC acc;
+        wmma::fill_fragment(acc, 0.f);
+        for (int k0 = 0; k0 < C; k0 += 16) {
+          FragA a;
+          FragBCol b;
+          wmma::load_matrix_sync(a, yn + (size_t)(fm * 16) * ldx + k0, ldx);
+          wmma::load_matrix_sync(b, m.w1 + (size_t)(j0 + fn * 16) * C + k0, C);
+          wmma::mma_sync(acc, a, b, acc);
+        }
+        wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int jj = fn * 16 + e % 16;
+          const float h = stage[e] + fmmt::bf(m.b1[j0 + jj]);
+          hb[(fm * 16 + e / 16) * ldh + jj] = __float2bfloat16(
+              0.5f * h * (1.f + erff(h * 0.70710678118654752f)));
+        }
+        __syncwarp();
+      }
+      __syncthreads();
+      // fc2's partial products for the chunk, into the register fragments
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        const int t = warp + kWarps * i;
+        if (t < ntiles) {
+          const int tm = t / cpass;
+          const int tn = c0 + t % cpass;
+          for (int k0 = 0; k0 < kChunk; k0 += 16) {
+            FragA a;
+            FragBCol b;
+            wmma::load_matrix_sync(a, hb + (tm * 16) * ldh + k0, ldh);
+            wmma::load_matrix_sync(b, m.w2 + (size_t)(tn * 16) * m.HID + j0 + k0,
+                                   m.HID);
+            wmma::mma_sync(yacc[i], a, b, yacc[i]);
+          }
+        }
+      }
+      __syncthreads();  // hb is rewritten by the next chunk
+    }
+
+    // fc2 bias and the residual on y, fp32, rounded once, straight out
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      const int t = warp + kWarps * i;
+      if (t < ntiles) {
+        const int tm = t / cpass;
+        const int tn = c0 + t % cpass;
+        wmma::store_matrix_sync(stage, yacc[i], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int r = tm * 16 + e / 16;
+          const int c = tn * 16 + e % 16;
+          if (r < N)
+            ow[(size_t)r * C + c] = __float2bfloat16(
+                fmmt::bf(y[(size_t)r * ldx + c]) + stage[e]
+                + fmmt::bf(m.b2[c]));
+        }
+        __syncwarp();
+      }
+    }
+  }
+}
+
+template <bool kWhole, int kAcc>
+int launch(const void* x, const void* gamma, const void* beta,
+           const void* wqkv, const void* bqkv, const void* wproj,
+           const void* bproj, const void* bias, const void* keep, void* out,
+           int W, int N, int C, int heads, int nW, float eps,
+           const MlpArgs& mlp, size_t bytes, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_block_kernel<kWhole, kAcc>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_block_kernel<kWhole, kAcc>
+      <<<W, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const __nv_bfloat16*>(gamma),
+          static_cast<const __nv_bfloat16*>(beta),
+          static_cast<const __nv_bfloat16*>(wqkv),
+          static_cast<const __nv_bfloat16*>(bqkv),
+          static_cast<const __nv_bfloat16*>(wproj),
+          static_cast<const __nv_bfloat16*>(bproj),
+          static_cast<const float*>(bias), static_cast<const float*>(keep),
+          static_cast<__nv_bfloat16*>(out), N, C, heads, nW, eps, mlp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -276,19 +455,44 @@ FMMT_API int fmmt_fused_attention_block(
   if (N > kRows || C % 16 != 0 || C % heads != 0 || (C / heads) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = layout(C, C / heads).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_block_kernel<<<W, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(gamma),
-      static_cast<const __nv_bfloat16*>(beta),
-      static_cast<const __nv_bfloat16*>(wqkv),
-      static_cast<const __nv_bfloat16*>(bqkv),
-      static_cast<const __nv_bfloat16*>(wproj),
-      static_cast<const __nv_bfloat16*>(bproj),
-      static_cast<const float*>(bias), static_cast<const float*>(keep),
-      static_cast<__nv_bfloat16*>(out), N, C, heads, nW, eps);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false, 1>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, keep,
+                          out, W, N, C, heads, nW, eps, MlpArgs{}, bytes,
+                          stream);
+}
+
+// The whole block (kernel 7): the attention half's operands without keep,
+// then LN2 gamma2/beta2, fc1 w1 (HID,C) / b1 (HID), fc2 w2 (C,HID) / b2 (C).
+// The same shared memory as the attention half
+// (fmmt_fused_attention_block_smem); HID a multiple of 64.
+
+FMMT_API int fmmt_fused_whole_block(
+    const void* x, const void* gamma, const void* beta, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* bproj, const void* bias,
+    const void* gamma2, const void* beta2, const void* w1, const void* b1,
+    const void* w2, const void* b2, void* out, int W, int N, int C, int heads,
+    int nW, int HID, float eps, void* stream) {
+  if (N > kRows || C % 16 != 0 || C % heads != 0 || (C / heads) % 16 != 0 ||
+      HID % kChunk != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = layout(C, C / heads).bytes;
+  const MlpArgs mlp{static_cast<const __nv_bfloat16*>(gamma2),
+                    static_cast<const __nv_bfloat16*>(beta2),
+                    static_cast<const __nv_bfloat16*>(w1),
+                    static_cast<const __nv_bfloat16*>(b1),
+                    static_cast<const __nv_bfloat16*>(w2),
+                    static_cast<const __nv_bfloat16*>(b2), HID};
+  // fragments per warp for the 4 x C/16 output tiles of a pass: 3 (C = 96),
+  // 6 (C = 192), else 12 in passes of 384 columns
+  const int need = (4 * (C / 16) + kWarps - 1) / kWarps;
+  if (need <= 3)
+    return launch<true, 3>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                           nullptr, out, W, N, C, heads, nW, eps, mlp, bytes,
+                           stream);
+  if (need <= 6)
+    return launch<true, 6>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                           nullptr, out, W, N, C, heads, nW, eps, mlp, bytes,
+                           stream);
+  return launch<true, 12>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                          nullptr, out, W, N, C, heads, nW, eps, mlp, bytes,
+                          stream);
 }

@@ -14,13 +14,17 @@ hash of the sources in ``facialmmt_tpu_torch/_build/``; nothing is built when
 the package is imported, and nothing on the CPU path needs nvcc.
 
 Each kernel module (attention, fused_block, block_mlp, window_attention,
-merge_kernel) holds the plain PyTorch versions, the kernel wrappers with
-their launch counters, and the dispatch the model calls: a CPU tensor takes
-the plain version, a CUDA tensor the kernel, which raises on anything it
-cannot take.  The Swin block halves are torch.autograd.Functions whose
-backward follows the same rule; the window-attention cores and the merge tail
-are Functions whose backward differentiates their plain version
-(`grads_of_recomputed`), as the JAX package has no backward kernel for them.
+merge_kernel, shift_permute) holds the plain PyTorch versions, the kernel
+wrappers with their launch counters, and the dispatch: a CPU tensor takes the
+plain version, a CUDA tensor the kernel, which raises on anything it cannot
+take.  The Swin block halves are torch.autograd.Functions whose backward
+follows the same rule; the window-attention cores, the merge tail and the
+whole block (`fused_block.fused_whole_block`) are Functions whose backward
+differentiates their plain version (`grads_of_recomputed`), as the JAX package
+has no backward kernel for them; `shift_permute`'s backward is the same
+kernel in the opposite direction, and its launches count under
+`shift_permute` too.  The whole block and the shift permutation are, as in
+the JAX package, called by no module of the model.
 """
 
 from __future__ import annotations
@@ -120,6 +124,8 @@ _SIGNATURES = {
     "fmmt_window_attention_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_merge": ([_VP] * 5 + [_I] * 3 + [_F, _VP], _I),
     "fmmt_fused_merge_smem": ([_I], ctypes.c_longlong),
+    "fmmt_fused_whole_block": ([_VP] * 15 + [_I] * 6 + [_F, _VP], _I),
+    "fmmt_shift_permute": ([_VP] * 2 + [_I] * 7 + [_VP], _I),
 }
 
 
@@ -197,6 +203,7 @@ def kernel_wrappers():
     a `launches` count of the kernels it launched."""
     from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
                                                  fused_block, merge_kernel,
+                                                 shift_permute,
                                                  window_attention)
 
     return {"fused_attention": attention.fused_attention_cuda,
@@ -213,7 +220,9 @@ def kernel_wrappers():
                 window_attention.paired_window_attention_cuda,
             "fused_window_attention_v2":
                 window_attention.fused_window_attention_v2_cuda,
-            "fused_merge": merge_kernel.fused_merge_cuda}
+            "fused_merge": merge_kernel.fused_merge_cuda,
+            "fused_whole_block": fused_block.fused_whole_block_cuda,
+            "shift_permute": shift_permute.shift_permute_cuda}
 
 
 def launch_counts() -> dict:

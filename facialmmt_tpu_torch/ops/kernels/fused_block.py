@@ -16,6 +16,13 @@ and the kernel for CUDA tensors (operands cast to bf16 at the kernel
 boundary, gradients returned in their parameter's dtype).  Which backward
 serves a shape is decided in one place, `backward_variant`.
 
+`fused_whole_block` is the WHOLE block, the attention half followed by the
+MLP half y + fc2(GELU(fc1(LN2(y)))), in one kernel (the second entry point of
+csrc/fused_block.cu; JAX's fused_whole_block).  Its backward differentiates
+the plain version recomputed from the saved inputs, as JAX's does: neither
+package has a backward kernel for it.  As in the JAX package, SwinBlock keeps
+the two halves; nothing in the model calls it.
+
 Bias cotangent: as in the JAX package, ds is summed over ALL windows and
 returned in group 0 of an (nW, h, N, N) tensor whose other groups are zero.
 The only trainable tensor behind `bias` is the relative-position table, which
@@ -353,3 +360,104 @@ def fused_attention_block(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     """CPU tensors -> plain versions; CUDA tensors -> the kernels, or raise."""
     return FusedAttentionBlock.apply(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                      bias, keep, eps)
+
+
+def fused_whole_block_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                            gamma2, beta2, w1, b1, w2, b2, eps: float = 1e-5):
+    """Plain PyTorch version (JAX _whole_reference): the attention half's
+    plain version, its output y rounded to x's dtype, then the MLP half's
+    plain version on y.  w1 (HID, C) and w2 (C, HID) in torch Linear layout."""
+    from facialmmt_tpu_torch.ops.kernels.block_mlp import \
+        fused_ln_mlp_residual_plain
+
+    w, n, c = x.shape
+    y = fused_attention_block_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                    bias, None, eps)
+    return fused_ln_mlp_residual_plain(y.reshape(w * n, c), gamma2, beta2, w1,
+                                       b1, w2, b2, None, eps).reshape(w, n, c)
+
+
+def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                           gamma2, beta2, w1, b1, w2, b2, eps: float = 1e-5):
+    """Launch the whole-block kernel of csrc/fused_block.cu: bf16 tokens and
+    weights (w1 (HID, C), w2 (C, HID): what SwinBlock's fc1 / fc2 Linears
+    hold), fp32 bias, N <= 64, C and the head dim multiples of 16, HID a
+    multiple of 64; raises on anything else."""
+    kernels.require(x.is_cuda,
+                    f"{x.device} tensor: the kernel takes CUDA tensors")
+    kernels.require(x.dim() == 3 and bias.dim() == 4 and w1.dim() == 2,
+                    f"x (W, N, C) / bias (nW, h, N, N) / w1 (HID, C) expected, "
+                    f"got {tuple(x.shape)} / {tuple(bias.shape)} / "
+                    f"{tuple(w1.shape)}")
+    w, n, c = x.shape
+    nw, h = bias.shape[0], bias.shape[1]
+    hid = w1.shape[0]
+    dev = x.device
+    kernels.require(0 < n <= 64 and c % h == 0 and (c // h) % 16 == 0
+                    and hid % 64 == 0,
+                    f"unsupported block shape N={n}, C={c}, heads={h}, "
+                    f"HID={hid}")
+    kernels.require(w % nw == 0, f"W={w} is not a multiple of nW={nw}")
+    bf16 = torch.bfloat16
+    for name, t, shape in (("x", x, (w, n, c)), ("gamma", gamma, (c,)),
+                           ("beta", beta, (c,)), ("wqkv", wqkv, (3 * c, c)),
+                           ("bqkv", bqkv, (3 * c,)), ("wproj", wproj, (c, c)),
+                           ("bproj", bproj, (c,)), ("gamma2", gamma2, (c,)),
+                           ("beta2", beta2, (c,)), ("w1", w1, (hid, c)),
+                           ("b1", b1, (hid,)), ("w2", w2, (c, hid)),
+                           ("b2", b2, (c,))):
+        kernels.check_cuda_tensor(name, t, bf16, shape, dev)
+    kernels.check_cuda_tensor("bias", bias, torch.float32, (nw, h, n, n), dev)
+    lib = kernels.library()
+    smem = lib.fmmt_fused_attention_block_smem(n, c, h)  # the same buffers
+    kernels.require(smem <= kernels.max_shared_memory(dev),
+                    f"needs {smem} B of shared memory per block")
+    out = torch.empty_like(x)
+    err = lib.fmmt_fused_whole_block(
+        *[t.data_ptr() for t in (x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                 bias, gamma2, beta2, w1, b1, w2, b2, out)],
+        w, n, c, h, nw, hid, eps, kernels.stream_ptr(dev))
+    kernels.check_launch("fused_whole_block", err)
+    fused_whole_block_cuda.launches += 1
+    return out
+
+
+fused_whole_block_cuda.launches = 0
+
+
+class FusedWholeBlock(torch.autograd.Function):
+    """The whole Swin block.  Forward: the kernel on CUDA tensors (operands
+    cast to bf16, the bias to fp32, at the kernel boundary), the plain version
+    on CPU tensors.  Backward: torch autograd of the plain version recomputed
+    from the saved inputs, in fp32 outside autocast (JAX's _whole_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
+                beta2, w1, b1, w2, b2, eps):
+        from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
+
+        inputs = (x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
+                  beta2, w1, b1, w2, b2)
+        ctx.save_for_backward(*inputs)
+        ctx.eps = eps
+        if x.is_cuda:
+            out = fused_whole_block_cuda(
+                *[kernel_operand(t, torch.float32 if t is bias
+                                 else torch.bfloat16) for t in inputs], eps)
+        else:
+            out = fused_whole_block_plain(*[t.detach() for t in inputs], eps)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = kernels.grads_of_recomputed(
+            lambda *a: fused_whole_block_plain(*a, ctx.eps),
+            ctx.saved_tensors, ctx.needs_input_grad[:14], dout)
+        return (*grads, None)
+
+
+def fused_whole_block(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
+                      beta2, w1, b1, w2, b2, eps: float = 1e-5):
+    """CPU tensors -> plain version; CUDA tensors -> the kernel, or raise."""
+    return FusedWholeBlock.apply(x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                                 bias, gamma2, beta2, w1, b1, w2, b2, eps)

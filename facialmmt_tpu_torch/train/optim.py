@@ -86,6 +86,16 @@ class ClippedAdamW:
     def lr(self) -> float:
         return self.adamw.param_groups[0]["lr"]
 
+    def state_dict(self) -> dict:
+        """AdamW's moments and step counts, and the schedule's position
+        (LambdaLR's last_epoch: the update count the next step reads)."""
+        return {"adamw": self.adamw.state_dict(),
+                "schedule": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.scheduler.load_state_dict(state["schedule"])
+
     def set_count(self, count: int) -> None:
         """Put the schedule at update count `count` (the moments' own step
         counts live in the AdamW state)."""
@@ -123,3 +133,16 @@ class MultiTaskState:
                            max(swin_total_steps, 1)),
             make_optimizer(model.multimodal.parameters(), cfg, cfg.trg_lr,
                            max(mm_total_steps, 1), cfg.weight_decay))
+
+    def state_dict(self) -> dict:
+        """Both optimizers and both update counts; the model's parameters and
+        running statistics travel in its own state_dict."""
+        return {"swin_opt": self.swin_opt.state_dict(),
+                "mm_opt": self.mm_opt.state_dict(),
+                "swin_step": self.swin_step, "mm_step": self.mm_step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.swin_opt.load_state_dict(state["swin_opt"])
+        self.mm_opt.load_state_dict(state["mm_opt"])
+        self.swin_step = int(state["swin_step"])
+        self.mm_step = int(state["mm_step"])

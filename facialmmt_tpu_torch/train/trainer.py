@@ -16,10 +16,16 @@ over from the JAX package:
   * eval keeps the reference's SAMPLED gumbel noise behind a seeded generator
     unless runtime.deterministic_gumbel.
 
-Not ported yet: checkpoint files, resume and preemption (the best model is
-kept as a host copy of the state_dict in memory), the pretrained-tower grafts,
-multi-device placement.  Datasets are any objects with the protocol of
-data/meld.py.
+Checkpoints go to runtime.save_model_path (checkpoint/io.py): `best_<epoch>`,
+the pipeline's state_dict, whenever validation F1 improves (the test split is
+evaluated from that file), and `step_<epoch>`, the resume checkpoint, at every
+epoch end.  With a preemption guard installed (utils/preemption.py) a SIGTERM
+makes the loop save the mid-epoch state at the next batch boundary and raise
+`Preempted`; `run_multimodal(..., resume=True)` then continues exactly where
+the interrupted run stopped (same batches, same random stream).
+
+Not ported yet: the pretrained-tower grafts, multi-device placement.
+Datasets are any objects with the protocol of data/meld.py.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
 from facialmmt_tpu_torch.config import FacialMMTConfig
 from facialmmt_tpu_torch.data.image_pipeline import (affwild2_train_augment,
                                                      meld_face_eval_transform,
@@ -45,6 +52,8 @@ from facialmmt_tpu_torch.train.steps import (make_aux_train_step,
                                              make_multimodal_eval_step,
                                              make_multimodal_train_step,
                                              make_multimodal_train_step_accum)
+from facialmmt_tpu_torch.utils.preemption import (Preempted,
+                                                  preemption_requested)
 
 
 class StepTimer:
@@ -82,11 +91,6 @@ def _log_pass(task: str, epoch: int, hours: float, tail: str = ""):
     print("-" * 50)
 
 
-def _host_state_dict(model) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().to("cpu", copy=True)
-            for k, v in model.state_dict().items()}
-
-
 class Trainer:
     def __init__(self, cfg: FacialMMTConfig, device="cuda"):
         """`device` defaults to the card; without a CUDA device the
@@ -97,7 +101,6 @@ class Trainer:
             cfg.runtime.seed)
         self.history: list = []       # per epoch: val_f1, val_loss
         self.best_epoch = 0
-        self.best_state: Optional[Dict[str, torch.Tensor]] = None
         self.state: Optional[MultiTaskState] = None
 
     # ----------------------------------------------------------- multimodal --
@@ -229,20 +232,75 @@ class Trainer:
         return PrefetchLoader(make_trg_batch, len(train_ds), trg_bsz,
                               shuffle=True, seed=self.cfg.runtime.seed)
 
+    # --------------------------------------------------------- checkpoints --
+
+    def _ckpt_payload(self, state: MultiTaskState, best_f1: float, epoch: int,
+                      progress: Dict[str, int], early_stop: Dict[str, float]):
+        """Resume checkpoint contents.  `epoch` counts COMPLETED epochs;
+        `progress` counts the batches already applied in epoch + 1 (all zero
+        at an epoch boundary).  The generator behind augmentation, dropout,
+        drop-path and the gumbel noise rides along, so a resumed run
+        continues the same random stream, and the early-stopping counters, so
+        it stops at the epoch an uninterrupted run would."""
+        return {"model": state.model.state_dict(),
+                "optim": state.state_dict(),
+                "best_f1": float(best_f1), "epoch": int(epoch),
+                "progress": {k: int(v) for k, v in progress.items()},
+                "early_stop": {
+                    "best_val_loss": float(early_stop["best_val_loss"]),
+                    "patience_counter": int(early_stop["patience_counter"])},
+                "generator": self.generator.get_state()}
+
+    def _restore_latest(self, ckpt: CheckpointManager, state: MultiTaskState,
+                        progress_zero: Dict[str, int]):
+        """Load the newest resume checkpoint into `state` and the generator.
+        Returns (best_f1 or None, first epoch to run, progress, early_stop);
+        without a checkpoint, a fresh start."""
+        latest = ckpt.restore_latest()
+        if latest is None:
+            return (None, 1, dict(progress_zero),
+                    {"best_val_loss": float("inf"), "patience_counter": 0})
+        state.model.load_state_dict(latest["model"], strict=True)
+        state.load_state_dict(latest["optim"])
+        self.generator.set_state(latest["generator"])
+        es = latest["early_stop"]
+        return (float(latest["best_f1"]), int(latest["epoch"]) + 1,
+                {k: int(latest["progress"][k]) for k in progress_zero},
+                {"best_val_loss": float(es["best_val_loss"]),
+                 "patience_counter": int(es["patience_counter"])})
+
+    def _maybe_preempt(self, ckpt: CheckpointManager, state: MultiTaskState,
+                       best_f1: float, epoch: int, progress: Dict[str, int],
+                       early_stop: Dict[str, float]) -> None:
+        """Poll the preemption guard at a batch boundary.  On a request, save
+        the mid-epoch state as the resume checkpoint of the epochs before
+        (crash-safe: the previous file under that name stays until the new
+        one is complete) and raise Preempted."""
+        if not preemption_requested():
+            return
+        path = ckpt.save_step(
+            self._ckpt_payload(state, best_f1, epoch - 1, progress,
+                               early_stop), epoch - 1)
+        print(f"Preemption requested: resume checkpoint saved to {path}; "
+              f"run again with resume=True to continue epoch {epoch}.")
+        raise Preempted(epoch, path)
+
+    # ----------------------------------------------------------- multimodal --
+
     def run_multimodal(self, aux_ds, train_ds, valid_ds, test_ds,
                        state_dict=None, resume: bool = False,
                        on_event=None) -> float:
         """T+A+V multi-task training (reference train.py:297-421); returns the
         test weighted F1 of the best-validation model.  `state_dict` holds the
-        starting weights (None: random from runtime.seed).  `on_event(name,
-        **info)`, when given, is called after every step ('aux_step',
-        'trg_step': epoch, index, loss), after every pass ('aux_pass',
-        'trg_pass', 'valid': epoch) and once before the first ('start'), for
-        measurement and inspection; self.state holds the model by then."""
+        starting weights (None: random from runtime.seed).  resume=True
+        continues from the newest resume checkpoint in
+        runtime.save_model_path (a fresh start when there is none).
+        `on_event(name, **info)`, when given, is called after every step
+        ('aux_step', 'trg_step': epoch, index, loss), after every pass
+        ('aux_pass', 'trg_pass', 'valid': epoch) and once before the first
+        ('start'), for measurement and inspection; self.state holds the
+        model by then."""
         notify = on_event or (lambda name, **info: None)
-        if resume:
-            raise NotImplementedError(
-                "resume needs the checkpoint files, which are not ported yet")
         cfg, opt = self.cfg, self.cfg.optim
         model = self._build_model(state_dict)
         state, steps_per_epoch, trg_bsz = self._init_multitask_state(
@@ -254,17 +312,31 @@ class Trainer:
         aux_loader = PrefetchLoader(aux_ds.get_batch, len(aux_ds), aux_bsz,
                                     shuffle=True, seed=cfg.runtime.seed + 1)
 
-        notify("start")
+        ckpt = CheckpointManager(cfg.runtime.save_model_path)
         best_f1 = -1.0
-        best_val_loss = float("inf")  # early stopping (appendix train.py:114-152)
-        patience_counter = 0
+        # early stopping (appendix train.py:114-152)
+        early = {"best_val_loss": float("inf"), "patience_counter": 0}
+        start_epoch = 1
+        resume_prog = {"aux_batch": 0, "trg_batch": 0}
+        if resume:
+            bf, start_epoch, resume_prog, early = self._restore_latest(
+                ckpt, state, resume_prog)
+            if bf is not None:
+                best_f1 = bf
+        notify("start")
         self.history = []
-        for epoch in range(1, opt.num_epochs + 1):
+        for epoch in range(start_epoch, opt.num_epochs + 1):
+            first = epoch == start_epoch
+            aux_sb = resume_prog["aux_batch"] if first else 0
+            trg_sb = resume_prog["trg_batch"] if first else 0
+            if first and trg_sb > 0:   # preempted in the target pass
+                aux_sb = len(aux_loader)
             # ---- auxiliary FER pass (reference train.py:356-363) ----
             start = time.time()
             timer = StepTimer()
             for i, ((images, labels), n_valid) in enumerate(
-                    aux_loader.epoch(epoch)):
+                    aux_loader.epoch(epoch, start_batch=aux_sb),
+                    start=aux_sb):
                 images = affwild2_train_augment(
                     self.generator, self._to_device(images).float(),
                     img_size=cfg.data.swin_img_size)
@@ -272,6 +344,9 @@ class Trainer:
                                 self.generator)
                 timer.update(float(loss), n_valid)
                 notify("aux_step", epoch=epoch, index=i, loss=float(loss))
+                self._maybe_preempt(ckpt, state, best_f1, epoch,
+                                    {"aux_batch": i + 1, "trg_batch": 0},
+                                    early)
                 if i % cfg.runtime.aux_log_interval == 0 and i > 0:
                     ms, avg = timer.interval_stats(cfg.runtime.aux_log_interval)
                     _log_train("SRC", epoch, i, len(aux_loader), ms, avg)
@@ -282,11 +357,16 @@ class Trainer:
             # ---- target multimodal pass (reference train.py:364-374) ----
             start = time.time()
             timer = StepTimer()
-            for i, (batch, n_valid) in enumerate(trg_loader.epoch(epoch)):
+            for i, (batch, n_valid) in enumerate(
+                    trg_loader.epoch(epoch, start_batch=trg_sb),
+                    start=trg_sb):
                 device_batch = self._prepare_faces(batch, train=True)
                 loss = trg_step(state, device_batch, self.generator)
                 timer.update(float(loss), n_valid)
                 notify("trg_step", epoch=epoch, index=i, loss=float(loss))
+                self._maybe_preempt(ckpt, state, best_f1, epoch,
+                                    {"aux_batch": len(aux_loader),
+                                     "trg_batch": i + 1}, early)
                 if i % cfg.runtime.trg_log_interval == 0 and i > 0:
                     ms, avg = timer.interval_stats(cfg.runtime.trg_log_interval)
                     _log_train("TRG", epoch, i, steps_per_epoch, ms, avg)
@@ -302,21 +382,25 @@ class Trainer:
             notify("valid", epoch=epoch)
             if val_f1 > best_f1:
                 best_f1 = val_f1
-                self.best_epoch = epoch
-                self.best_state = _host_state_dict(model)
+                ckpt.save_best(model.state_dict(), epoch)
+            # the early-stopping counters move BEFORE the epoch's resume
+            # checkpoint, so a resumed run carries them
             if opt.patience > 0:  # appendix early stopping on val loss
-                if val_loss < best_val_loss:
-                    best_val_loss = val_loss
-                    patience_counter = 0
+                if val_loss < early["best_val_loss"]:
+                    early["best_val_loss"] = val_loss
+                    early["patience_counter"] = 0
                 else:
-                    patience_counter += 1
-                if patience_counter >= opt.patience:
-                    print(f"Validation loss has not descended for "
-                          f"{opt.patience} epochs. Stopping training.")
-                    break
+                    early["patience_counter"] += 1
+            ckpt.save_step(self._ckpt_payload(
+                state, best_f1, epoch, {"aux_batch": 0, "trg_batch": 0},
+                early), epoch)
+            if opt.patience > 0 and early["patience_counter"] >= opt.patience:
+                print(f"Validation loss has not descended for "
+                      f"{opt.patience} epochs. Stopping training.")
+                break
 
-        if self.best_state is not None:
-            model.load_state_dict(self.best_state, strict=True)
+        self.best_epoch, best = ckpt.restore_best()
+        model.load_state_dict(best, strict=True)
         logits, labels = self._eval_multimodal(eval_step, test_ds)
         test_f1 = eval_meld(logits, labels, test=True)
         print(f"**TEST** | wg_av_f1 {test_f1:5.4f} ")

@@ -20,7 +20,7 @@ import torch
 from facialmmt_tpu_torch.ops import kernels
 from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
                                              fused_block, merge_kernel,
-                                             window_attention)
+                                             shift_permute, window_attention)
 
 BOUND = 2e-2
 REPEAT_BOUND = 1e-3   # run-to-run, relative to max|out|: fp32 atomic order
@@ -77,6 +77,15 @@ def _mlp_inputs(rng, dev, t, c):
             bf(rng.normal(size=(c,)) * 0.1))
 
 
+def _whole_inputs(rng, dev, w, n, c, h, nw):
+    """The attention half's inputs, then gamma2, beta2, w1 (4C, C), b1, w2
+    (C, 4C), b2: the whole block's, bf16 (bias fp32)."""
+    bf = lambda a: torch.tensor(a).to(dev, torch.bfloat16).contiguous()
+    return (*_block_inputs(rng, dev, w, n, c, h, nw),
+            bf(rng.normal(size=(c,)) * 0.1 + 1), bf(rng.normal(size=(c,)) * 0.1),
+            *_mlp_inputs(rng, dev, 1, c)[3:])
+
+
 def test_wrappers_refuse_cpu_tensors(rng):
     """A wrapper never quietly runs its plain version: a CPU tensor raises."""
     cpu = torch.device("cpu")
@@ -88,6 +97,11 @@ def test_wrappers_refuse_cpu_tensors(rng):
                                                               8, 2, 1))
     with pytest.raises(ValueError, match="CUDA"):
         block_mlp.fused_ln_mlp_residual_cuda(*_mlp_inputs(rng, cpu, 5, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_block.fused_whole_block_cuda(*_whole_inputs(rng, cpu, 2, 16, 16,
+                                                          1, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        shift_permute.shift_permute_cuda(torch.zeros(1, 196, 8), 14, 14, 7, 3)
 
 
 @pytest.mark.gpu
@@ -220,6 +234,79 @@ def test_autograd_functions_launch_the_backward_kernels(rng, cuda_device):
     assert all(a.grad is not None and a.grad.dtype == torch.float32
                for a in args)
     assert kernels.launch_counts()["fused_ln_mlp_residual_bwd"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,c,h,nw", [(32, 96, 3, 16), (16, 192, 6, 1),
+                                      (8, 384, 12, 4), (6, 768, 24, 1)],
+                         ids=["stage0-shifted", "stage1", "stage2-shifted",
+                              "stage3"])
+def test_fused_whole_block_kernel(rng, cuda_device, w, c, h, nw):
+    """Every Swin-tiny stage width, stage 3 in two column passes: the kernel
+    against its plain version, and against the split (kernels 2 and 3)."""
+    args = _whole_inputs(rng, cuda_device, w, 49, c, h, nw)
+    got = fused_block.fused_whole_block_cuda(*args)
+    want = fused_block.fused_whole_block_plain(*args)
+    y = fused_block.fused_attention_block_cuda(*args[:8])
+    split = block_mlp.fused_ln_mlp_residual_cuda(y.reshape(-1, c), *args[8:])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= BOUND
+    assert _rel(got, split.reshape(got.shape)) <= BOUND
+
+
+@pytest.mark.gpu
+def test_fused_whole_block_backward_is_the_plain_versions(rng, cuda_device):
+    """fp32 inputs: the forward launches the kernel once, the backward
+    launches nothing and equals autograd of the plain version."""
+    args = [a.float().requires_grad_() for a in
+            _whole_inputs(rng, cuda_device, 8, 49, 96, 3, 4)]
+    dout = torch.randn(8, 49, 96, device=cuda_device)
+    kernels.reset_launch_counts()
+    out = fused_block.fused_whole_block(*args)
+    assert kernels.launch_counts()["fused_whole_block"] == 1
+    got = torch.autograd.grad(out, args, dout)
+    assert sum(kernels.launch_counts().values()) == 1
+    want = torch.autograd.grad(fused_block.fused_whole_block_plain(*args),
+                               args, dout)
+    for g, w_ in zip(got, want):
+        assert g.dtype == torch.float32
+        assert _rel(g, w_) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c,shift", [(56, 56, 96, 3), (28, 28, 192, 3),
+                                         (14, 14, 384, 3), (21, 14, 8, 2),
+                                         (14, 21, 5, 4)])
+def test_shift_permute_kernel_is_bitwise(rng, cuda_device, dtype, h, w, c,
+                                         shift):
+    """Both directions and the round trip equal the index gather bit for bit;
+    C = 5 takes the element-wise copy (rows of 10 or 20 bytes)."""
+    x = torch.tensor(rng.normal(size=(3, h * w, c))).to(cuda_device, dtype)
+    fwd = shift_permute.shift_permute_cuda(x, h, w, 7, shift)
+    inv = shift_permute.shift_permute_cuda(x, h, w, 7, shift, inverse=True)
+    assert torch.equal(fwd, shift_permute.shift_permute_plain(x, h, w, 7,
+                                                              shift))
+    assert torch.equal(inv, shift_permute.shift_permute_plain(x, h, w, 7,
+                                                              shift, True))
+    assert torch.equal(
+        shift_permute.shift_permute_cuda(fwd, h, w, 7, shift, True), x)
+
+
+@pytest.mark.gpu
+def test_shift_permute_backward_launches_the_inverse_kernel(rng, cuda_device):
+    x = torch.tensor(rng.normal(size=(2, 784, 192)), dtype=torch.float32,
+                     device=cuda_device, requires_grad=True)
+    g = torch.randn(2, 784, 192, device=cuda_device)
+    kernels.reset_launch_counts()
+    out = shift_permute.shift_permute(x, 28, 28, 7, 3)
+    (dx,) = torch.autograd.grad(out, x, g)
+    assert kernels.launch_counts()["shift_permute"] == 2
+    assert torch.equal(dx, shift_permute.shift_permute_plain(g, 28, 28, 7, 3,
+                                                             inverse=True))
+    with pytest.raises(ValueError, match="shift"):
+        shift_permute.shift_permute(x.detach(), 28, 28, 7, 7)
 
 
 WINDOW_KERNELS = {
@@ -479,7 +566,7 @@ def test_full_width_aux_step(cuda_device):
 
 
 @pytest.mark.gpu
-def test_tiny_trainer_on_the_card(cuda_device):
+def test_tiny_trainer_on_the_card(cuda_device, tmp_path):
     """Trainer defaults to the card and runs the whole loop there."""
     from facialmmt_tpu_torch.config import FacialMMTConfig
     from facialmmt_tpu_torch.data.meld import (SyntheticFerDataset,
@@ -491,7 +578,9 @@ def test_tiny_trainer_on_the_card(cuda_device):
     cfg = cfg.replace(optim=dataclasses.replace(
         cfg.optim, aux_batch_size=6, trg_batch_size=2,
         trg_accumulation_steps=2), swin_from_target=True,
-        swin=dataclasses.replace(cfg.swin, embed_dim=32))
+        swin=dataclasses.replace(cfg.swin, embed_dim=32),
+        runtime=dataclasses.replace(cfg.runtime,
+                                    save_model_path=str(tmp_path)))
     trainer = Trainer(cfg)
     assert trainer.device.type == "cuda"
     ds = SyntheticMeldDataset(cfg, 8, 2, 3, seed=2)

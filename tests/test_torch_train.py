@@ -28,6 +28,7 @@ from facialmmt_tpu.train import steps as jsteps
 from facialmmt_tpu.train.optim import MultiTaskState as JaxState
 from facialmmt_tpu.train.optim import make_optimizer as jax_make_optimizer
 from facialmmt_tpu_torch.checkpoint import from_jax
+from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
 from facialmmt_tpu_torch.data.meld import (FaceCapacityError,
                                            SyntheticFerDataset,
                                            SyntheticMeldDataset)
@@ -222,9 +223,15 @@ def test_eval_step_matches_jax_and_chunks(rng):
 
 # ----------------------------------------------------------------- trainer --
 
-def _trainer_config(**optim):
+def _trainer_config(save_dir=None, **optim):
+    """The tiny config with `optim` overrides; checkpoints go to `save_dir`
+    (a test's tmp_path) in every test that trains."""
     cfg = port_config(FacialMMTConfig.tiny())
-    return cfg.replace(optim=dataclasses.replace(cfg.optim, **optim))
+    cfg = cfg.replace(optim=dataclasses.replace(cfg.optim, **optim))
+    if save_dir is not None:
+        cfg = cfg.replace(runtime=dataclasses.replace(
+            cfg.runtime, save_model_path=str(save_dir)))
+    return cfg
 
 
 def _datasets(cfg, faces=3):
@@ -234,9 +241,10 @@ def _datasets(cfg, faces=3):
             SyntheticMeldDataset(cfg, 6, 2, faces, seed=4))
 
 
-def test_trainer_runs_and_selects_the_best_epoch(capsys):
-    cfg = _trainer_config(num_epochs=2, aux_batch_size=6, trg_batch_size=2,
-                          trg_accumulation_steps=2, aux_lr=1e-2, trg_lr=1e-2)
+def test_trainer_runs_and_selects_the_best_epoch(capsys, tmp_path):
+    cfg = _trainer_config(tmp_path, num_epochs=2, aux_batch_size=6,
+                          trg_batch_size=2, trg_accumulation_steps=2,
+                          aux_lr=1e-2, trg_lr=1e-2)
     trainer = Trainer(cfg, device="cpu")
     events = []
     f1 = trainer.run_multimodal(*_datasets(cfg),
@@ -246,9 +254,13 @@ def test_trainer_runs_and_selects_the_best_epoch(capsys):
     f1s = [h["val_f1"] for h in trainer.history]
     # the first epoch to reach the best validation F1 is kept
     assert trainer.best_epoch == 1 + int(np.argmax(f1s))
-    # ... and is what the test split was evaluated from
+    # ... written to its file, and what the test split was evaluated from
+    assert sorted(os.listdir(tmp_path)) == [f"best_{trainer.best_epoch}",
+                                            "step_1", "step_2"]
+    step, best = CheckpointManager(str(tmp_path)).restore_best()
     final = trainer.state.model.state_dict()
-    assert all(torch.equal(final[k], v) for k, v in trainer.best_state.items())
+    assert step == trainer.best_epoch and best.keys() == final.keys()
+    assert all(torch.equal(final[k], v) for k, v in best.items())
     assert (trainer.state.swin_step, trainer.state.mm_step) == (4, 4)
     assert events == ["start"] + (["aux_step"] * 2 + ["aux_pass"]
                                   + ["trg_step"] * 2 + ["trg_pass", "valid"]) * 2
@@ -257,9 +269,9 @@ def test_trainer_runs_and_selects_the_best_epoch(capsys):
     assert "**TEST** | wg_av_f1" in out
 
 
-def test_trainer_joint_training_steps_swin_from_the_target_pass():
-    cfg = _trainer_config(num_epochs=1, aux_batch_size=6, trg_batch_size=2,
-                          trg_accumulation_steps=2).replace(
+def test_trainer_joint_training_steps_swin_from_the_target_pass(tmp_path):
+    cfg = _trainer_config(tmp_path, num_epochs=1, aux_batch_size=6,
+                          trg_batch_size=2, trg_accumulation_steps=2).replace(
                               swin_from_target=True)
     trainer = Trainer(cfg, device="cpu")
     f1 = trainer.run_multimodal(*_datasets(cfg))
@@ -291,8 +303,9 @@ def test_trainer_escalates_the_face_bucket(capsys):
             lambda cap: ds.get_batch(range(8), face_capacity=cap), [32, 64])
 
 
-def test_trainer_eval_only_and_resume():
-    cfg = _trainer_config()
+def test_trainer_eval_only_and_resume(tmp_path):
+    cfg = _trainer_config(tmp_path, num_epochs=1, aux_batch_size=6,
+                          trg_batch_size=2, trg_accumulation_steps=1)
     cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
                                                   deterministic_gumbel=True))
     trainer = Trainer(cfg, device="cpu")
@@ -301,8 +314,17 @@ def test_trainer_eval_only_and_resume():
     a = trainer.eval_multimodal_only(sd, ds)
     b = Trainer(cfg, device="cpu").eval_multimodal_only(sd, ds, batch_size=4)
     assert a == b                               # batch size does not matter
-    with pytest.raises(NotImplementedError):
-        trainer.run_multimodal(*_datasets(cfg), resume=True)
+    # one epoch, then a run of two that resumes from its epoch checkpoint
+    # and takes only the second epoch
+    trainer.run_multimodal(*_datasets(cfg))
+    assert (trainer.state.swin_step, trainer.state.mm_step) == (2, 4)
+    cfg2 = cfg.replace(optim=dataclasses.replace(cfg.optim, num_epochs=2))
+    resumed = Trainer(cfg2, device="cpu")
+    f1 = resumed.run_multimodal(*_datasets(cfg2), resume=True)
+    assert np.isfinite(f1)
+    assert [h["epoch"] for h in resumed.history] == [2]
+    assert (resumed.state.swin_step, resumed.state.mm_step) == (4, 8)
+    assert {"step_1", "step_2"} <= set(os.listdir(tmp_path))
 
 
 def test_entry_points_default_to_the_card():
@@ -318,7 +340,7 @@ def test_entry_points_default_to_the_card():
         EmotionServer(cfg, max_batch=2, face_capacity=4)
 
 
-def test_training_imports_no_jax():
+def test_training_imports_no_jax(tmp_path):
     """One auxiliary and one target step in a fresh interpreter: neither JAX
     nor the JAX package is imported."""
     code = (
@@ -332,6 +354,8 @@ def test_training_imports_no_jax():
         "    aux_batch_size=4, trg_batch_size=2, trg_accumulation_steps=1))\n"
         "aux = SyntheticFerDataset(4, 24, seed=1)\n"
         "ds = SyntheticMeldDataset(cfg, 2, 1, 2, seed=2)\n"
+        "cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,\n"
+        "    save_model_path=sys.argv[1]))\n"
         "t = Trainer(cfg, device='cpu')\n"
         "t.run_multimodal(aux, ds, ds, ds)\n"
         "assert (t.state.swin_step, t.state.mm_step) == (1, 1)\n"
@@ -340,7 +364,7 @@ def test_training_imports_no_jax():
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], env=env, cwd="/",
-                         capture_output=True, text=True)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         env=env, cwd="/", capture_output=True, text=True)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("clean")
