@@ -9,8 +9,11 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
   2. build the CUDA kernels from facialmmt_tpu_torch/csrc (timed);
   3. every kernel against its plain PyTorch version on the card, in bf16, at
      the shapes the paths give it: the text tower's 8 x 16 x 512 x 64
-     attention; the forward Swin halves at every stage at 64 faces (serving)
-     and, with a stochastic-depth `keep`, at 150 images (the auxiliary batch);
+     attention (padded; beside it, outside the row's sums, the same shape
+     unpadded and the fusion stacks' 157 x 157 and 38 x 157 at 8 x 12 heads,
+     with plain attention's and SDPA's device times); the forward Swin
+     halves at every stage at 64 faces (serving) and, with a
+     stochastic-depth `keep`, at 150 images (the auxiliary batch);
      the three backward kernels at every stage they serve at 150 images, with
      and without `keep`, shifted and unshifted bias, every output compared;
      the three window-attention entry points at every stage of a 64-face pack
@@ -211,11 +214,13 @@ def tensor_bytes(*tensors) -> int:
 
 
 def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
-            timed=True, library=None, label=""):
+            timed=True, library=None, label="", summed=True):
     """Run kernel and plain on the same inputs and hold every output to the
     bound (a bias cotangent by its group sum, the only part of it that is
-    defined).  When `timed`, add the call's median kernel, plain and library
-    times and its bound to the kernel's totals.  Prints one line."""
+    defined).  When `timed`, time the call (median kernel, plain and library
+    times) beside its bound and add them to the kernel's totals, unless
+    `summed` is false: then the shape is only printed and listed.  Prints one
+    line."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -250,7 +255,8 @@ def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
         ms = cuda_ms(torch, lambda: kernel(*args), reps=KERNEL_REPS)
         plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
         dev_ms = device_ms(torch, lambda: kernel(*args))
-        entry = {"shape": label, "ms": ms, "device_ms": dev_ms,
+        entry = {"shape": label, "summed": summed, "ms": ms,
+                 "device_ms": dev_ms,
                  "plain_ms": plain_ms, "bound_ms": max(flops_ms, bytes_ms),
                  "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
                  "gflop": flops / 1e9, "mbytes": moved / 1e6}
@@ -261,19 +267,24 @@ def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
         if library is not None:
             entry["library_ms"] = cuda_ms(torch, library, reps=KERNEL_REPS)
             entry["library_device_ms"] = device_ms(torch, library)
-            r["library_ms"] = (r["library_ms"] or 0.0) + entry["library_ms"]
-            r["library_device_ms"] = add_ms(
-                0.0 if len(r["shapes"]) == 0 else r["library_device_ms"],
-                entry["library_device_ms"])
             line += (f", library call {entry['library_ms']:.4f} ms "
                      f"({fmt_ms(entry['library_device_ms'])} on the device "
                      f"alone)")
-        r["ms"] += ms
-        r["device_ms"] = add_ms(r["device_ms"], dev_ms)
-        r["plain_ms"] += plain_ms
-        r["bound_ms"] += entry["bound_ms"]
-        r["flops_ms"] += flops_ms
-        r["bytes_ms"] += bytes_ms
+        if summed:
+            if library is not None:
+                r["library_ms"] = ((r["library_ms"] or 0.0)
+                                   + entry["library_ms"])
+                r["library_device_ms"] = add_ms(
+                    0.0 if len(r["shapes"]) == 0 else r["library_device_ms"],
+                    entry["library_device_ms"])
+            r["ms"] += ms
+            r["device_ms"] = add_ms(r["device_ms"], dev_ms)
+            r["plain_ms"] += plain_ms
+            r["bound_ms"] += entry["bound_ms"]
+            r["flops_ms"] += flops_ms
+            r["bytes_ms"] += bytes_ms
+        else:
+            line += " (not in the row's sums)"
         r["shapes"].append(entry)
     print(line)
 
@@ -324,6 +335,43 @@ def phase_kernels(torch, dev, rng):
             flops=4.0 * b * h * s * s * d, label=f"{b}x{h}x{s}x{d}",
             library=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, scale=1.0))
+    # beside the row, not in its sums: the same shape with no padding (every
+    # key real: the comparison with SDPA on full work), then the fusion
+    # stacks' shapes at the serving batch (8 utterances, 12 heads of 64, the
+    # encoders' -10000 padding bias): the audio tower's 157 x 157 and the
+    # crossmodal 38 x 157, which the JAX package's TPU-measured Sk >= 256 gate
+    # sends to plain attention.  "plain" there is that path's matmul, fp32
+    # softmax, matmul.
+    zero = f32(np.zeros((b, s), np.float32))
+    compare(torch, "fused_attention", attention.fused_attention_cuda,
+            attention.fused_attention_plain, (q, k, v, zero), results,
+            flops=4.0 * b * h * s * s * d, label=f"{b}x{h}x{s}x{d} no padding",
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=zero.to(torch.bfloat16)[:, None, None, :],
+                scale=1.0), summed=False)
+    fuse_b, fuse_h, fuse_d = 8, 12, 64
+    for what, sq, sk in (("audio tower", 157, 157), ("crossmodal", 38, 157)):
+        fbias = np.zeros((fuse_b, sk), np.float32)
+        for i in range(fuse_b):
+            fbias[i, rng.integers(sk // 2, sk + 1):] = -10000.0
+        fq = bf(rng.normal(size=(fuse_b, fuse_h, sq, fuse_d))
+                * fuse_d ** -0.5)
+        fk, fv = (bf(rng.normal(size=(fuse_b, fuse_h, sk, fuse_d)))
+                  for _ in range(2))
+        fbias_t = f32(fbias)
+        fmask = fbias_t.to(torch.bfloat16)[:, None, None, :]
+        compare(torch, "fused_attention", attention.fused_attention_cuda,
+                attention.fused_attention_plain, (fq, fk, fv, fbias_t),
+                results, flops=4.0 * fuse_b * fuse_h * sq * sk * fuse_d,
+                label=f"{what} {fuse_b}x{fuse_h}x{sq}x{sk}x{fuse_d}",
+                summed=False,
+                library=lambda: F.scaled_dot_product_attention(
+                    fq, fk, fv, attn_mask=fmask, scale=1.0))
+        plain_dev = device_ms(torch, lambda: attention.fused_attention_plain(
+            fq, fk, fv, fbias_t))
+        results["fused_attention"]["shapes"][-1]["plain_device_ms"] = plain_dev
+        print(f"kernel fused_attention {what}: plain attention "
+              f"{fmt_ms(plain_dev)} on the device alone")
 
     def block_args(w, c, heads, res, shifted):
         n = 49

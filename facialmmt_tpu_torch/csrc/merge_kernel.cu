@@ -1,8 +1,8 @@
 // Swin patch-merging tail: out[t] = LN(x[t]) @ w, no bias.
 // x (T, K) bf16 rows of gathered 2x2 neighbourhoods (K = 4C); LN gamma/beta
 // (K) bf16; w (K, M) bf16 row-major (M = 2C, the input axis first, as the JAX
-// kernel takes it); out (T, M) bf16.  Any T works: the last tile masks its
-// missing rows.  K and M are multiples of 16.
+// kernel takes it); out (T, M) bf16.  Any T works: the last row tile masks
+// its missing rows.  K and M are multiples of 16.
 //
 // Replaces: facialmmt_tpu/ops/pallas/merge_kernel.py::fused_merge.
 //
@@ -14,43 +14,100 @@
 // and Linear calls the normalised rows make one more round trip through
 // device memory.
 //
-// What the design does about it: one block (8 warps) owns a tile of 32 rows.
-// A row's LayerNorm needs the whole row, so the tile is normalised into shared
-// memory first (fp32 statistics, one warp per row; 32 x (K + 8) bf16, 99 KB at
-// K = 1536), and the normalised rows never reach device memory.  Then each warp
-// takes output column tiles of 16: it streams the K x 16 strip of w from L2
-// once and multiplies it into both 16-row halves of the tile on the tensor
-// cores (bf16 16x16x16 mma, fp32 accumulation), so w is read once per 32
-// rows.  A ring of four blocks of the strip loaded ahead of their mma was
-// tried and was no faster on an H100; staging w through shared memory with
-// TMA and wgmma is later work.
+// What the design does about it: a tiled GEMM with a LayerNorm prologue on a
+// 2-D grid of 64-row x 192-column output tiles, so that every Swin-tiny
+// transition at 64 faces launches at least 196 blocks for the 132 SMs (784 /
+// 392 / 196), and at the first transition (M = 192) one column tile takes
+// every column.  A block (8 warps) first takes its rows' LayerNorm statistics
+// in fp32, two-pass (mean, then biased variance; each warp keeps 8 rows'
+// loads in flight), while cp.async already brings gamma, beta and the first
+// chunks.  Then it loops over K in chunks of 64: cp.async fills a ring of
+// three shared-memory stages with the x chunk (64 x 64) and the w chunk
+// (64 x 192); each step, behind one barrier, issues the load of chunk c + 2,
+// normalises chunk c + 1 in place (bf16((x rstd - mean rstd) gamma + beta))
+// and multiplies chunk c, whose normalised rows the previous step wrote: the
+// 2 x 4 warps each take a 32 x 48 sub-tile from ldmatrix (w through the
+// transposing load) on mma.sync m16n8k16 into fp32 registers.  The
+// normalised rows never reach device memory.  The epilogue rounds once to
+// bf16 and stores 16 bytes a thread through shared memory.  108.5 KB of
+// shared memory at K = 1536, two blocks an SM.
+//
+// What holds it back (PERF.md has the measurements): it beats F.layer_norm +
+// F.linear at the first transition and loses at the other two.  Variants
+// that dropped one part at a time put the cost in the block's fixed work
+// (launch, statistics, barriers), in the cp.async traffic through shared
+// memory (every row tile copies its whole 192-column slab of w, and every
+// column tile re-reads its rows for their statistics) and in the
+// normalisation pass, more than in the products.  Sharing w across row tiles
+// (TMA multicast in a thread-block cluster), wgmma, and persistent blocks are
+// the next steps.
+//
+// mma.sync, not wgmma: the same fragment helpers as kernels 1 and 8-10, no
+// matrix descriptors or swizzled layouts.
 //
 // Rounding follows the JAX kernel: LN output rounded to bf16 before the
 // matmul, fp32 accumulation, output rounded once.
 #include "common.cuh"
 
-#include <mma.h>
-
 namespace {
-
-using namespace nvcuda;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;       // rows per block
+constexpr int kWM = 2;              // warp grid over the block's tile: 2 x 4
+constexpr int kWR = 32;             // rows a warp
+constexpr int kWN = 48;             // columns a warp
+constexpr int kBM = kWM * kWR;      // 64 rows per block
+constexpr int kBN = (kWarps / kWM) * kWN;   // 192 output columns per block
+constexpr int kBK = 64;             // input columns per stage
+constexpr int kStages = 3;
+constexpr int kMT = kWR / 16;
+constexpr int kNT = kWN / 8;
+constexpr int kRowsPerWarp = kBM / kWarps;  // LayerNorm statistics
+constexpr int ldx = kBK + 8;        // bf16 row strides: 16-byte pad, no bank
+constexpr int ldw = kBN + 8;        // conflicts for ldmatrix
+constexpr size_t kXBytes = (size_t)kBM * ldx * 2;
+constexpr size_t kStageBytes = kXBytes + (size_t)kBK * ldw * 2;
+static_assert((size_t)kBM * ldw * 2 <= kStageBytes,
+              "the output tile is staged over stage 0");
+
+__host__ __device__ constexpr size_t align128(size_t n) {
+  return (n + 127) / 128 * 128;
+}
 
 struct Layout {
-  int ldx;   // bf16 row stride of the normalised tile (K + 8)
-  size_t off_stage, bytes;
+  size_t off_stats, off_stage, bytes;
 };
 
+// gamma, beta (bf16, K each) | rstd, -mean rstd (fp32, kBM each) | stages
 __host__ __device__ inline Layout layout(int K) {
   Layout L;
-  L.ldx = K + 8;
-  L.off_stage = (size_t)kTile * L.ldx * sizeof(__nv_bfloat16);
-  // two 16x16 fp32 staging tiles per warp
-  L.bytes = L.off_stage + (size_t)kWarps * 512 * sizeof(float);
+  L.off_stats = align128((size_t)2 * K * sizeof(__nv_bfloat16));
+  L.off_stage = L.off_stats + align128(2 * kBM * sizeof(float));
+  L.bytes = L.off_stage + kStages * kStageBytes;
   return L;
+}
+
+__device__ __forceinline__ float sum8(const uint4& v) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p[e]);
+    s += f.x + f.y;
+  }
+  return s;
+}
+
+__device__ __forceinline__ float sqdev8(const uint4& v, float mean) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(p[e]);
+    s = fmaf(f.x - mean, f.x - mean, s);
+    s = fmaf(f.y - mean, f.y - mean, s);
+  }
+  return s;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -61,51 +118,209 @@ merge_kernel(const __nv_bfloat16* __restrict__ x,
              __nv_bfloat16* __restrict__ out, int T, int K, int M, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(K);
-  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* bs = gs + K;
+  float* scale_s = reinterpret_cast<float*>(smem + L.off_stats);  // rstd
+  float* shift_s = scale_s + kBM;  // -mean rstd
+  auto xs = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + L.off_stage +
+                                            s * kStageBytes);
+  };
+  auto ws = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + L.off_stage +
+                                            s * kStageBytes + kXBytes);
+  };
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  float* stage = reinterpret_cast<float*>(smem + L.off_stage) + warp * 512;
-  const int t0 = blockIdx.x * kTile;
-  const int rows = min(kTile, T - t0);
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int t0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int nchunks = (K + kBK - 1) / kBK;
 
-  // LN -> xn (bf16), one warp per row; missing rows of the last tile are 0
-  for (int r = warp; r < kTile; r += kWarps) {
-    if (r < rows) {
-      fmmt::warp_layernorm_row(x + (size_t)(t0 + r) * K, gamma, beta,
-                               xn + (size_t)r * L.ldx, K, eps, lane);
-    } else {
-      for (int i = lane; i < K; i += 32)
-        xn[(size_t)r * L.ldx + i] = __float2bfloat16(0.f);
+  // x columns k0..k0+63 of the block's rows and w rows k0..k0+63 of its
+  // columns -> stage s; anything past T, K or M is zero
+  auto load_chunk = [&](int c, int s) {
+    const int k0 = c * kBK;
+    __nv_bfloat16* xd = xs(s);
+    __nv_bfloat16* wd = ws(s);
+    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
+      const int r = i / (kBK / 8);
+      const int col = (i % (kBK / 8)) * 8;
+      const bool real = t0 + r < T && k0 + col < K;
+      fmmt::cp_async16(xd + r * ldx + col,
+                       x + (real ? (size_t)(t0 + r) * K + k0 + col : 0), real);
+    }
+    for (int i = tid; i < kBK * (kBN / 8); i += kThreads) {
+      const int r = i / (kBN / 8);
+      const int col = (i % (kBN / 8)) * 8;
+      const bool real = k0 + r < K && n0 + col < M;
+      fmmt::cp_async16(wd + r * ldw + col,
+                       w + (real ? (size_t)(k0 + r) * M + n0 + col : 0), real);
+    }
+  };
+  // normalise the x chunk of stage s in place: bf16((x rstd - mean rstd) *
+  // gamma + beta); columns past K stay 0
+  auto normalise = [&](int c, int s) {
+    const int k0 = c * kBK;
+    __nv_bfloat16* xd = xs(s);
+    for (int i = tid; i < kBM * (kBK / 8); i += kThreads) {
+      const int r = i / (kBK / 8);
+      const int col = (i % (kBK / 8)) * 8;
+      if (k0 + col >= K) continue;
+      uint4* p = reinterpret_cast<uint4*>(xd + r * ldx + col);
+      uint4 val = *p;
+      __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(&val);
+      const __nv_bfloat162* g2 =
+          reinterpret_cast<const __nv_bfloat162*>(gs + k0 + col);
+      const __nv_bfloat162* b2 =
+          reinterpret_cast<const __nv_bfloat162*>(bs + k0 + col);
+      const float scale = scale_s[r];
+      const float shift = shift_s[r];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xv = __bfloat1622float2(v2[e]);
+        const float2 gv = __bfloat1622float2(g2[e]);
+        const float2 bv = __bfloat1622float2(b2[e]);
+        v2[e] = __floats2bfloat162_rn(
+            fmaf(fmaf(xv.x, scale, shift), gv.x, bv.x),
+            fmaf(fmaf(xv.y, scale, shift), gv.y, bv.y));
+      }
+      *p = val;
+    }
+  };
+
+  // gamma and beta travel with chunk 0 in group 0
+  for (int i = tid; i < K / 8; i += kThreads) {
+    fmmt::cp_async16(gs + i * 8, gamma + i * 8, true);
+    fmmt::cp_async16(bs + i * 8, beta + i * 8, true);
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) load_chunk(s, s);
+    fmmt::cp_async_commit();
+  }
+
+  // LayerNorm statistics of rows warp * 8 .. + 7 while the ring fills (fp32,
+  // two-pass, biased variance).  Rows past T read row T - 1, so that the
+  // loads stay unconditional and the 8 of a step are in flight together;
+  // their statistics are set to 0 and they are never stored.
+  {
+    const int rw = warp * kRowsPerWarp;
+    const __nv_bfloat16* rows[kRowsPerWarp];
+    float acc[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      rows[i] = x + (size_t)min(t0 + rw + i, T - 1) * K;
+      acc[i] = 0.f;
+    }
+    for (int c = lane * 8; c < K; c += 256) {
+      uint4 v[kRowsPerWarp];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        v[i] = *reinterpret_cast<const uint4*>(rows[i] + c);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) acc[i] += sum8(v[i]);
+    }
+    float mean[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      mean[i] = fmmt::warp_sum(acc[i]) / K;
+      acc[i] = 0.f;
+    }
+    for (int c = lane * 8; c < K; c += 256) {
+      uint4 v[kRowsPerWarp];
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        v[i] = *reinterpret_cast<const uint4*>(rows[i] + c);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) acc[i] += sqdev8(v[i], mean[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const float rstd = rsqrtf(fmmt::warp_sum(acc[i]) / K + eps);
+      if (lane == 0) {
+        const bool real = t0 + rw + i < T;
+        scale_s[rw + i] = real ? rstd : 0.f;
+        shift_s[rw + i] = real ? -mean[i] * rstd : 0.f;
+      }
+    }
+  }
+  fmmt::cp_async_wait<kStages - 2>();
+  __syncthreads();   // statistics, gamma, beta and chunk 0 visible
+  normalise(0, 0);
+
+  const int wm = warp % kWM;
+  const int wn = warp / kWM;
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+
+  // One barrier a chunk: chunk c was normalised in the previous step; this
+  // step normalises chunk c + 1 while it multiplies chunk c.
+  for (int c = 0; c < nchunks; ++c) {
+    fmmt::cp_async_wait<kStages - 3>();
+    // chunk c + 1 has landed for every thread, chunk c's normalised rows are
+    // visible, and every warp is done with chunk c - 1, whose stage the next
+    // load overwrites
+    __syncthreads();
+    {
+      const int next = c + kStages - 1;
+      if (next < nchunks) load_chunk(next, next % kStages);
+      fmmt::cp_async_commit();
+    }
+    if (c + 1 < nchunks) normalise(c + 1, (c + 1) % kStages);
+
+    const __nv_bfloat16* xd = xs(c % kStages);
+    const __nv_bfloat16* wd = ws(c % kStages);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t a[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        fmmt::ldmatrix_x4(a[mt], xd + (wm * kWR + mt * 16 + (lane & 15)) * ldx
+                                     + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < kNT / 2; ++jp) {
+        uint32_t b[4];
+        fmmt::ldmatrix_x4_trans(b, wd + (kk * 16 + (lane & 15)) * ldw
+                                       + wn * kWN + jp * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          fmmt::mma_16816(acc[mt][2 * jp], a[mt], b[0], b[1]);
+          fmmt::mma_16816(acc[mt][2 * jp + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // bf16 tile over the ring, then 16-byte stores of its real rows / columns
+  fmmt::cp_async_wait<0>();
+  __syncthreads();
+  __nv_bfloat16* os = xs(0);
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int row = wm * kWR + mt * 16 + g;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int col = wn * kWN + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(os + row * ldw + col) =
+          fmmt::pack_bf16(acc[mt][j][0], acc[mt][j][1]);
+      *reinterpret_cast<uint32_t*>(os + (row + 8) * ldw + col) =
+          fmmt::pack_bf16(acc[mt][j][2], acc[mt][j][3]);
     }
   }
   __syncthreads();
-
-  for (int n = warp; n < M / 16; n += kWarps) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-    wmma::fill_fragment(acc0, 0.f);
-    wmma::fill_fragment(acc1, 0.f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a0, a1;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b;
-      wmma::load_matrix_sync(b, w + (size_t)k0 * M + n * 16, M);
-      wmma::load_matrix_sync(a0, xn + k0, L.ldx);
-      wmma::load_matrix_sync(a1, xn + (size_t)16 * L.ldx + k0, L.ldx);
-      wmma::mma_sync(acc0, a0, b, acc0);
-      wmma::mma_sync(acc1, a1, b, acc1);
-    }
-    wmma::store_matrix_sync(stage, acc0, 16, wmma::mem_row_major);
-    wmma::store_matrix_sync(stage + 256, acc1, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 512; e += 32) {
-      const int r = e / 16;
-      if (r < rows)
-        out[(size_t)(t0 + r) * M + n * 16 + e % 16] =
-            __float2bfloat16(stage[e]);
-    }
-    __syncwarp();
+  for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
+    const int r = i / (kBN / 8);
+    const int col = (i % (kBN / 8)) * 8;
+    if (t0 + r < T && n0 + col < M)
+      *reinterpret_cast<uint4*>(out + (size_t)(t0 + r) * M + n0 + col) =
+          *reinterpret_cast<const uint4*>(os + r * ldw + col);
   }
 }
 
@@ -127,8 +342,8 @@ FMMT_API int fmmt_fused_merge(const void* x, const void* gamma,
       merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (T + kTile - 1) / kTile;
-  merge_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((T + kBM - 1) / kBM, (M + kBN - 1) / kBN);
+  merge_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(gamma),
       static_cast<const __nv_bfloat16*>(beta),

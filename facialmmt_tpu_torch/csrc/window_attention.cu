@@ -71,36 +71,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col).  Lane l holds,
-// with g = l / 4 and t = l % 4: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
-// a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]; b0 = B[2t..2t+1][g],
-// b1 = B[2t+8..2t+9][g]; c0, c1 = D[g][2t..2t+1], c2, c3 = D[g+8][2t..2t+1].
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment of a 16 (k) x 8 (n) block of a row-major [k][n] tile: lanes
-// 0..15 pass the addresses of its 16 rows, and the transposing load hands
-// lane l the pairs [2t..2t+1][g] and [2t+8..2t+9][g].
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-      : "=r"(b0), "=r"(b1)
-      : "r"(addr));
-}
-
 template <int kConc, int kHd>
 __global__ void __launch_bounds__(kConc * kGroupThreads, 6 / kConc)
 window_attention_kernel(const __nv_bfloat16* __restrict__ q,
@@ -168,7 +138,7 @@ window_attention_kernel(const __nv_bfloat16* __restrict__ q,
         for (int j = 0; j < kRows / 8; ++j) {
           if (8 * j < N) {
             const __nv_bfloat16* kr = kb + (8 * j + gid) * ldh + c;
-            mma_16816(sc[j], a, ld32(kr), ld32(kr + 8));
+            fmmt::mma_16816(sc[j], a, ld32(kr), ld32(kr + 8));
           }
         }
       }
@@ -220,8 +190,8 @@ window_attention_kernel(const __nv_bfloat16* __restrict__ q,
       uint32_t pr[kRows / 8][2];
 #pragma unroll
       for (int j = 0; j < kRows / 8; ++j) {
-        pr[j][0] = pack_bf16(sc[j][0] * inv0, sc[j][1] * inv0);
-        pr[j][1] = pack_bf16(sc[j][2] * inv1, sc[j][3] * inv1);
+        pr[j][0] = fmmt::pack_bf16(sc[j][0] * inv0, sc[j][1] * inv0);
+        pr[j][1] = fmmt::pack_bf16(sc[j][2] * inv1, sc[j][3] * inv1);
       }
 
       // 4. P v (fp32 accumulation): keys 16 ks..16 ks + 15 at a time
@@ -237,9 +207,9 @@ window_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int jn = 0; jn < kHd / 8; ++jn) {
             uint32_t b0, b1;
-            ldmatrix_x2_trans(b0, b1,
+            fmmt::ldmatrix_x2_trans(b0, b1,
                               vb + (16 * ks + (lane & 15)) * ldh + 8 * jn);
-            mma_16816(oc[jn], a, b0, b1);
+            fmmt::mma_16816(oc[jn], a, b0, b1);
           }
         }
       }
@@ -251,9 +221,9 @@ window_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int jn = 0; jn < kHd / 8; ++jn) {
         const int c = 8 * jn + 2 * tig;
         *reinterpret_cast<uint32_t*>(qb + row0 * ldh + c) =
-            pack_bf16(oc[jn][0], oc[jn][1]);
+            fmmt::pack_bf16(oc[jn][0], oc[jn][1]);
         *reinterpret_cast<uint32_t*>(qb + row1 * ldh + c) =
-            pack_bf16(oc[jn][2], oc[jn][3]);
+            fmmt::pack_bf16(oc[jn][2], oc[jn][3]);
       }
       __syncwarp();
       uint4* o4 = reinterpret_cast<uint4*>(out + unit);

@@ -117,6 +117,25 @@ def test_fused_attention_kernel(rng, cuda_device, sq, sk, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,sq,sk,d", [
+    (2, 4, 1, 512, 64), (2, 4, 1, 1, 16), (2, 4, 100, 130, 32),
+    (8, 16, 300, 200, 64), (8, 16, 512, 157, 64)])
+def test_fused_attention_kernel_tiles(rng, cuda_device, b, h, sq, sk, d):
+    """Sq = 1, Sk not a multiple of the 64-key tile (one key, 130, 200, 157),
+    both row tilings (the last two shapes give the grid of 128-row blocks
+    that takes 32 rows a warp), a random non-contiguous -1e30 mask and a
+    fully padded row: finite, and the uniform softmax, i.e. the mean of v."""
+    q, k, v, bias = _attention_inputs(rng, cuda_device, b, h, sq, sk, d)
+    got = attention.fused_attention_cuda(q, k, v, bias)
+    want = attention.fused_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= BOUND
+    mean_v = v[-1].float().mean(dim=1, keepdim=True).expand(h, sq, d)
+    torch.testing.assert_close(got[-1].float(), mean_v, atol=1e-3, rtol=1e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,c,h,nw,keep", [(49, 96, 3, 4, True),
                                            (49, 768, 24, 1, False),
                                            (16, 32, 2, 4, False)])
@@ -364,7 +383,7 @@ def test_window_attention_tilings_agree_bit_for_bit(rng, cuda_device):
 @pytest.mark.parametrize("t,c4", [(1568, 384), (1000, 768), (196, 1536),
                                   (50, 32)])
 def test_fused_merge_kernel(rng, cuda_device, t, c4):
-    """T = 1000 and 50 are not multiples of the 32-row tile."""
+    """T = 1000 and 50 are not multiples of the 64-row tile."""
     bf = lambda a: torch.tensor(a).to(cuda_device, torch.bfloat16).contiguous()
     args = (bf(rng.normal(size=(2, t // 2, c4))),
             bf(1 + 0.1 * rng.normal(size=c4)), bf(0.1 * rng.normal(size=c4)),
@@ -374,6 +393,28 @@ def test_fused_merge_kernel(rng, cuda_device, t, c4):
     torch.cuda.synchronize()
     assert got.shape == (2, t // 2, c4 // 2)
     assert _rel(got, want) <= BOUND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,c4,c2", [(1, 384, 192), (1024, 1536, 768),
+                                     (1000, 768, 384), (130, 48, 208)])
+def test_fused_merge_kernel_tiles(rng, cuda_device, t, c4, c2):
+    """T = 1; transition 2's widths (K = 1536, M = 768) at T = 1024; T not a
+    multiple of the 64-row tile; K under one 64-wide chunk and M not a
+    multiple of the 192-column tile (a second tile of 16 columns)."""
+    bf = lambda a: torch.tensor(a).to(cuda_device, torch.bfloat16).contiguous()
+    args = (bf(rng.normal(size=(1, t, c4))),
+            bf(1 + 0.1 * rng.normal(size=c4)), bf(0.1 * rng.normal(size=c4)),
+            bf(rng.normal(size=(c4, c2)) / np.sqrt(c4)))
+    got = merge_kernel.fused_merge_cuda(*args)
+    want = merge_kernel.fused_merge_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (1, t, c2)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= BOUND
+    # the tile plan's shared memory at K = 1536, as
+    # tests/test_torch_kernels_redesign.py::merge_smem_bytes counts it
+    assert kernels.library().fmmt_fused_merge_smem(1536) == 111104
 
 
 @pytest.mark.gpu
