@@ -11,9 +11,13 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      the shapes the paths give it: the text tower's 8 x 16 x 512 x 64
      attention (padded; beside it, outside the row's sums, the same shape
      unpadded and the fusion stacks' 157 x 157 and 38 x 157 at 8 x 12 heads,
-     with plain attention's and SDPA's device times); the forward Swin
-     halves at every stage at 64 faces (serving) and, with a
-     stochastic-depth `keep`, at 150 images (the auxiliary batch);
+     with plain attention's and SDPA's device times), and kernel 1's
+     gradients in a train-mode text layer against the plain attention's;
+     the forward Swin halves at every stage at 64 faces (serving), two
+     launches bit for bit, each beside the same half as the other route
+     computes it (LN, qkv, kernel 8, proj; the 'xla' MLP half) and with the
+     times of its device kernels, and, with a stochastic-depth `keep`, at
+     150 images (the auxiliary batch);
      the three backward kernels at every stage they serve at 150 images, with
      and without `keep`, shifted and unshifted bias, every output compared;
      the three window-attention entry points at every stage of a 64-face pack
@@ -116,7 +120,7 @@ SWIN_STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))
 KERNELS = {
     "fused_attention": ("facialmmt_tpu_torch/csrc/attention.cu",
                         "facialmmt_tpu/ops/pallas/attention.py:100"),
-    "fused_attention_block": ("facialmmt_tpu_torch/csrc/fused_block.cu",
+    "fused_attention_block": ("facialmmt_tpu_torch/csrc/attention_block.cu",
                               "facialmmt_tpu/ops/pallas/fused_block.py:213"),
     "fused_ln_mlp_residual": ("facialmmt_tpu_torch/csrc/block_mlp.cu",
                               "facialmmt_tpu/ops/pallas/block_mlp.py:134"),
@@ -200,6 +204,27 @@ def device_ms(torch, fn, iters: int = 5):
     return None
 
 
+def device_kernels_ms(torch, fn, iters: int = 5):
+    """{device kernel name: ms per fn()} from torch.profiler's trace of
+    `iters` calls, for a wrapper that launches several device kernels; {}
+    when the trace holds no kernel event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0].replace("void ", "").strip():
+            e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
 def add_ms(total, part):
     """Sum of per-shape times; None (not measured) if any part is."""
     return None if total is None or part is None else total + part
@@ -214,15 +239,17 @@ def tensor_bytes(*tensors) -> int:
 
 
 def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
-            timed=True, library=None, label="", summed=True):
+            timed=True, library=None, label="", summed=True, bitwise=False):
     """Run kernel and plain on the same inputs and hold every output to the
     bound (a bias cotangent by its group sum, the only part of it that is
-    defined).  When `timed`, time the call (median kernel, plain and library
-    times) beside its bound and add them to the kernel's totals, unless
-    `summed` is false: then the shape is only printed and listed.  Prints one
-    line."""
+    defined); with `bitwise`, a second launch must give the same bits.  When
+    `timed`, time the call (median kernel, plain and library times) beside
+    its bound and add them to the kernel's totals, unless `summed` is false:
+    then the shape is only printed and listed.  Prints one line."""
     got = kernel(*args)
     want = plain(*args)
+    if bitwise and not torch.equal(got, kernel(*args)):
+        raise AssertionError(f"{name} {label}: two launches differ")
     torch.cuda.synchronize()
     single = not isinstance(got, tuple)
     outs = [(out_names[i] if out_names else "out", g, w) for i, (g, w) in
@@ -247,6 +274,8 @@ def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
         (first[1].float() - first[2].float()).abs().max()))
     r["max_rel_err"] = max(r["max_rel_err"], worst)
     line = f"kernel {name} {label}: worst output max|d|/max|plain| {worst:.3g}"
+    if bitwise:
+        line += ", two launches bit for bit"
     if timed:
         moved = tensor_bytes(*[a for a in args if torch.is_tensor(a)],
                              *[g for _, g, _ in outs])
@@ -304,6 +333,98 @@ def mlp_flops(t, c, backward: bool) -> float:
     fc1 and fc2.  Backward (from x and dy): fc1 recomputed, dgm, dxn, dW1,
     dW2, five products of 2 * t * c * 4c."""
     return (5 if backward else 2) * 2.0 * t * c * 4 * c
+
+
+def pallas_attention_half(torch, x, gamma, beta, wqkv, bqkv, wproj, bproj,
+                          bias):
+    """The attention half as the ('pallas', *, *) route computes it (ops/
+    swin.py: SwinBlock._attention_half, WindowAttention.forward): LayerNorm,
+    the qkv Linear, the head transposes, kernel 8, proj, the residual."""
+    import torch.nn.functional as F
+
+    from facialmmt_tpu_torch.ops.kernels import window_attention
+
+    w, n, c = x.shape
+    heads = bias.shape[1]
+    hd = c // heads
+    y = F.layer_norm(x, (c,), gamma, beta, 1e-5)
+    q, k, v = F.linear(y, wqkv, bqkv).reshape(w, n, 3, heads, hd).permute(
+        2, 0, 3, 1, 4)
+    core = window_attention.fused_window_attention_cuda(
+        (q * hd ** -0.5).contiguous(), k.contiguous(), v.contiguous(), bias)
+    return x + F.linear(core.permute(0, 2, 1, 3).reshape(w, n, c), wproj,
+                        bproj)
+
+
+def xla_mlp_half(torch, x, gamma, beta, w1, b1, w2, b2):
+    """The MLP half as the (*, 'xla', *) route computes it (SwinBlock.
+    _mlp_half): LayerNorm, fc1, exact GELU, fc2, the residual."""
+    import torch.nn.functional as F
+
+    y = F.layer_norm(x, (x.shape[-1],), gamma, beta, 1e-5)
+    return x + F.linear(F.gelu(F.linear(y, w1, b1)), w2, b2)
+
+
+def text_layer_gradients(torch, dev):
+    """Kernel 1 in training: a text layer (1024 wide, 16 heads of 64, 8 x 512
+    tokens with padded tails, train mode, attention dropout 0) under bf16
+    autocast, a loss linear in its output; every weight gradient through
+    kernel 1 held within KERNEL_BOUND * max of the same layer's with the
+    plain attention (autocast off inside it, as in the Function's backward).
+    The key bias's gradient is 0 in exact arithmetic (a
+    per-query constant shift of the scores): its scale is the key weight's."""
+    import dataclasses as dc
+
+    from facialmmt_tpu_torch.config import TextEncoderConfig
+    from facialmmt_tpu_torch.models import text_encoder
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.ops.kernels import attention
+
+    cfg = dc.replace(TextEncoderConfig(), hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    layer = text_encoder.TextEncoderLayer(cfg).to(dev).train()
+    x = torch.randn(8, 512, cfg.hidden_size, generator=gen).to(dev)
+    cot = torch.randn(8, 512, cfg.hidden_size, generator=gen).to(dev)
+    bias = torch.zeros(8, 512, device=dev)
+    for i in range(8):
+        bias[i, 200 + 40 * i:] = -1e30
+
+    def grads(attend):
+        text_encoder.fused_attention = attend
+        layer.zero_grad()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = layer(x, bias)
+        if out.grad_fn is None:
+            raise AssertionError("text layer: no gradient through attention")
+        (out.float() * cot).sum().backward()
+        return {n: p.grad.float().clone() for n, p in layer.named_parameters()}
+
+    def plain(q, k, v, b):
+        with torch.autocast("cuda", enabled=False):
+            return attention.fused_attention_plain(q, k, v, b)
+
+    kernels.reset_launch_counts()
+    try:
+        got = grads(attention.fused_attention)
+        launches = kernels.launch_counts()["fused_attention"]
+        want = grads(plain)
+    finally:
+        text_encoder.fused_attention = attention.fused_attention
+    if launches != 1:
+        raise AssertionError(f"text layer: kernel 1 launched {launches} times")
+    worst = 0.0
+    for name, g in got.items():
+        ref = want["attention.self.key.weight" if name ==
+                   "attention.self.key.bias" else name]
+        rel = float((g - want[name]).abs().max() / ref.abs().max())
+        if not (torch.isfinite(g).all() and rel <= KERNEL_BOUND):
+            raise AssertionError(f"text layer gradient {name}: {rel} > "
+                                 f"{KERNEL_BOUND}")
+        worst = max(worst, rel)
+    print(f"kernel fused_attention: a train-mode text layer's {len(got)} "
+          f"weight gradients through the kernel vs the plain attention, worst "
+          f"max|d|/max {worst:.3g} (bound {KERNEL_BOUND})")
 
 
 def phase_kernels(torch, dev, rng):
@@ -373,6 +494,11 @@ def phase_kernels(torch, dev, rng):
         print(f"kernel fused_attention {what}: plain attention "
               f"{fmt_ms(plain_dev)} on the device alone")
 
+    # kernel 1's gradient: a train-mode text layer with attention dropout 0
+    # (the path that sends training to kernel 1) under bf16 autocast, its
+    # weight gradients held against the same layer's with plain attention
+    text_layer_gradients(torch, dev)
+
     def block_args(w, c, heads, res, shifted):
         n = 49
         rel = rng.normal(size=(1, heads, n, n)) * 0.5
@@ -400,36 +526,74 @@ def phase_kernels(torch, dev, rng):
         return f32(per_image).repeat_interleave(repeat).contiguous()
 
     # kernels 2 and 3, forward: every Swin-tiny stage at 64 faces of 224 px
-    # (the serving pack), timed; then with `keep` at the 150-image auxiliary
-    # batch, checked only
+    # (the serving pack), timed, two launches bit for bit, and beside each
+    # shape the same half as the other route computes it (device alone and
+    # by events); then with `keep` at the 150-image auxiliary batch, checked
+    # only
+    other_route = {"fused_attention_block": pallas_attention_half,
+                   "fused_ln_mlp_residual": xla_mlp_half}
     for stage, (res, c, heads) in enumerate(SWIN_STAGES):
         nw = (res // 7) ** 2
-        for shifted in ((False, True) if res > 7 else (False,)):
-            w = FACES * nw
-            compare(torch, "fused_attention_block",
-                    fused_block.fused_attention_block_cuda,
-                    fused_block.fused_attention_block_plain,
-                    block_args(w, c, heads, res, shifted), results,
-                    flops=attn_block_flops(w, 49, c, False),
-                    label=f"stage {stage} W={w} C={c} h={heads} "
-                          f"{'shifted' if shifted else 'unshifted'}")
+        cases = [("fused_attention_block",
+                  fused_block.fused_attention_block_cuda,
+                  fused_block.fused_attention_block_plain,
+                  block_args(FACES * nw, c, heads, res, shifted),
+                  attn_block_flops(FACES * nw, 49, c, False),
+                  f"stage {stage} W={FACES * nw} C={c} h={heads} "
+                  f"{'shifted' if shifted else 'unshifted'}")
+                 for shifted in ((False, True) if res > 7 else (False,))]
         t = FACES * res * res
-        compare(torch, "fused_ln_mlp_residual",
-                block_mlp.fused_ln_mlp_residual_cuda,
-                block_mlp.fused_ln_mlp_residual_plain, mlp_args(t, c), results,
-                flops=mlp_flops(t, c, False), label=f"stage {stage} T={t} C={c}")
+        cases.append(("fused_ln_mlp_residual",
+                      block_mlp.fused_ln_mlp_residual_cuda,
+                      block_mlp.fused_ln_mlp_residual_plain, mlp_args(t, c),
+                      mlp_flops(t, c, False), f"stage {stage} T={t} C={c}"))
+        for name, kernel, plain, args, flops, label in cases:
+            compare(torch, name, kernel, plain, args, results, flops=flops,
+                    label=label, bitwise=True)
+            route = lambda: other_route[name](torch, *args)
+            entry = results[name]["shapes"][-1]
+            entry["route_ms"] = cuda_ms(torch, route, reps=KERNEL_REPS)
+            entry["route_device_ms"] = device_ms(torch, route)
+            results[name]["route_ms"] = results[name].get("route_ms", 0.0) \
+                + entry["route_ms"]
+            results[name]["route_device_ms"] = add_ms(
+                results[name].get("route_device_ms", 0.0),
+                entry["route_device_ms"])
+            print(f"kernel {name} {label}: the other route's half "
+                  f"{entry['route_ms']:.4f} ms "
+                  f"({fmt_ms(entry['route_device_ms'])} on the device alone)")
+            entry["device_kernels_ms"] = device_kernels_ms(
+                torch, lambda: kernel(*args))
+            print(f"kernel {name} {label}: its device kernels, ms on the "
+                  f"device alone: " + ", ".join(
+                      f"{k} {v:.4f}"
+                      for k, v in entry["device_kernels_ms"].items()))
+        # the MLP half's two products alone as cuBLAS computes them (F.linear
+        # in bf16), the yardstick for the tiled product of kernels 2 and 3
+        x, _, _, w1, b1, w2, b2 = cases[-1][3]
+        hidden = F.linear(x, w1, b1)
+        fc1 = device_ms(torch, lambda: F.linear(x, w1, b1))
+        fc2 = device_ms(torch, lambda: F.linear(hidden, w2, b2))
+        results["fused_ln_mlp_residual"]["shapes"][-1]["cublas_ms"] = [fc1,
+                                                                      fc2]
+        print(f"kernel fused_ln_mlp_residual stage {stage}: fc1 and fc2 as "
+              f"F.linear (cuBLAS), {fmt_ms(fc1)} and {fmt_ms(fc2)} on the "
+              f"device alone ({mlp_flops(t, c, False) / 2e9:.2f} GFLOP each)")
+        del hidden
         w, t = AUX_IMAGES * nw, AUX_IMAGES * res * res
         compare(torch, "fused_attention_block",
                 fused_block.fused_attention_block_cuda,
                 fused_block.fused_attention_block_plain,
                 (*block_args(w, c, heads, res, res > 7),
                  image_keep(AUX_IMAGES, nw)), results, flops=0, timed=False,
-                label=f"stage {stage} W={w} C={c} with keep")
+                label=f"stage {stage} W={w} C={c} with keep", bitwise=True)
         compare(torch, "fused_ln_mlp_residual",
                 block_mlp.fused_ln_mlp_residual_cuda,
                 block_mlp.fused_ln_mlp_residual_plain,
                 (*mlp_args(t, c), image_keep(AUX_IMAGES, res * res)), results,
-                flops=0, timed=False, label=f"stage {stage} T={t} C={c} with keep")
+                flops=0, timed=False, bitwise=True,
+                label=f"stage {stage} T={t} C={c} with keep")
+        torch.cuda.empty_cache()
 
     # kernels 4, 5 and 6, backward, at the 150-image auxiliary batch.  Which
     # attention backward serves a width is decided by backward_variant alone.

@@ -1,24 +1,16 @@
-// Swin block attention half, window-resident:
-//   out[w] = x[w] + keep[w] * (proj(MHA(LN1(x[w])) + bias[w % nW]))
+// Swin whole block (kernel 7), built on the first version of kernel 2 (the
+// attention half, one window a block; kernel 2 itself is now
+// csrc/attention_block.cu):
+//   y[w] = x[w] + proj(MHA(LN1(x[w])) + bias[w % nW])
 // x (W,N,C) bf16 tokens in window layout; LN1 gamma/beta (C); packed qkv
 // weight (3C,C) and bias (3C) in torch Linear layout, q|k|v on the output
 // axis, q scaled by hd^-0.5 in-kernel; proj weight (C,C) and bias (C), all
 // bf16.  bias (nW,h,N,N) fp32 is the relative-position bias plus the
 // shifted-window mask; window w reads row w % nW, so windows must arrive
-// faces-major (window_partition order).  keep (W,) fp32 is optional.
-// N <= 64; C and the head dim are multiples of 16.
+// faces-major (window_partition order).  N <= 64; C and the head dim are
+// multiples of 16.
 //
-// Replaces: facialmmt_tpu/ops/pallas/fused_block.py::fused_attention_block.
-//
-// What bounds it on the H100: per window the work is the qkv and proj GEMMs
-// (8*N*C*C FLOP) plus the attention (4*N*N*C FLOP), against 4*N*C bytes of
-// token traffic; left to separate library calls, LN1, qkv, the head
-// transposes, the attention, proj and the residual each make a full pass over
-// the (T, C) activations in device memory.  Everything from the LN read to the
-// residual write stays in shared memory here, so the only device-memory
-// traffic is x in, out out and the (L2-resident) weights.
-//
-// What the design does about it: one block (8 warps) owns one window, and
+// The attention half's design: one block (8 warps) owns one window, and
 // every matmul runs on the tensor cores (bf16 16x16x16 mma, fp32
 // accumulation).  The window's N = 49 rows are padded to 64 (four 16-row
 // tiles): padded rows of LN1 are zero, and padded keys get probability 0 in
@@ -34,9 +26,8 @@
 // probabilities and the concatenated head outputs are rounded to bf16; the
 // residual add is in fp32 and rounded once.
 //
-// The same device code, instantiated with kWhole, is the WHOLE Swin block
-// (second entry point, fmmt_fused_whole_block):
-//   y = attention half as above (no keep), rounded to bf16
+// The WHOLE Swin block (the entry point, fmmt_fused_whole_block):
+//   y = attention half as above, rounded to bf16
 //   out = y + fc2(GELU_erf(fc1(LN2(y))))
 // with fc1 weight (HID,C) / bias (HID) and fc2 weight (C,HID) / bias (C) in
 // torch Linear layout, LN2 gamma2/beta2 (C), all bf16.
@@ -129,7 +120,7 @@ __device__ void mlp_half(const __nv_bfloat16* y, __nv_bfloat16* yn,
                          const MlpArgs& m, __nv_bfloat16* ow, int N, int C,
                          int ldx, float eps, int warp, int lane);
 
-template <bool kWhole, int kAcc>
+template <int kAcc>
 __global__ void __launch_bounds__(kThreads)
 fused_block_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ gamma,
@@ -139,7 +130,6 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ wproj,
                    const __nv_bfloat16* __restrict__ bproj,
                    const float* __restrict__ bias,
-                   const float* __restrict__ keep,
                    __nv_bfloat16* __restrict__ out, int N, int C, int heads,
                    int nW, float eps, const MlpArgs mlp) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -277,8 +267,7 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();  // q/k/v, S and P are rewritten by the next head
   }
 
-  // 3. proj + bias, keep scale, fp32 residual, straight to the output
-  const float kw = keep ? keep[w] : 1.f;
+  // 3. proj + bias, fp32 residual
   __nv_bfloat16* ow = out + (size_t)w * N * C;
   for (int t = warp; t < 4 * (C / 16); t += kWarps) {
     const int m = t / (C / 16);
@@ -297,26 +286,18 @@ fused_block_kernel(const __nv_bfloat16* __restrict__ x,
     for (int e = lane; e < 256; e += 32) {
       const int r = m * 16 + e / 16;
       const int c = n * 16 + e % 16;
-      if constexpr (kWhole) {
-        // y, rounded to bf16, over the dead xn buffer (padded rows zero)
-        xn[(size_t)r * L.ldx + c] = __float2bfloat16(
-            r < N ? stage[e] + fmmt::bf(bproj[c])
-                        + fmmt::bf(xw[(size_t)r * C + c])
-                  : 0.f);
-      } else if (r < N) {
-        const float y = (stage[e] + fmmt::bf(bproj[c])) * kw;
-        ow[(size_t)r * C + c] =
-            __float2bfloat16(y + fmmt::bf(xw[(size_t)r * C + c]));
-      }
+      // y, rounded to bf16, over the dead xn buffer (padded rows zero)
+      xn[(size_t)r * L.ldx + c] = __float2bfloat16(
+          r < N ? stage[e] + fmmt::bf(bproj[c])
+                      + fmmt::bf(xw[(size_t)r * C + c])
+                : 0.f);
     }
     __syncwarp();
   }
-  if constexpr (kWhole) {
-    __syncthreads();
-    // 4. the MLP half on the resident rows: LN2(y) over the dead attn
-    //    buffer, the GELU chunk and the staging tiles in the score region
-    mlp_half<kAcc>(xn, attn, P, stage, mlp, ow, N, C, L.ldx, eps, warp, lane);
-  }
+  __syncthreads();
+  // 4. the MLP half on the resident rows: LN2(y) over the dead attn buffer,
+  //    the GELU chunk and the staging tiles in the score region
+  mlp_half<kAcc>(xn, attn, P, stage, mlp, ow, N, C, L.ldx, eps, warp, lane);
 }
 
 template <int kAcc>
@@ -415,17 +396,17 @@ __device__ void mlp_half(const __nv_bfloat16* y, __nv_bfloat16* yn,
   }
 }
 
-template <bool kWhole, int kAcc>
+template <int kAcc>
 int launch(const void* x, const void* gamma, const void* beta,
            const void* wqkv, const void* bqkv, const void* wproj,
-           const void* bproj, const void* bias, const void* keep, void* out,
-           int W, int N, int C, int heads, int nW, float eps,
-           const MlpArgs& mlp, size_t bytes, void* stream) {
+           const void* bproj, const void* bias, void* out, int W, int N,
+           int C, int heads, int nW, float eps, const MlpArgs& mlp,
+           size_t bytes, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_block_kernel<kWhole, kAcc>,
+      fused_block_kernel<kAcc>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_block_kernel<kWhole, kAcc>
+  fused_block_kernel<kAcc>
       <<<W, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const __nv_bfloat16*>(x),
           static_cast<const __nv_bfloat16*>(gamma),
@@ -434,8 +415,8 @@ int launch(const void* x, const void* gamma, const void* beta,
           static_cast<const __nv_bfloat16*>(bqkv),
           static_cast<const __nv_bfloat16*>(wproj),
           static_cast<const __nv_bfloat16*>(bproj),
-          static_cast<const float*>(bias), static_cast<const float*>(keep),
-          static_cast<__nv_bfloat16*>(out), N, C, heads, nW, eps, mlp);
+          static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out),
+          N, C, heads, nW, eps, mlp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,27 +424,12 @@ int launch(const void* x, const void* gamma, const void* beta,
 
 // Shared-memory bytes one block needs; the wrapper checks this against the
 // card's limit before launching.
-FMMT_API long long fmmt_fused_attention_block_smem(int N, int C, int heads) {
+FMMT_API long long fmmt_fused_whole_block_smem(int N, int C, int heads) {
   return static_cast<long long>(layout(C, C / heads).bytes);
 }
 
-FMMT_API int fmmt_fused_attention_block(
-    const void* x, const void* gamma, const void* beta, const void* wqkv,
-    const void* bqkv, const void* wproj, const void* bproj, const void* bias,
-    const void* keep, void* out, int W, int N, int C, int heads, int nW,
-    float eps, void* stream) {
-  if (N > kRows || C % 16 != 0 || C % heads != 0 || (C / heads) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = layout(C, C / heads).bytes;
-  return launch<false, 1>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, keep,
-                          out, W, N, C, heads, nW, eps, MlpArgs{}, bytes,
-                          stream);
-}
-
-// The whole block (kernel 7): the attention half's operands without keep,
-// then LN2 gamma2/beta2, fc1 w1 (HID,C) / b1 (HID), fc2 w2 (C,HID) / b2 (C).
-// The same shared memory as the attention half
-// (fmmt_fused_attention_block_smem); HID a multiple of 64.
+// The whole block (kernel 7): the attention half's operands, then LN2 gamma2/beta2, fc1 w1 (HID,C) / b1 (HID), fc2 w2 (C,HID) / b2 (C).
+// Shared memory: fmmt_fused_whole_block_smem; HID a multiple of 64.
 
 FMMT_API int fmmt_fused_whole_block(
     const void* x, const void* gamma, const void* beta, const void* wqkv,
@@ -485,14 +451,11 @@ FMMT_API int fmmt_fused_whole_block(
   // 6 (C = 192), else 12 in passes of 384 columns
   const int need = (4 * (C / 16) + kWarps - 1) / kWarps;
   if (need <= 3)
-    return launch<true, 3>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-                           nullptr, out, W, N, C, heads, nW, eps, mlp, bytes,
-                           stream);
+    return launch<3>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, W,
+                     N, C, heads, nW, eps, mlp, bytes, stream);
   if (need <= 6)
-    return launch<true, 6>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-                           nullptr, out, W, N, C, heads, nW, eps, mlp, bytes,
-                           stream);
-  return launch<true, 12>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
-                          nullptr, out, W, N, C, heads, nW, eps, mlp, bytes,
-                          stream);
+    return launch<6>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, W,
+                     N, C, heads, nW, eps, mlp, bytes, stream);
+  return launch<12>(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, out, W, N,
+                    C, heads, nW, eps, mlp, bytes, stream);
 }

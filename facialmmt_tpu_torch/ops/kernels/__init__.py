@@ -18,10 +18,11 @@ merge_kernel, shift_permute) holds the plain PyTorch versions, the kernel
 wrappers with their launch counters, and the dispatch: a CPU tensor takes the
 plain version, a CUDA tensor the kernel, which raises on anything it cannot
 take.  The Swin block halves are torch.autograd.Functions whose backward
-follows the same rule; the window-attention cores, the merge tail and the
-whole block (`fused_block.fused_whole_block`) are Functions whose backward
-differentiates their plain version (`grads_of_recomputed`), as the JAX package
-has no backward kernel for them; `shift_permute`'s backward is the same
+follows the same rule; the text-tower attention (`attention.fused_attention`),
+the window-attention cores, the merge tail and the whole block
+(`fused_block.fused_whole_block`) are Functions whose backward differentiates
+their plain version (`grads_of_recomputed`), as the JAX package has no
+backward kernel for them; `shift_permute`'s backward is the same
 kernel in the opposite direction, and its launches count under
 `shift_permute` too.  The whole block and the shift permutation are, as in
 the JAX package, called by no module of the model.
@@ -110,10 +111,10 @@ def build() -> tuple[Path, float]:
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fmmt_fused_attention": ([_VP] * 5 + [_I] * 5 + [_VP], _I),
-    "fmmt_fused_attention_block": ([_VP] * 10 + [_I] * 5 + [_F, _VP], _I),
+    "fmmt_fused_attention_block": ([_VP] * 13 + [_I] * 5 + [_F, _VP], _I),
     "fmmt_fused_attention_block_smem": ([_I] * 3, ctypes.c_longlong),
-    "fmmt_fused_ln_mlp_residual": ([_VP] * 9 + [_I] * 3 + [_F, _VP], _I),
-    "fmmt_fused_ln_mlp_residual_smem": ([_I], ctypes.c_longlong),
+    "fmmt_fused_ln_mlp_residual": ([_VP] * 11 + [_I] * 3 + [_F, _VP], _I),
+    "fmmt_fused_ln_mlp_residual_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_ln_mlp_residual_bwd": ([_VP] * 15 + [_I] * 3 + [_F, _VP], _I),
     "fmmt_fused_ln_mlp_residual_bwd_smem": ([_I], ctypes.c_longlong),
     "fmmt_fused_attention_block_bwd": ([_VP] * 17 + [_I] * 5 + [_F, _VP], _I),
@@ -125,6 +126,7 @@ _SIGNATURES = {
     "fmmt_fused_merge": ([_VP] * 5 + [_I] * 3 + [_F, _VP], _I),
     "fmmt_fused_merge_smem": ([_I], ctypes.c_longlong),
     "fmmt_fused_whole_block": ([_VP] * 15 + [_I] * 6 + [_F, _VP], _I),
+    "fmmt_fused_whole_block_smem": ([_I] * 3, ctypes.c_longlong),
     "fmmt_shift_permute": ([_VP] * 2 + [_I] * 7 + [_VP], _I),
 }
 

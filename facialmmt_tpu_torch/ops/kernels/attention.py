@@ -4,6 +4,13 @@ Counterpart of facialmmt_tpu/ops/pallas/attention.py::fused_attention; the
 CUDA kernel is csrc/attention.cu.  q (B, H, Sq, D) is pre-scaled, k/v are
 (B, H, Sk, D), bias (B, Sk) is an additive padding bias broadcast over the
 queries; Sq != Sk is allowed.
+
+`fused_attention` is what the models call: a torch.autograd.Function whose
+forward is the kernel on CUDA tensors (operands cast to bf16, the bias to
+fp32, at the kernel boundary) and the plain version on CPU tensors, and
+whose backward differentiates the plain version recomputed from the saved
+inputs, as JAX's custom_vjp differentiates _reference_attention: neither
+package has a backward kernel for it.
 """
 
 from __future__ import annotations
@@ -53,8 +60,32 @@ def fused_attention_cuda(q, k, v, bias):
 fused_attention_cuda.launches = 0
 
 
+class FusedAttention(torch.autograd.Function):
+    """softmax(q k^T + bias) v.  Forward: the kernel on CUDA tensors, the
+    plain version on CPU tensors.  Backward: torch autograd of the plain
+    version recomputed from the saved inputs (kernels.grads_of_recomputed)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
+
+        ctx.save_for_backward(q, k, v, bias)
+        if q.is_cuda:
+            out = fused_attention_cuda(
+                *[kernel_operand(t) for t in (q, k, v)],
+                kernel_operand(bias, torch.float32))
+        else:
+            out = fused_attention_plain(q.detach(), k.detach(), v.detach(),
+                                        bias.detach())
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return tuple(kernels.grads_of_recomputed(
+            fused_attention_plain, ctx.saved_tensors, ctx.needs_input_grad,
+            dout))
+
+
 def fused_attention(q, k, v, bias):
     """CPU tensors -> plain version; CUDA tensors -> the kernel, or raise."""
-    if q.is_cuda:
-        return fused_attention_cuda(q, k, v, bias)
-    return fused_attention_plain(q, k, v, bias)
+    return FusedAttention.apply(q, k, v, bias)

@@ -37,8 +37,9 @@ def fused_ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2, keep=None,
 
 def fused_ln_mlp_residual_cuda(x, gamma, beta, w1, b1, w2, b2, keep=None,
                                eps: float = 1e-5):
-    """Launch csrc/block_mlp.cu: bf16 tokens and weights, fp32 keep, any T,
-    C a multiple of 16 up to 768, HID a multiple of 64; raises on anything
+    """Launch csrc/block_mlp.cu (three device kernels: LN2 statistics, fc1 +
+    GELU, fc2 + residual): bf16 tokens and weights, fp32 keep, any T, C a
+    multiple of 16 up to 768, HID a multiple of 64; raises on anything
     else."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
@@ -57,15 +58,19 @@ def fused_ln_mlp_residual_cuda(x, gamma, beta, w1, b1, w2, b2, keep=None,
     if keep is not None:
         kernels.check_cuda_tensor("keep", keep, torch.float32, (t,), dev)
     lib = kernels.library()
-    smem = lib.fmmt_fused_ln_mlp_residual_smem(c)
+    smem = lib.fmmt_fused_ln_mlp_residual_smem(c, hid)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
     out = torch.empty_like(x)
+    # the kernel's scratch: LN2 statistics per token, the GELU output
+    stats = torch.empty((t, 2), dtype=torch.float32, device=dev)
+    hidden = torch.empty((t, hid), dtype=bf16, device=dev)
     err = lib.fmmt_fused_ln_mlp_residual(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        None if keep is None else keep.data_ptr(), out.data_ptr(),
-        t, c, hid, eps, kernels.stream_ptr(dev))
+        None if keep is None else keep.data_ptr(), stats.data_ptr(),
+        hidden.data_ptr(), out.data_ptr(), t, c, hid, eps,
+        kernels.stream_ptr(dev))
     kernels.check_launch("fused_ln_mlp_residual", err)
     fused_ln_mlp_residual_cuda.launches += 1
     return out

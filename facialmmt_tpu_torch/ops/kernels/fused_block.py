@@ -1,8 +1,8 @@
 """Swin block attention half: x + keep_w * proj(MHA(LN1(x)) + bias[w % nW]).
 
 Counterpart of facialmmt_tpu/ops/pallas/fused_block.py: fused_attention_block
-(CUDA kernel csrc/fused_block.cu) and its two backwards, _bwd_impl_pallas and
-_bwd_impl_spill (CUDA kernels in csrc/fused_block_bwd.cu).  x (W, N, C) is
+(CUDA kernel csrc/attention_block.cu) and its two backwards, _bwd_impl_pallas
+and _bwd_impl_spill (CUDA kernels in csrc/fused_block_bwd.cu).  x (W, N, C) is
 window-resident (faces-major windows, so window w reads bias row w % nW).
 Weights are in torch Linear layout: wqkv (3C, C) with q|k|v on the output
 axis, wproj (C, C).  q is scaled by hd^-0.5 inside.  bias (nW, h, N, N) is the
@@ -17,8 +17,8 @@ boundary, gradients returned in their parameter's dtype).  Which backward
 serves a shape is decided in one place, `backward_variant`.
 
 `fused_whole_block` is the WHOLE block, the attention half followed by the
-MLP half y + fc2(GELU(fc1(LN2(y)))), in one kernel (the second entry point of
-csrc/fused_block.cu; JAX's fused_whole_block).  Its backward differentiates
+MLP half y + fc2(GELU(fc1(LN2(y)))), in one kernel (csrc/fused_block.cu;
+JAX's fused_whole_block).  Its backward differentiates
 the plain version recomputed from the saved inputs, as JAX's does: neither
 package has a backward kernel for it.  As in the JAX package, SwinBlock keeps
 the two halves; nothing in the model calls it.
@@ -62,8 +62,10 @@ def fused_attention_block_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj,
 
 def fused_attention_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                bias, keep=None, eps: float = 1e-5):
-    """Launch csrc/fused_block.cu: bf16 tokens and weights, fp32 bias/keep,
-    N <= 64, C and the head dim multiples of 16; raises on anything else."""
+    """Launch csrc/attention_block.cu (four device kernels: LN1 statistics,
+    qkv, the windows' attention, proj + residual): bf16 tokens and weights, fp32
+    bias/keep, N <= 64, C and the head dim multiples of 16; raises on
+    anything else."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
     kernels.require(x.dim() == 3 and bias.dim() == 4,
@@ -89,11 +91,17 @@ def fused_attention_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
     out = torch.empty_like(x)
+    # the kernel's scratch: LN1 statistics per token row, the (W N, 3C) qkv
+    # rows and the (W N, C) head outputs
+    stats = torch.empty((w * n, 2), dtype=torch.float32, device=dev)
+    qkv = torch.empty((w * n, 3 * c), dtype=bf16, device=dev)
+    heads = torch.empty((w * n, c), dtype=bf16, device=dev)
     err = lib.fmmt_fused_attention_block(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
         bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), bias.data_ptr(),
-        None if keep is None else keep.data_ptr(), out.data_ptr(),
-        w, n, c, h, nw, eps, kernels.stream_ptr(dev))
+        None if keep is None else keep.data_ptr(), stats.data_ptr(),
+        qkv.data_ptr(), heads.data_ptr(), out.data_ptr(), w, n, c, h, nw, eps,
+        kernels.stream_ptr(dev))
     kernels.check_launch("fused_attention_block", err)
     fused_attention_block_cuda.launches += 1
     return out
@@ -409,7 +417,7 @@ def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
         kernels.check_cuda_tensor(name, t, bf16, shape, dev)
     kernels.check_cuda_tensor("bias", bias, torch.float32, (nw, h, n, n), dev)
     lib = kernels.library()
-    smem = lib.fmmt_fused_attention_block_smem(n, c, h)  # the same buffers
+    smem = lib.fmmt_fused_whole_block_smem(n, c, h)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
     out = torch.empty_like(x)

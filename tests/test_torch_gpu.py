@@ -162,6 +162,90 @@ def test_fused_ln_mlp_residual_kernel(rng, cuda_device, t, c):
     assert _rel(got, want) <= BOUND
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", ["attention", "mlp"])
+def test_stage3_plans_are_right_and_bitwise_repeatable(rng, cuda_device, half):
+    """Swin-tiny's last stage at 64 faces, the shapes whose plans split the
+    work most (kernel 2: W = 64 windows, C = 768 in 24 heads, 768 attention
+    blocks; kernel 3: T = 3136 tokens, C = 768, 24.5 row tiles), with keep:
+    within the bound of the plain version, and two launches give the same
+    bits (no atomics in either forward)."""
+    if half == "attention":
+        args = _block_inputs(rng, cuda_device, 64, 49, 768, 24, 1)
+        keep = torch.tensor((rng.random(64) > 0.3) / 0.7, dtype=torch.float32,
+                            device=cuda_device)
+        kernel = fused_block.fused_attention_block_cuda
+        plain = fused_block.fused_attention_block_plain
+    else:
+        args = _mlp_inputs(rng, cuda_device, 3136, 768)
+        keep = torch.tensor((rng.random(3136) > 0.3) / 0.7,
+                            dtype=torch.float32, device=cuda_device)
+        kernel = block_mlp.fused_ln_mlp_residual_cuda
+        plain = block_mlp.fused_ln_mlp_residual_plain
+    got = kernel(*args, keep)
+    again = kernel(*args, keep)
+    want = plain(*args, keep)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= BOUND
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_text_layer_gets_gradients_through_kernel_1(cuda_device, monkeypatch):
+    """A train-mode text layer with attention dropout 0 sends attention to
+    kernel 1; its output carries a gradient to every weight, and the weight
+    gradients are within 2e-2 x max of the same layer's with the plain
+    attention (autograd through it, autocast off inside it, as in the
+    Function's backward: under autocast its fp32 scores would be computed in
+    bf16), both layers under bf16 autocast.  The loss is
+    linear in the output (a fixed random cotangent), so the two forwards'
+    bf16 rounding reaches the gradients only through the saved activations.
+    The key bias's gradient is 0 in exact arithmetic (it shifts a query's
+    scores by one constant, which the softmax ignores): it is held to the
+    bound against the key weight's gradient instead of against its own
+    rounding noise."""
+    from facialmmt_tpu_torch.config import TextEncoderConfig
+    from facialmmt_tpu_torch.models import text_encoder
+
+    cfg = dataclasses.replace(TextEncoderConfig(), hidden_size=256,
+                              num_heads=4, intermediate_size=512,
+                              hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    layer = text_encoder.TextEncoderLayer(cfg).to(cuda_device).train()
+    x = torch.randn(2, 100, 256, device=cuda_device)
+    cot = torch.randn(2, 100, 256, device=cuda_device)
+    bias = torch.zeros(2, 100, device=cuda_device)
+    bias[1, 60:] = -1e30
+
+    def weight_grads():
+        layer.zero_grad()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = layer(x, bias)
+        assert out.grad_fn is not None
+        (out.float() * cot).sum().backward()
+        return {n: p.grad.clone() for n, p in layer.named_parameters()}
+
+    kernels.reset_launch_counts()
+    got = weight_grads()
+    assert kernels.launch_counts()["fused_attention"] == 1
+    def plain(q, k, v, b):
+        with torch.autocast("cuda", enabled=False):
+            return attention.fused_attention_plain(q, k, v, b)
+
+    monkeypatch.setattr(text_encoder, "fused_attention", plain)
+    want = weight_grads()
+    assert kernels.launch_counts()["fused_attention"] == 1
+    key_bias = "attention.self.key.bias"
+    for name, g in got.items():
+        assert torch.isfinite(g).all(), name
+        if name != key_bias:
+            assert _rel(g, want[name]) <= BOUND, (name, _rel(g, want[name]))
+    scale = float(want["attention.self.key.weight"].abs().max())
+    assert float((got[key_bias] - want[key_bias]).abs().max()) <= BOUND * scale
+
+
 BWD_NAMES = ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwproj", "dbproj",
              "dbias")
 
