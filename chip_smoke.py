@@ -19,7 +19,10 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      times of its device kernels, and, with a stochastic-depth `keep`, at
      150 images (the auxiliary batch);
      the three backward kernels at every stage they serve at 150 images, with
-     and without `keep`, shifted and unshifted bias, every output compared;
+     and without `keep`, shifted and unshifted bias, every output compared,
+     kernels 4 and 5 two launches bit for bit, and beside each timed shape
+     the times of the wrapper's device kernels and the same half's backward
+     as torch autograd (xla_mlp_half, xla_attention_half: a yardstick only);
      the three window-attention entry points at every stage of a 64-face pack
      (shifted bias, nW = 64 / 16 / 4, and nW = 1) and the merge tail at the
      three stage transitions; the whole block at every stage shape of a
@@ -62,11 +65,14 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      eval, with the parameter-movement and launch-count assertions per pass,
      checkpoints to a temporary directory (size and write time of each);
      one joint step (swin_from_target, the microbatch step); a step-time
-     breakdown; one auxiliary batch's gradients on the card held against the
-     CPU in fp32; two auxiliary steps under ('pallas', 'xla', 'window');
+     breakdown with the auxiliary step's peak memory; one auxiliary batch's
+     gradients on the card held against the CPU in fp32; two auxiliary steps
+     under ('pallas', 'xla', 'window') and that route's auxiliary breakdown
+     (its Swin backward and peak memory beside the default route's);
   8. resume: the same run preempted after its first target step and resumed
      by a fresh Trainer, its final resume file held against the
-     uninterrupted run's; the trained model out as the reference's two
+     uninterrupted run's (the spread of two uninterrupted runs printed per
+     kind of tensor); the trained model out as the reference's two
      released files and back in behind an EmotionServer, answers unchanged.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
@@ -102,17 +108,22 @@ SERVING_BOUND = 0.1
 # per leaf max|d| <= GRAD_BOUND * max|grad|, the same compounding through 12
 # Swin blocks forward and backward
 GRAD_BOUND = 0.1
-# two runs of the same training on the card: the backward kernels add across
-# blocks with fp32 atomics in an order that changes from run to run, so
-# max|d| <= REPEAT_BOUND * max|value| over each kind of tensor, not bit for bit
+# two runs of the same training on the card: kernels 4 and 5 sum across
+# blocks in a fixed order (bit for bit), but kernel 6, the spill backward that
+# serves the last stage, still adds dgamma, dbeta and dbias with fp32 atomics
+# in an order that changes from run to run, so max|d| <= REPEAT_BOUND *
+# max|value| over each kind of tensor, not bit for bit
 # (tests/test_torch_gpu.py's bound)
 REPEAT_BOUND = 1e-3
 # a resumed run vs the uninterrupted one, per kind of tensor: no further apart
 # than RESUME_SPREAD times a second uninterrupted run is (or REPEAT_BOUND).
-# Two uninterrupted runs already differ by more than REPEAT_BOUND in the AdamW
-# moments and the BatchNorm running statistics (3 % of max|exp_avg| in
-# patch_embed.proj.bias, whose gradient sums 150 x 3136 nearly cancelling
-# terms; 0.5 % of running_var), so resume is held to the card's own spread
+# While kernels 4-6 all added with atomics, two uninterrupted runs differed by
+# more than REPEAT_BOUND in the AdamW moments and the BatchNorm running
+# statistics (3 % of max|exp_avg| in patch_embed.proj.bias, whose gradient
+# sums 150 x 3136 nearly cancelling terms; 0.5 % of running_var); kernel 6's
+# atomics at the last stage still reach every earlier layer through the
+# backward, so resume is held to the card's own spread, which the resume
+# phase prints per kind of tensor
 RESUME_SPREAD = 4.0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 PEAK_HBM_BYTES = 3.35e12  # per second
@@ -128,7 +139,7 @@ KERNELS = {
         "facialmmt_tpu_torch/csrc/block_mlp_bwd.cu",
         "facialmmt_tpu/ops/pallas/block_mlp.py:257"),
     "fused_attention_block_bwd": (
-        "facialmmt_tpu_torch/csrc/fused_block_bwd.cu",
+        "facialmmt_tpu_torch/csrc/attention_block_bwd.cu",
         "facialmmt_tpu/ops/pallas/fused_block.py:512"),
     "fused_attention_block_bwd_spill": (
         "facialmmt_tpu_torch/csrc/fused_block_bwd.cu",
@@ -218,7 +229,8 @@ def device_kernels_ms(torch, fn, iters: int = 5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0].replace("void ", "").strip():
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            .replace("void ", "").strip():
             e.self_device_time_total / iters / 1e3
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
@@ -248,10 +260,15 @@ def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
     then the shape is only printed and listed.  Prints one line."""
     got = kernel(*args)
     want = plain(*args)
-    if bitwise and not torch.equal(got, kernel(*args)):
-        raise AssertionError(f"{name} {label}: two launches differ")
-    torch.cuda.synchronize()
     single = not isinstance(got, tuple)
+    if bitwise:
+        again = kernel(*args)
+        if not all(torch.equal(a, b) for a, b in
+                   zip((got,) if single else got,
+                       (again,) if single else again)):
+            raise AssertionError(f"{name} {label}: two launches differ")
+        del again
+    torch.cuda.synchronize()
     outs = [(out_names[i] if out_names else "out", g, w) for i, (g, w) in
             enumerate(zip((got,) if single else got,
                           (want,) if single else want))]
@@ -363,6 +380,39 @@ def xla_mlp_half(torch, x, gamma, beta, w1, b1, w2, b2):
 
     y = F.layer_norm(x, (x.shape[-1],), gamma, beta, 1e-5)
     return x + F.linear(F.gelu(F.linear(y, w1, b1)), w2, b2)
+
+
+def xla_attention_half(torch, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias):
+    """The attention half in plain PyTorch operators, no SDPA (the 'xla'
+    formulation, batched over heads): LayerNorm, the qkv Linear, q k^T with
+    the bias, an fp32 softmax, P v, proj, the residual."""
+    import torch.nn.functional as F
+
+    w, n, c = x.shape
+    nw, heads = bias.shape[0], bias.shape[1]
+    hd = c // heads
+    y = F.layer_norm(x, (c,), gamma, beta, 1e-5)
+    q, k, v = F.linear(y, wqkv, bqkv).reshape(w, n, 3, heads, hd).permute(
+        2, 0, 3, 1, 4)
+    s = (q * hd ** -0.5) @ k.transpose(-1, -2)
+    s = (s.reshape(w // nw, nw, heads, n, n) + bias).reshape(w, heads, n, n)
+    p = torch.softmax(s.float(), dim=-1).to(x.dtype)
+    o = (p @ v).permute(0, 2, 1, 3).reshape(w, n, c)
+    return x + F.linear(o, wproj, bproj)
+
+
+def autograd_backward(torch, half, args, dy):
+    """The backward of `half` (xla_mlp_half or xla_attention_half) as torch
+    autograd computes it, every floating-point input a leaf, the forward's
+    graph built once: (ms by CUDA events, ms on the device alone).  A
+    yardstick beside kernels 4-6; the port never calls it."""
+    leaves = [a.detach().requires_grad_() for a in args]
+    out = half(torch, *leaves)
+    grads = lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    result = (cuda_ms(torch, grads, reps=KERNEL_REPS),
+              device_ms(torch, grads))
+    del out
+    return result
 
 
 def text_layer_gradients(torch, dev):
@@ -607,6 +657,27 @@ def phase_kernels(torch, dev, rng):
         "spill": ("fused_attention_block_bwd_spill",
                   fused_block.fused_attention_block_bwd_spill_cuda,
                   fused_block.fused_attention_block_bwd_spill_plain)}
+
+    def backward_yardsticks(name, kernel, label, args, half, inputs):
+        """Beside a timed backward shape: the times of the wrapper's device
+        kernels, and the same half's backward as torch autograd on the
+        half's inputs with the kernel's output gradient args[1]."""
+        entry = results[name]["shapes"][-1]
+        entry["device_kernels_ms"] = device_kernels_ms(
+            torch, lambda: kernel(*args))
+        print(f"kernel {name} {label}: its device kernels, ms on the device "
+              f"alone: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     entry["device_kernels_ms"].items()))
+        entry["autograd_ms"], entry["autograd_device_ms"] = autograd_backward(
+            torch, half, inputs, args[1])
+        r = results[name]
+        r["autograd_ms"] = r.get("autograd_ms", 0.0) + entry["autograd_ms"]
+        r["autograd_device_ms"] = add_ms(r.get("autograd_device_ms", 0.0),
+                                         entry["autograd_device_ms"])
+        print(f"kernel {name} {label}: the same half's backward as torch "
+              f"autograd {entry['autograd_ms']:.4f} ms "
+              f"({fmt_ms(entry['autograd_device_ms'])} on the device alone)")
+
     for stage, (res, c, heads) in enumerate(SWIN_STAGES):
         nw = (res // 7) ** 2
         w, t = AUX_IMAGES * nw, AUX_IMAGES * res * res
@@ -619,22 +690,30 @@ def phase_kernels(torch, dev, rng):
             x, *params = block_args(w, c, heads, res, shifted)
             args = (x, bf(rng.normal(size=(w, 49, c))), *params[:5], params[6],
                     image_keep(AUX_IMAGES, nw) if keep else None)
+            label = (f"stage {stage} W={w} C={c} h={heads} "
+                     f"{'shifted' if shifted else 'unshifted'}"
+                     f"{' with keep' if keep else ''}")
             compare(torch, name, kernel, plain, args, results,
                     flops=attn_block_flops(w, 49, c, True),
-                    out_names=ATTN_BWD_NAMES, timed=timed,
-                    label=f"stage {stage} W={w} C={c} h={heads} "
-                          f"{'shifted' if shifted else 'unshifted'}"
-                          f"{' with keep' if keep else ''}")
+                    out_names=ATTN_BWD_NAMES, timed=timed, label=label,
+                    bitwise=name == "fused_attention_block_bwd")
+            if timed:
+                backward_yardsticks(name, kernel, label, args,
+                                    xla_attention_half, (x, *params))
         for keep, timed in ((False, True), (True, False)):
             x, *params = mlp_args(t, c)
             args = (x, bf(rng.normal(size=(t, c))), *params[:5],
                     image_keep(AUX_IMAGES, res * res) if keep else None)
+            label = f"stage {stage} T={t} C={c}{' with keep' if keep else ''}"
             compare(torch, "fused_ln_mlp_residual_bwd",
                     block_mlp.fused_ln_mlp_residual_bwd_cuda,
                     block_mlp.fused_ln_mlp_residual_bwd_plain, args, results,
                     flops=mlp_flops(t, c, True), out_names=MLP_BWD_NAMES,
-                    timed=timed, label=f"stage {stage} T={t} C={c}"
-                                       f"{' with keep' if keep else ''}")
+                    timed=timed, label=label, bitwise=True)
+            if timed:
+                backward_yardsticks("fused_ln_mlp_residual_bwd",
+                                    block_mlp.fused_ln_mlp_residual_bwd_cuda,
+                                    label, args, xla_mlp_half, (x, *params))
         torch.cuda.empty_cache()
     # the spill kernel also takes the narrower widths: check it at stage 2
     res, c, heads = SWIN_STAGES[2]
@@ -1367,10 +1446,19 @@ def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
     for name in os.listdir(save_dir):
         os.remove(os.path.join(save_dir, name))
 
-    step_breakdown(torch, trainer, aux_ds, train_ds, gpu_name)
+    breakdown = {"default": step_breakdown(torch, trainer, aux_ds, train_ds,
+                                           gpu_name)}
     grad_check(torch, dev, cfg, model, aux_ds, trainer.generator)
-    paths["aux_pallas"] = route_aux_steps(torch, cfg, aux_ds, train_ds,
-                                          aux_size, gpu_name)
+    paths["aux_pallas"], breakdown[str(ROUTE_PALLAS)] = route_aux_steps(
+        torch, cfg, aux_ds, train_ds, aux_size, gpu_name)
+    (d, d_peak), (r, r_peak) = breakdown.values()
+    step = lambda m: m["Swin forward"] + m["Swin backward"] + m["clip + AdamW"]
+    print(f"training: aux step's Swin backward, default route "
+          f"{d['Swin backward']:.1f} ms at {d_peak:.2f} GiB peak vs route "
+          f"{ROUTE_PALLAS} {r['Swin backward']:.1f} ms at {r_peak:.2f} GiB; "
+          f"forward + backward + optimizer {step(d):.1f} vs {step(r):.1f} ms "
+          f"on {gpu_name}")
+    run["aux_breakdown"] = breakdown
     return paths, run
 
 
@@ -1563,7 +1651,8 @@ def route_aux_steps(torch, cfg, aux_ds, train_ds, aux_size, gpu_name):
     own model, state and step.  The first step runs at learning rate 0 (the
     warm-up's first count); the second is timed and must move every Swin
     parameter through fused_window_attention forward and torch autograd of
-    the plain versions backward, with no launch of kernels 2 to 6."""
+    the plain versions backward, with no launch of kernels 2 to 6.  Then the
+    route's aux_breakdown.  Returns (launches, that breakdown)."""
     from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
     from facialmmt_tpu_torch.ops import kernels
     from facialmmt_tpu_torch.train.trainer import Trainer
@@ -1606,54 +1695,79 @@ def route_aux_steps(torch, cfg, aux_ds, train_ds, aux_size, gpu_name):
           f"{step_ms:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on "
           f"{gpu_name}")
-    return launches
+    return launches, aux_breakdown(torch, trainer, state, aux_ds, gpu_name,
+                                   str(ROUTE_PALLAS))
 
 
-def step_breakdown(torch, trainer, aux_ds, train_ds, gpu_name, repeats=3):
-    """Where one auxiliary and one default target step spend their time: each
-    piece runs between two synchronisations on the host clock; medians of
-    `repeats` steps from the trainer's state."""
+def timed_ms(torch, fn):
+    """fn() between two synchronisations: (its result, ms on the host
+    clock)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def report_breakdown(what, rows, repeats, gpu_name, extra=""):
+    med = {k: statistics.median(v) for k, v in rows.items()}
+    print(f"training: {what} breakdown (median of {repeats}, ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+          + f", sum {sum(med.values()):.1f}{extra} on {gpu_name}")
+
+
+def aux_breakdown(torch, trainer, state, aux_ds, gpu_name, route,
+                  repeats=3):
+    """Where one auxiliary step (150 images) of `state`'s model spends its
+    time, piece by piece between synchronisations (medians of `repeats`),
+    and the peak device memory over those steps beside what was allocated
+    before them (the model, both optimizers' state and whatever the run
+    holds)."""
     from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
     from facialmmt_tpu_torch.train.steps import compute_context, cross_entropy
 
-    state, cfg, gen = trainer.state, trainer.cfg, trainer.generator
-    model, dev = state.model, trainer.device
-    dtype = cfg.runtime.compute_dtype
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
-    def report(what, rows):
-        med = {k: statistics.median(v) for k, v in rows.items()}
-        print(f"training: {what} breakdown (median of {repeats}, ms): "
-              + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
-              + f", sum {sum(med.values()):.1f} on {gpu_name}")
-
+    cfg, gen, model = trainer.cfg, trainer.generator, state.model
     model.train()
     images_np, labels_np = aux_ds.get_batch(range(AUX_IMAGES))
     rows = {k: [] for k in ("copy + augment", "Swin forward", "Swin backward",
                             "clip + AdamW")}
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     for _ in range(repeats):
-        images, t = timed(lambda: affwild2_train_augment(
+        images, t = timed_ms(torch, lambda: affwild2_train_augment(
             gen, trainer._to_device(images_np).float(),
             img_size=cfg.data.swin_img_size))
         rows["copy + augment"].append(t)
         labels = trainer._to_device(labels_np)
 
         def forward():
-            with compute_context(dev, dtype):
+            with compute_context(trainer.device, cfg.runtime.compute_dtype):
                 return cross_entropy(model.aux_logits(images, generator=gen),
                                      labels)
 
-        loss, t = timed(forward)
+        loss, t = timed_ms(torch, forward)
         rows["Swin forward"].append(t)
-        rows["Swin backward"].append(timed(loss.backward)[1])
-        rows["clip + AdamW"].append(timed(state.swin_opt.step)[1])
-    report(f"aux step ({AUX_IMAGES} images)", rows)
+        rows["Swin backward"].append(timed_ms(torch, loss.backward)[1])
+        rows["clip + AdamW"].append(timed_ms(torch, state.swin_opt.step)[1])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    report_breakdown(f"aux step ({AUX_IMAGES} images, route {route})", rows,
+                     repeats, gpu_name, f", peak memory {peak:.2f} GiB "
+                     f"({resident:.2f} GiB allocated before the steps)")
+    return {k: statistics.median(v) for k, v in rows.items()}, peak
+
+
+def step_breakdown(torch, trainer, aux_ds, train_ds, gpu_name, repeats=3):
+    """Where one auxiliary and one default target step spend their time: each
+    piece runs between two synchronisations on the host clock; medians of
+    `repeats` steps from the trainer's state."""
+    from facialmmt_tpu_torch.train.steps import compute_context, cross_entropy
+
+    state, cfg, gen = trainer.state, trainer.cfg, trainer.generator
+    model, dev = state.model, trainer.device
+    dtype = cfg.runtime.compute_dtype
+    timed = lambda fn: timed_ms(torch, fn)
+    aux = aux_breakdown(torch, trainer, state, aux_ds, gpu_name,
+                        "default ('auto', 'auto', 'auto')", repeats)
 
     batch, _ = next(iter(trainer._target_loader(train_ds, 4, False).epoch(1)))
     rows = {k: [] for k in ("copy + augment", "Swin forward (no graph)",
@@ -1680,7 +1794,9 @@ def step_breakdown(torch, trainer, aux_ds, train_ds, gpu_name, repeats=3):
         rows["text + fusion forward"].append(t)
         rows["backward"].append(timed(loss.backward)[1])
         rows["clip + AdamW"].append(timed(state.mm_opt.step)[1])
-    report("target step (4 utterances, 64-face bucket)", rows)
+    report_breakdown("target step (4 utterances, 64-face bucket)", rows,
+                     repeats, gpu_name)
+    return aux
 
 
 def grad_check(torch, dev, cfg, model, aux_ds, generator):
@@ -1810,6 +1926,7 @@ def main(json_out: str = "") -> int:
             json.dump({"card": gpu_name, "kernels": results,
                        "launches": paths,
                        "swin_forward_ms_by_route": route_ms,
+                       "aux_step_breakdown_ms_peak_gib": run["aux_breakdown"],
                        "swin_blocks_ms_whole_split_pallas_xla": whole_ms},
                       f, indent=1)
     print(gpu_name)

@@ -1,373 +1,187 @@
 // Backward of the Swin block MLP half
 //   out[t] = x[t] + keep[t] * fc2(GELU_erf(fc1(LN2(x[t]))))
-// From x and the output gradient dy (both (T,C) bf16) the kernel recomputes
-// LN2, fc1 and GELU and returns dx (T,C) bf16 and, in fp32, dgamma, dbeta
-// (C), dW1 (HID,C), db1 (HID), dW2 (C,HID), db2 (C), in torch Linear layout.
+// From x and the output gradient dy (both (T,C) bf16) the kernels recompute
+// LN2, fc1 and GELU and return dx (T,C) bf16 and, in fp32, dgamma | dbeta |
+// db2 (3C), dW1 (HID,C), db1 (HID), dW2 (C,HID), in torch Linear layout.
 // keep (T,) fp32 is optional and gets no gradient: the residual gradient is
-// dy, the branch gradient dy * keep.  The fp32 outputs must arrive zeroed.
+// dy, the branch gradient dy * keep.
 //
 // Replaces: facialmmt_tpu/ops/pallas/block_mlp.py::_bwd_impl_pallas.
 //
-// What bounds it on the H100: five GEMM-shaped products of 2*T*C*HID FLOP each
-// (fc1 recomputed, dgm, dxn, dW1, dW2; HID = 4C, so 40*T*C*C in all) against
-// 6*T*C bytes of token traffic plus the weights, so the arithmetic is
-// tensor-core work; but the two weight gradients are sums over ALL tokens,
-// and a block sees only its own tile.
+// What bounds it on the H100: five products of 2 T C HID FLOP each (fc1
+// recomputed, dgm = dyk W2, dxn = dh W1, dW1 = dh^T xn, dW2 = dyk^T g; HID =
+// 4C, 40 T C^2 FLOP in all: 173 GFLOP, 0.18 ms at 989 TFLOP/s, at every
+// stage of a 150-image batch) against the scratch the products hand each
+// other through device memory: xn and dyk (T,C) bf16, g and dh (T,HID) bf16,
+// the fp32 dxn (T,C), each written once and read once or twice, about
+// 26 T C bytes (1.2 GB, 0.35 ms at 3.35 TB/s, at stage 0 where T = 470,400
+// and C = 96; 0.06 GB at stage 3).  So stage 0 is bound by the bytes and
+// stages 1-3 by the products.  The first version of this kernel (32-token
+// blocks of wmma, every weight fragment straight from L2, the dW1 / dW2
+// slices added to device memory with fp32 atomics, 2 HID C T / 32 adds a
+// call) ran at 2-4 % of that bound and gave other bits every launch.
 //
-// What the design does about it: one block (8 warps) owns a tile of 32
-// tokens and walks the hidden width in chunks of 64 units, as the forward
-// does, so no (tile, 4C) buffer exists.  Per chunk: h = xn W1^T and
-// dgm = dyk W2 on the tensor cores, GELU and its derivative elementwise,
-// dxn += dh W1 into register fragments that live across the hidden loop, and
-// the chunk's slices of dW1 = dh^T xn and dW2 = dyk^T g as K = 32 products.
-// The TPU kernel keeps the weight gradients in one resident block that
-// sequential grid cells add to; CUDA blocks run at once, so here every
-// block adds its partial products to the fp32 outputs in device memory with
-// vector atomics (T*C*C/4 element-adds per call at any stage).  The sums are
-// therefore not bit-reproducible; they agree to fp32 rounding.  Per-block
-// partial buffers plus a second reduction kernel would be reproducible but
-// need T/32 copies of both weight matrices.
+// What the design does about it: device kernels on tile_gemm.cuh's tiled
+// wgmma product, one wrapper call (one launch in PERF.md's counts):
+//   1. the rows' LN2 statistics (launch_row_stats, as the forward), then
+//      xn = bf16(LN2(x)) and dyk = bf16(dy keep) to (T,C) scratch (prep_rows);
+//   2. the hidden layer, one block a (128-row, 64-column) tile of (T,HID),
+//      two accumulators over one pass of K = C: h = xn W1^T and dgm = dyk W2
+//      (B = W2^T, a transposed copy the wrapper makes: 4.7 MB at most, read
+//      K-major as every B of the product).  Its epilogue writes g =
+//      bf16(GELU(h + b1)) and dh = bf16(dgm GELU'(h + b1)) to two (T,HID)
+//      scratches and the column sums of the fp32 dh of its 128 rows for db1;
+//      dgm and the fp32 h never reach device memory.  xn is read from step
+//      1's copy rather than normalised again in the product's prologue: the
+//      same bits, and dW1 needs the copy anyway;
+//   3. dxn = dh W1 (B = W1^T, the wrapper's copy), fp32 out (T,C);
+//   4. the LayerNorm backward, one warp a row (ln_bwd_rows), with per-block
+//      column partials of dgamma, dbeta and db2 = sum dy keep;
+//   5. dW1 = dh^T xn and dW2 = dyk^T g as tile_gemm.cuh's split-T products
+//      (both operands token-major, read MN-major by wgmma; T cut into fixed
+//      slices so that every launch has at least 264 blocks), each slice an
+//      fp32 partial;
+//   6. sum_rows adds every set of partials in a fixed order.
+// No step adds with atomics: two launches give the same bits.
 //
-// Rounding follows the JAX kernel: xn, GELU output, dy*keep and dh are
-// rounded to bf16 as matmul operands, every accumulation and the LN backward
+// Rounding follows the JAX kernel: xn, the GELU output, dy*keep and dh are
+// rounded to bf16 as matmul operands; every accumulation and the LN backward
 // are fp32; db1, db2, dgamma, dbeta sum the unrounded fp32 values.
-#include "common.cuh"
-
-#include <math.h>
-#include <mma.h>
+#include "swin_bwd.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using fmmt::bwd::Arena;
+namespace gemm = fmmt::gemm;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;       // tokens per block
-constexpr int kChunk = 64;      // hidden units per chunk
-constexpr int kMaxC = 768;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                wmma::col_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// dxn output tiles per warp for width C, as the forward's fc2 accumulators
-__host__ __device__ constexpr int acc_tiles(int C) {
-  return ((kTile / 16) * (C / 16) + kWarps - 1) / kWarps;
-}
-
-struct Layout {
-  int ldx;   // bf16 row stride of xn and dyk (C + 8)
-  int ldf;   // fp32 row stride of the h and dgm/dh chunks (kChunk + 4)
-  int ldh;   // bf16 row stride of the g and dh chunks (kChunk + 8)
-  int ldy;   // fp32 row stride of the dxn staging (C + 4)
-  size_t off_dyk, off_hf, off_df, off_gb, off_dhb, off_stage, off_stat, bytes;
+struct Scratch {
+  float2* st;
+  __nv_bfloat16 *xn, *dyk, *g, *dh;
+  float *dxn, *db1_part, *ln_part, *dw1_part, *dw2_part, *tmp;
 };
 
-__host__ __device__ inline Layout layout(int C) {
-  Layout L;
-  L.ldx = C + 8;
-  L.ldf = kChunk + 4;
-  L.ldh = kChunk + 8;
-  L.ldy = C + 4;
-  const size_t xb = (size_t)kTile * L.ldx * sizeof(__nv_bfloat16);
-  const size_t fb = (size_t)kTile * L.ldf * sizeof(float);
-  const size_t hb = (size_t)kTile * L.ldh * sizeof(__nv_bfloat16);
-  L.off_dyk = xb;
-  L.off_hf = 2 * xb;        // the fp32 dxn staging (kTile x ldy) reuses [0, 2xb)
-  L.off_df = L.off_hf + fb;
-  L.off_gb = L.off_df + fb;
-  L.off_dhb = L.off_gb + hb;
-  L.off_stage = L.off_dhb + hb;
-  L.off_stat = L.off_stage + (size_t)kWarps * 256 * sizeof(float);
-  L.bytes = L.off_stat + 2 * kTile * sizeof(float);
-  return L;
+// The call's scratch, in the order it is handed out (Arena).
+Scratch plan(Arena& ar, int T, int C, int HID) {
+  Scratch s;
+  const gemm::SplitPlan p1 = gemm::split_plan(HID, C, T);
+  const gemm::SplitPlan p2 = gemm::split_plan(C, HID, T);
+  const int tiles = gemm::dual_row_tiles(T);
+  const int ln_blocks = fmmt::bwd::ln_bwd_blocks(T);
+  s.st = ar.take<float2>(T);
+  s.xn = ar.take<__nv_bfloat16>((size_t)T * C);
+  s.dyk = ar.take<__nv_bfloat16>((size_t)T * C);
+  s.g = ar.take<__nv_bfloat16>((size_t)T * HID);
+  s.dh = ar.take<__nv_bfloat16>((size_t)T * HID);
+  s.dxn = ar.take<float>((size_t)T * C);
+  s.db1_part = ar.take<float>((size_t)tiles * HID);
+  s.ln_part = ar.take<float>((size_t)ln_blocks * 3 * C);
+  s.dw1_part = ar.take<float>((size_t)p1.slices * HID * C);
+  s.dw2_part = ar.take<float>((size_t)p2.slices * C * HID);
+  size_t tmp = gemm::sum_rows_scratch(p1.slices, (long long)HID * C);
+  const size_t more[] = {
+      gemm::sum_rows_scratch(p2.slices, (long long)C * HID),
+      gemm::sum_rows_scratch(tiles, HID),
+      gemm::sum_rows_scratch(ln_blocks, 3 * C)};
+  for (size_t m : more) tmp = m > tmp ? m : tmp;
+  s.tmp = ar.take<float>(tmp);
+  return s;
 }
 
-template <int kAcc>
-__global__ void __launch_bounds__(kThreads)
-block_mlp_bwd_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ dy,
-                     const __nv_bfloat16* __restrict__ gamma,
-                     const __nv_bfloat16* __restrict__ beta,
-                     const __nv_bfloat16* __restrict__ w1,
-                     const __nv_bfloat16* __restrict__ b1,
-                     const __nv_bfloat16* __restrict__ w2,
-                     const float* __restrict__ keep,
-                     __nv_bfloat16* __restrict__ dx, float* dgamma,
-                     float* dbeta, float* dw1, float* db1, float* dw2,
-                     float* db2, int T, int C, int HID, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout(C);
-  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dyk = reinterpret_cast<__nv_bfloat16*>(smem + L.off_dyk);
-  float* hf = reinterpret_cast<float*>(smem + L.off_hf);
-  float* df = reinterpret_cast<float*>(smem + L.off_df);
-  __nv_bfloat16* gb = reinterpret_cast<__nv_bfloat16*>(smem + L.off_gb);
-  __nv_bfloat16* dhb = reinterpret_cast<__nv_bfloat16*>(smem + L.off_dhb);
-  float* smean = reinterpret_cast<float*>(smem + L.off_stat);
-  float* srstd = smean + kTile;
-  float* ys = reinterpret_cast<float*>(smem);   // after the hidden loop
-
-  const int t0 = blockIdx.x * kTile;
-  const int rows = min(kTile, T - t0);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  float* stage = reinterpret_cast<float*>(smem + L.off_stage) + warp * 256;
-
-  // 1. LN2 -> xn (bf16) with its row statistics, dyk = bf16(dy * keep); the
-  //    missing rows of the last tile are zero in both, which makes them
-  //    inert in every product below
-  for (int r = warp; r < kTile; r += kWarps) {
-    __nv_bfloat16* xr = xn + (size_t)r * L.ldx;
-    __nv_bfloat16* dr = dyk + (size_t)r * L.ldx;
-    if (r < rows) {
-      const size_t t = (size_t)t0 + r;
-      float mean, rstd;
-      fmmt::warp_layernorm_row_stats(x + t * C, gamma, beta, xr, C, eps, lane,
-                                     mean, rstd);
-      if (lane == 0) {
-        smean[r] = mean;
-        srstd[r] = rstd;
-      }
-      const float kf = keep ? keep[t] : 1.f;
-      for (int i = lane; i < C; i += 32)
-        dr[i] = __float2bfloat16(fmmt::bf(dy[t * C + i]) * kf);
-    } else {
-      for (int i = lane; i < C; i += 32) {
-        xr[i] = __float2bfloat16(0.f);
-        dr[i] = __float2bfloat16(0.f);
-      }
-    }
-  }
-  // db2 = column sums of the unrounded dy * keep
-  for (int c = tid; c < C; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const size_t t = (size_t)t0 + r;
-      s += fmmt::bf(dy[t * C + c]) * (keep ? keep[t] : 1.f);
-    }
-    atomicAdd(db2 + c, s);
-  }
-  __syncthreads();
-
-  // this warp's dxn tiles: t = warp + kWarps * i over (kTile/16) x (C/16)
-  const int ntiles = (kTile / 16) * (C / 16);
-  const int ctiles = C / 16;
-  FragC dxacc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) wmma::fill_fragment(dxacc[i], 0.f);
-
-  // this warp's tile of the 32 x 64 chunk: 2 x 4 tiles of 16x16
-  const int f_m = warp / 4;
-  const int f_n = warp % 4;
-
-  for (int j0 = 0; j0 < HID; j0 += kChunk) {
-    // a. h = xn W1[chunk]^T and dgm = dyk W2[:, chunk], one tile per warp
-    {
-      FragC hacc, gacc;
-      wmma::fill_fragment(hacc, 0.f);
-      wmma::fill_fragment(gacc, 0.f);
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        FragA a;
-        FragBCol b;
-        wmma::load_matrix_sync(a, xn + (size_t)(f_m * 16) * L.ldx + k0, L.ldx);
-        wmma::load_matrix_sync(b, w1 + (size_t)(j0 + f_n * 16) * C + k0, C);
-        wmma::mma_sync(hacc, a, b, hacc);
-        FragA a2;
-        FragBRow b2;
-        wmma::load_matrix_sync(a2, dyk + (size_t)(f_m * 16) * L.ldx + k0,
-                               L.ldx);
-        wmma::load_matrix_sync(b2, w2 + (size_t)k0 * HID + j0 + f_n * 16, HID);
-        wmma::mma_sync(gacc, a2, b2, gacc);
-      }
-      wmma::store_matrix_sync(hf + (f_m * 16) * L.ldf + f_n * 16, hacc, L.ldf,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(df + (f_m * 16) * L.ldf + f_n * 16, gacc, L.ldf,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    // b. g = GELU(h), dh = dgm * (Phi(h) + h phi(h)); dh stays in df as fp32
-    for (int i = tid; i < kTile * kChunk; i += kThreads) {
-      const int r = i / kChunk;
-      const int jj = i % kChunk;
-      const float h = hf[r * L.ldf + jj] + fmmt::bf(b1[j0 + jj]);
-      const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-      const float pdf = expf(-0.5f * h * h) * 0.3989422804014327f;
-      const float dh = df[r * L.ldf + jj] * (cdf + h * pdf);
-      gb[r * L.ldh + jj] = __float2bfloat16(h * cdf);
-      dhb[r * L.ldh + jj] = __float2bfloat16(dh);
-      df[r * L.ldf + jj] = dh;
-    }
-    __syncthreads();
-    // c. db1[chunk] = column sums of the fp32 dh
-    if (tid < kChunk) {
-      float s = 0.f;
-      for (int r = 0; r < kTile; ++r) s += df[r * L.ldf + tid];
-      atomicAdd(db1 + j0 + tid, s);
-    }
-    // d. dxn += dh W1[chunk]
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int t = warp + kWarps * i;
-      if (t < ntiles) {
-        const int m = t / ctiles;
-        const int n = t % ctiles;
-        for (int k0 = 0; k0 < kChunk; k0 += 16) {
-          FragA a;
-          FragBRow b;
-          wmma::load_matrix_sync(a, dhb + (m * 16) * L.ldh + k0, L.ldh);
-          wmma::load_matrix_sync(b, w1 + (size_t)(j0 + k0) * C + n * 16, C);
-          wmma::mma_sync(dxacc[i], a, b, dxacc[i]);
-        }
-      }
-    }
-    // e. dW1[chunk] += dh^T xn  (64 x C, K = 32 tokens)
-    for (int t = warp; t < (kChunk / 16) * ctiles; t += kWarps) {
-      const int m = t / ctiles;
-      const int n = t % ctiles;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < kTile; k0 += 16) {
-        FragACol a;
-        FragBRow b;
-        wmma::load_matrix_sync(a, dhb + k0 * L.ldh + m * 16, L.ldh);
-        wmma::load_matrix_sync(b, xn + (size_t)k0 * L.ldx + n * 16, L.ldx);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      fmmt::warp_atomic_add_tile(dw1 + (size_t)(j0 + m * 16) * C + n * 16, C,
-                                 stage, lane);
-      __syncwarp();
-    }
-    // f. dW2[:, chunk] += dyk^T g  (C x 64, K = 32 tokens)
-    for (int t = warp; t < ctiles * (kChunk / 16); t += kWarps) {
-      const int m = t / (kChunk / 16);
-      const int n = t % (kChunk / 16);
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int k0 = 0; k0 < kTile; k0 += 16) {
-        FragACol a;
-        FragBRow b;
-        wmma::load_matrix_sync(a, dyk + (size_t)k0 * L.ldx + m * 16, L.ldx);
-        wmma::load_matrix_sync(b, gb + k0 * L.ldh + n * 16, L.ldh);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      fmmt::warp_atomic_add_tile(dw2 + (size_t)(m * 16) * HID + j0 + n * 16,
-                                 HID, stage, lane);
-      __syncwarp();
-    }
-    __syncthreads();  // hf / df / gb / dhb are rewritten by the next chunk
-  }
-
-  // 2. stage the fp32 dxn over the (now dead) xn / dyk buffers
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int t = warp + kWarps * i;
-    if (t < ntiles) {
-      const int m = t / ctiles;
-      const int n = t % ctiles;
-      wmma::store_matrix_sync(ys + (m * 16) * L.ldy + n * 16, dxacc[i], L.ldy,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  // 3. LN backward, one warp per row:
-  //    dx = dy + rstd * (dxhat - mean(dxhat) - xh * mean(dxhat * xh))
-  for (int r = warp; r < rows; r += kWarps) {
-    const size_t t = (size_t)t0 + r;
-    const float mean = smean[r];
-    const float rstd = srstd[r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = lane; i < C; i += 32) {
-      const float dxh = ys[r * L.ldy + i] * fmmt::bf(gamma[i]);
-      const float xh = (fmmt::bf(x[t * C + i]) - mean) * rstd;
-      s1 += dxh;
-      s2 = fmaf(dxh, xh, s2);
-    }
-    const float m1 = fmmt::warp_sum(s1) / C;
-    const float m2 = fmmt::warp_sum(s2) / C;
-    for (int i = lane; i < C; i += 32) {
-      const float dxh = ys[r * L.ldy + i] * fmmt::bf(gamma[i]);
-      const float xh = (fmmt::bf(x[t * C + i]) - mean) * rstd;
-      dx[t * C + i] = __float2bfloat16(fmmt::bf(dy[t * C + i]) +
-                                       rstd * (dxh - m1 - xh * m2));
-    }
-  }
-  // 4. dgamma = column sums of dxn * xh, dbeta = column sums of dxn
-  for (int c = tid; c < C; c += kThreads) {
-    float sg = 0.f, sb = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float d = ys[r * L.ldy + c];
-      const float xh =
-          (fmmt::bf(x[((size_t)t0 + r) * C + c]) - smean[r]) * srstd[r];
-      sg = fmaf(d, xh, sg);
-      sb += d;
-    }
-    atomicAdd(dgamma + c, sg);
-    atomicAdd(dbeta + c, sb);
-  }
-}
-
-template <int kAcc>
-int launch(const void* x, const void* dy, const void* gamma, const void* beta,
-           const void* w1, const void* b1, const void* w2, const void* keep,
-           void* dx, void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2,
-           void* db2, int T, int C, int HID, float eps, void* stream) {
-  const size_t bytes = layout(C).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_mlp_bwd_kernel<kAcc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (T + kTile - 1) / kTile;
-  block_mlp_bwd_kernel<kAcc><<<blocks, kThreads, bytes,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(gamma),
-      static_cast<const __nv_bfloat16*>(beta),
-      static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const __nv_bfloat16*>(b1),
-      static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(keep),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), static_cast<float*>(dw1),
-      static_cast<float*>(db1), static_cast<float*>(dw2),
-      static_cast<float*>(db2), T, C, HID, eps);
-  return static_cast<int>(cudaGetLastError());
+bool bad_shape(int T, int C, int HID) {
+  return T < 1 || C % 16 != 0 || C < 16 || C > 768 || HID % 64 != 0 ||
+         HID < 64;
 }
 
 }  // namespace
 
-// Shared-memory bytes one block needs; the wrapper checks this against the
-// card's limit before launching.
-FMMT_API long long fmmt_fused_ln_mlp_residual_bwd_smem(int C) {
-  return static_cast<long long>(layout(C).bytes);
+// Bytes of scratch one call needs; the wrapper allocates them.
+FMMT_API long long fmmt_fused_ln_mlp_residual_bwd_scratch(int T, int C,
+                                                          int HID) {
+  if (bad_shape(T, C, HID)) return -1;
+  Arena ar{nullptr, 0};
+  plan(ar, T, C, HID);
+  return static_cast<long long>(ar.used);
 }
 
+// Shared-memory bytes the largest of the device kernels needs per block; the
+// wrapper checks this against the card's limit before launching.
+FMMT_API long long fmmt_fused_ln_mlp_residual_bwd_smem(int C, int HID) {
+  size_t most = gemm::dual_smem_bytes();
+  const size_t more[] = {gemm::smem_bytes(C, HID, false),
+                         gemm::wgrad_smem(C), gemm::wgrad_smem(HID),
+                         fmmt::bwd::ln_bwd_smem(C)};
+  for (size_t m : more) most = m > most ? m : most;
+  return static_cast<long long>(most);
+}
+
+// w1 (HID,C), b1 (HID), w1t = W1^T (C,HID), w2t = W2^T (HID,C), all bf16;
+// keep (T) fp32 or null; scratch of fmmt_fused_ln_mlp_residual_bwd_scratch
+// bytes.  Outputs: dx (T,C) bf16; dvec (3C) fp32 = dgamma | dbeta | db2;
+// dw1 (HID,C), db1 (HID), dw2 (C,HID) fp32.
 FMMT_API int fmmt_fused_ln_mlp_residual_bwd(
     const void* x, const void* dy, const void* gamma, const void* beta,
-    const void* w1, const void* b1, const void* w2, const void* keep, void* dx,
-    void* dgamma, void* dbeta, void* dw1, void* db1, void* dw2, void* db2,
-    int T, int C, int HID, float eps, void* stream) {
-  if (C % 16 != 0 || C > kMaxC || HID % kChunk != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int need = acc_tiles(C);
-  if (need <= 2)
-    return launch<2>(x, dy, gamma, beta, w1, b1, w2, keep, dx, dgamma, dbeta,
-                     dw1, db1, dw2, db2, T, C, HID, eps, stream);
-  if (need <= 3)
-    return launch<3>(x, dy, gamma, beta, w1, b1, w2, keep, dx, dgamma, dbeta,
-                     dw1, db1, dw2, db2, T, C, HID, eps, stream);
-  return launch<12>(x, dy, gamma, beta, w1, b1, w2, keep, dx, dgamma, dbeta,
-                    dw1, db1, dw2, db2, T, C, HID, eps, stream);
+    const void* w1, const void* b1, const void* w1t, const void* w2t,
+    const void* keep, void* scratch, void* dx, void* dvec, void* dw1,
+    void* db1, void* dw2, int T, int C, int HID, float eps, void* stream) {
+  if (bad_shape(T, C, HID)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  Arena ar{static_cast<unsigned char*>(scratch), 0};
+  const Scratch s = plan(ar, T, C, HID);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* dyb = static_cast<const __nv_bfloat16*>(dy);
+  const auto* gb = static_cast<const __nv_bfloat16*>(gamma);
+  const auto* kp = static_cast<const float*>(keep);
+
+  int err = gemm::launch_row_stats(xb, s.st, T, C, eps, cs);
+  if (err) return err;
+  err = fmmt::bwd::launch_prep_rows(
+      xb, dyb, s.st, gb, static_cast<const __nv_bfloat16*>(beta), kp, 1, s.xn,
+      s.dyk, T, C, cs);
+  if (err) return err;
+
+  gemm::DualArgs d{};
+  d.a1 = s.xn;
+  d.b1 = static_cast<const __nv_bfloat16*>(w1);
+  d.a2 = s.dyk;
+  d.b2 = static_cast<const __nv_bfloat16*>(w2t);
+  d.bias1 = static_cast<const __nv_bfloat16*>(b1);
+  d.g = s.g;
+  d.dh = s.dh;
+  d.dh_part = s.db1_part;
+  d.M = T;
+  d.N = HID;
+  d.K = C;
+  err = gemm::launch_dual(d, cs);
+  if (err) return err;
+
+  gemm::Args a{};
+  a.a = s.dh;
+  a.b = static_cast<const __nv_bfloat16*>(w1t);
+  a.out_f32 = s.dxn;
+  a.M = T;
+  a.N = C;
+  a.K = HID;
+  err = gemm::launch<false, gemm::kF32>(a, cs);
+  if (err) return err;
+
+  err = fmmt::bwd::launch_ln_bwd(s.dxn, xb, dyb, s.st, gb, kp, 1,
+                                 static_cast<__nv_bfloat16*>(dx), s.ln_part,
+                                 T, C, cs);
+  if (err) return err;
+  err = gemm::launch_wgrad(s.dh, s.xn, s.dw1_part, HID, C, T, cs);
+  if (err) return err;
+  err = gemm::launch_wgrad(s.dyk, s.g, s.dw2_part, C, HID, T, cs);
+  if (err) return err;
+
+  err = gemm::sum_rows(s.dw1_part, static_cast<float*>(dw1),
+                       gemm::split_plan(HID, C, T).slices, HID * C, s.tmp, cs);
+  if (err) return err;
+  err = gemm::sum_rows(s.dw2_part, static_cast<float*>(dw2),
+                       gemm::split_plan(C, HID, T).slices, C * HID, s.tmp, cs);
+  if (err) return err;
+  err = gemm::sum_rows(s.db1_part, static_cast<float*>(db1),
+                       gemm::dual_row_tiles(T), HID, s.tmp, cs);
+  if (err) return err;
+  return gemm::sum_rows(s.ln_part, static_cast<float*>(dvec),
+                        fmmt::bwd::ln_bwd_blocks(T), 3 * C, s.tmp, cs);
 }

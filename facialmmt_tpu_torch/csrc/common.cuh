@@ -175,34 +175,4 @@ __device__ __forceinline__ void warp_layernorm_row(
   warp_layernorm_row_stats(src, g, b, dst, c, eps, lane, mean, rstd);
 }
 
-// Add four consecutive fp32 values to 16-byte aligned device memory.  On
-// sm_90 with CUDA >= 12.1 this is one vector reduction; elsewhere four scalar
-// ones.  Sums formed with atomics are not bit-reproducible run to run.
-__device__ __forceinline__ void atomic_add4(float* addr, const float* v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
-    (__CUDACC_VER_MAJOR__ > 12 ||                      \
-     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
-  atomicAdd(reinterpret_cast<float4*>(addr),
-            make_float4(v[0], v[1], v[2], v[3]));
-#else
-  atomicAdd(addr + 0, v[0]);
-  atomicAdd(addr + 1, v[1]);
-  atomicAdd(addr + 2, v[2]);
-  atomicAdd(addr + 3, v[3]);
-#endif
-}
-
-// Add a warp's 16x16 fp32 tile (row-major, stride 16, in shared memory) to a
-// device-memory matrix with row stride ld; dst points at the tile's corner
-// and must be 16-byte aligned, ld a multiple of 4.
-__device__ __forceinline__ void warp_atomic_add_tile(float* dst, size_t ld,
-                                                     const float* tile,
-                                                     int lane) {
-  for (int e = lane; e < 64; e += 32) {
-    const int r = e / 4;
-    const int c4 = (e % 4) * 4;
-    atomic_add4(dst + (size_t)r * ld + c4, tile + r * 16 + c4);
-  }
-}
-
 }  // namespace fmmt

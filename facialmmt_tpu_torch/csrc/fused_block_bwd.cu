@@ -1,23 +1,19 @@
-// Backward of the Swin block attention half, window-resident:
+// Backward of the Swin block attention half, spill variant (any C up to
+// 768; the dispatch sends C = 768 here):
 //   out[w] = x[w] + keep[w] * (proj(MHA(LN1(x[w])) + bias[w % nW]))
-// From x and the output gradient dy (both (W,N,C) bf16) the kernels recompute
-// LN1, qkv and the softmax per window and head and return dx (W,N,C) bf16
+// From x and the output gradient dy (both (W,N,C) bf16) the kernel recomputes
+// LN1, qkv and the softmax per window and head and returns dx (W,N,C) bf16
 // and, in fp32, dgamma, dbeta (C) and the bias cotangent summed over ALL
 // windows, dbias (h,N,N).  Weights are in torch Linear layout, wqkv (3C,C)
 // with q|k|v on the output axis, wproj (C,C).  keep (W,) fp32 is optional and
 // gets no gradient: the residual gradient is dy, the branch gradient
-// dy * keep.  The fp32 outputs must arrive zeroed.  Two entry points:
+// dy * keep.  The fp32 outputs must arrive zeroed.  The kernel emits xn
+// (W,64,C), dqkv (W,64,3C) and attn (W,64,C) in bf16, rows N..63 of each
+// window zero, and the caller forms the four weight gradients as K = T
+// products outside.
 //
-//   fmmt_fused_attention_block_bwd        ("resident", C <= 384): the weight
-//     gradients dWqkv (3C,C), dbqkv (3C), dWproj (C,C), dbproj (C) are formed
-//     inside the kernel;
-//   fmmt_fused_attention_block_bwd_spill  (any C up to 768): the kernel emits
-//     xn (W,64,C), dqkv (W,64,3C) and attn (W,64,C) in bf16, rows N..63 of
-//     each window zero, and the caller forms the four weight gradients as
-//     K = T products outside.
-//
-// Replaces: facialmmt_tpu/ops/pallas/fused_block.py::_bwd_impl_pallas and
-// ::_bwd_impl_spill.
+// Replaces: facialmmt_tpu/ops/pallas/fused_block.py::_bwd_impl_spill.  (The
+// resident variant, _bwd_impl_pallas, is csrc/attention_block_bwd.cu.)
 //
 // What bounds it on the H100: per window about 2.7x the forward's matmul
 // work (22*N*C*C + 12*N*N*C FLOP) against 6*N*C bytes of token traffic, so
@@ -27,22 +23,16 @@
 // (100 KB each at C = 768).
 //
 // What the design does about it: one block (8 warps) owns one window (N = 49
-// rows padded to 64) and loops over heads, as the forward does.  Only xn and
-// dyk = bf16(dy * keep) are kept whole; per head the block forms q, k, v,
+// rows padded to 64) and loops over heads, as the forward does.  Only
+// dyk = bf16(dy * keep) is kept whole in shared memory; xn is read back from
+// the emitted (L2-resident) copy.  Per head the block forms q, k, v,
 // dattn_h = dyk Wproj[:, head], the scores, the fp32 softmax and its vjp,
-// attn_h, dv, dq, dk (64 x hd each).
-//   resident: dxn (64 x C fp32) lives in register fragments across the head
-//     loop (up to 12 per warp, which is what limits it to C <= 384), and each
-//     head's slices of dWqkv = dqkv_h^T xn and dWproj = dyk^T attn_h are
-//     K = 64 products added to device memory with vector atomics.
-//   spill: xn is read back from the emitted (L2-resident) copy, so only dyk
-//     stays in shared memory; dxn = dqkv Wqkv is formed after the head loop
-//     in 16-row tiles from the emitted dqkv.
-// The TPU kernels add the weight gradients, dgamma, dbeta and dbias into one
-// resident output block across sequential grid cells; CUDA blocks run at
-// once, so every cross-window sum here is an fp32 atomicAdd into zeroed
-// device memory.  These sums are not bit-reproducible run to run; they agree
-// to fp32 rounding.
+// attn_h, dv, dq, dk (64 x hd each); dxn = dqkv Wqkv is formed after the head
+// loop in 16-row tiles from the emitted dqkv.  The TPU kernel adds dgamma,
+// dbeta and dbias into one resident output block across sequential grid
+// cells; CUDA blocks run at once, so those cross-window sums here are fp32
+// atomicAdds into zeroed device memory.  They are not bit-reproducible run
+// to run; they agree to fp32 rounding.
 //
 // Padding: padded key columns carry probability 0 and ds = 0; padded query
 // rows of xn, dyk, q, k, v are zero, so they add nothing to any gradient, and
@@ -77,13 +67,8 @@ using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                                 wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// dxn output tiles per warp in the resident kernel: 4 x (C/16) over 8 warps
-__host__ __device__ constexpr int acc_tiles(int C) {
-  return ((kRows / 16) * (C / 16) + kWarps - 1) / kWarps;
-}
-
 struct Layout {
-  int ldx;    // bf16 row stride of xn / dyk (C + 8)
+  int ldx;    // bf16 row stride of dyk (C + 8)
   int ldh;    // bf16 row stride of the per-head buffers (hd + 8)
   int lds;    // fp32 row stride of the scores and dP (kRows + 4)
   int ldp;    // bf16 row stride of the probabilities and ds (kRows + 8)
@@ -92,7 +77,7 @@ struct Layout {
       off_stat, bytes;
 };
 
-__host__ __device__ inline Layout layout(int C, int hd, bool spill) {
+__host__ __device__ inline Layout layout(int C, int hd) {
   Layout L;
   L.ldx = C + 8;
   L.ldh = hd + 8;
@@ -100,12 +85,11 @@ __host__ __device__ inline Layout layout(int C, int hd, bool spill) {
   L.ldp = kRows + 8;
   L.ldy = C + 4;
   const size_t xb = (size_t)kRows * L.ldx * sizeof(__nv_bfloat16);
-  // resident: xn | dyk, later the whole fp32 dxn (64 x ldy) over both;
-  // spill: dyk only, later one 16-row fp32 dxn tile over it
-  L.off_dyk = spill ? 0 : xb;
-  L.off_head = spill ? xb : 2 * xb;
+  // dyk, later one 16-row fp32 dxn tile over it
+  L.off_dyk = 0;
+  L.off_head = xb;
   L.head_bytes = (size_t)kRows * L.ldh * sizeof(__nv_bfloat16);
-  L.off_s = L.off_head + 8 * L.head_bytes;   // q k v dattn dq dk dv attn
+  L.off_s = L.off_head + 4 * L.head_bytes;   // q k v dattn
   L.off_d = L.off_s + (size_t)kRows * L.lds * sizeof(float);
   L.off_p = L.off_d + (size_t)kRows * L.lds * sizeof(float);
   L.off_ds = L.off_p + (size_t)kRows * L.ldp * sizeof(__nv_bfloat16);
@@ -120,8 +104,7 @@ struct Args {
   const float *bias, *keep;
   __nv_bfloat16* dx;
   float *dgamma, *dbeta, *dbias;
-  float *dwqkv, *dbqkv, *dwproj, *dbproj;       // resident
-  __nv_bfloat16 *xn_out, *dqkv_out, *attn_out;  // spill
+  __nv_bfloat16 *xn_out, *dqkv_out, *attn_out;
   int N, C, heads, nW;
   float eps;
 };
@@ -177,30 +160,26 @@ __device__ __forceinline__ void ln_backward_rows(
   }
 }
 
-template <bool kSpill, int kAcc>
 __global__ void __launch_bounds__(kThreads) fused_block_bwd_kernel(Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int N = p.N, C = p.C, heads = p.heads;
   const int hd = C / heads;
-  const Layout L = layout(C, hd, kSpill);
+  const Layout L = layout(C, hd);
   const int w = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
 
   __nv_bfloat16* dyk = reinterpret_cast<__nv_bfloat16*>(smem + L.off_dyk);
-  // xn: shared memory (resident) or this window's emitted rows (spill)
-  __nv_bfloat16* xn = kSpill ? p.xn_out + (size_t)w * kRows * C
-                             : reinterpret_cast<__nv_bfloat16*>(smem);
-  const int ldn = kSpill ? C : L.ldx;
+  // xn: this window's emitted rows
+  __nv_bfloat16* xn = p.xn_out + (size_t)w * kRows * C;
+  const int ldn = C;
   __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(smem + L.off_head);
   const int hstride = kRows * L.ldh;
   __nv_bfloat16* qb = hbuf;
   __nv_bfloat16* kb = hbuf + hstride;
   __nv_bfloat16* vb = hbuf + 2 * hstride;
   __nv_bfloat16* dab = hbuf + 3 * hstride;   // dattn_h
-  __nv_bfloat16* dqb = hbuf + 4 * hstride;   // dq | dk | dv, contiguous
-  __nv_bfloat16* atb = hbuf + 7 * hstride;   // attn_h
   float* Sf = reinterpret_cast<float*>(smem + L.off_s);
   float* Df = reinterpret_cast<float*>(smem + L.off_d);
   __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(smem + L.off_p);
@@ -208,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) fused_block_bwd_kernel(Args p) {
   float* stage = reinterpret_cast<float*>(smem + L.off_stage) + warp * 256;
   float* smean = reinterpret_cast<float*>(smem + L.off_stat);
   float* srstd = smean + kRows;
-  float* ys = reinterpret_cast<float*>(smem);   // after the head loop
+  float* ys = reinterpret_cast<float*>(smem);   // over dyk, after the heads
 
   const __nv_bfloat16* xw = p.x + (size_t)w * N * C;
   const __nv_bfloat16* dyw = p.dy + (size_t)w * N * C;
@@ -239,22 +218,10 @@ __global__ void __launch_bounds__(kThreads) fused_block_bwd_kernel(Args p) {
       }
     }
   }
-  if (!kSpill) {
-    // dbproj = column sums of the unrounded dy * keep
-    for (int c = tid; c < C; c += kThreads) {
-      float s = 0.f;
-      for (int n = 0; n < N; ++n) s += fmmt::bf(dyw[(size_t)n * C + c]);
-      atomicAdd(p.dbproj + c, s * kw);
-    }
-  }
   __syncthreads();
 
   const int ctiles = C / 16;
   const int htiles = hd / 16;
-  const int ntiles = (kRows / 16) * ctiles;
-  FragC dxacc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) wmma::fill_fragment(dxacc[i], 0.f);
 
   for (int h = 0; h < heads; ++h) {
     // a. this head's q | k | v = xn Wqkv[rows]^T + bias (q scaled) and
@@ -388,143 +355,49 @@ __global__ void __launch_bounds__(kThreads) fused_block_bwd_kernel(Args p) {
       __syncwarp();
       const int col = h * hd + d0;          // channel of the tile's column 0
       if (which < 3) {
-        if (!kSpill && lane < 16) {
-          // dbqkv = column sums of the fp32 dq / dk / dv (padded rows are 0)
-          float s = 0.f;
-          for (int r = 0; r < 16; ++r) s += stage[r * 16 + lane];
-          atomicAdd(p.dbqkv + which * C + col + lane, s);
-        }
-        __nv_bfloat16* dst = dqb + which * hstride;
         for (int e = lane; e < 256; e += 32) {
           const int r = m * 16 + e / 16;
-          const __nv_bfloat16 v = __float2bfloat16(stage[e]);
-          if (kSpill)
-            p.dqkv_out[((size_t)w * kRows + r) * 3 * C + which * C + col +
-                       e % 16] = v;
-          else
-            dst[r * L.ldh + d0 + e % 16] = v;
+          p.dqkv_out[((size_t)w * kRows + r) * 3 * C + which * C + col +
+                     e % 16] = __float2bfloat16(stage[e]);
         }
       } else {
         for (int e = lane; e < 256; e += 32) {
           const int r = m * 16 + e / 16;
-          const __nv_bfloat16 v = __float2bfloat16(stage[e]);
-          if (kSpill)
-            p.attn_out[((size_t)w * kRows + r) * C + col + e % 16] = v;
-          else
-            atb[r * L.ldh + d0 + e % 16] = v;
+          p.attn_out[((size_t)w * kRows + r) * C + col + e % 16] =
+              __float2bfloat16(stage[e]);
         }
       }
       __syncwarp();
     }
     __syncthreads();
 
-    if (!kSpill) {
-      // e1. dxn += dq_h Wq[head rows] + dk_h Wk[...] + dv_h Wv[...]
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) {
-        const int t = warp + kWarps * i;
-        if (t < ntiles) {
-          const int m = t / ctiles;
-          const int n = t % ctiles;
-          for (int which = 0; which < 3; ++which) {
-            const __nv_bfloat16* src = dqb + which * hstride;
-            for (int k0 = 0; k0 < hd; k0 += 16) {
-              FragA a;
-              FragBRow b;
-              wmma::load_matrix_sync(a, src + (m * 16) * L.ldh + k0, L.ldh);
-              wmma::load_matrix_sync(
-                  b, p.wqkv + (size_t)(which * C + h * hd + k0) * C + n * 16,
-                  C);
-              wmma::mma_sync(dxacc[i], a, b, dxacc[i]);
-            }
-          }
-        }
-      }
-      // e2. dWqkv[head rows] += dqkv_h^T xn  (3 x hd x C, K = 64)
-      for (int t = warp; t < 3 * htiles * ctiles; t += kWarps) {
-        const int which = t / (htiles * ctiles);
-        const int m = (t % (htiles * ctiles)) / ctiles;
-        const int n = t % ctiles;
-        const __nv_bfloat16* src = dqb + which * hstride;
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int k0 = 0; k0 < kRows; k0 += 16) {
-          FragACol a;
-          FragBRow b;
-          wmma::load_matrix_sync(a, src + k0 * L.ldh + m * 16, L.ldh);
-          wmma::load_matrix_sync(b, xn + (size_t)k0 * ldn + n * 16, ldn);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        fmmt::warp_atomic_add_tile(
-            p.dwqkv + (size_t)(which * C + h * hd + m * 16) * C + n * 16, C,
-            stage, lane);
-        __syncwarp();
-      }
-      // e3. dWproj[:, head columns] += dyk^T attn_h  (C x hd, K = 64)
-      for (int t = warp; t < ctiles * htiles; t += kWarps) {
-        const int m = t / htiles;
-        const int n = t % htiles;
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int k0 = 0; k0 < kRows; k0 += 16) {
-          FragACol a;
-          FragBRow b;
-          wmma::load_matrix_sync(a, dyk + (size_t)k0 * L.ldx + m * 16, L.ldx);
-          wmma::load_matrix_sync(b, atb + k0 * L.ldh + n * 16, L.ldh);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        fmmt::warp_atomic_add_tile(
-            p.dwproj + (size_t)(m * 16) * C + h * hd + n * 16, C, stage, lane);
-        __syncwarp();
-      }
-      __syncthreads();  // the head buffers are rewritten by the next head
-    }
   }
 
   // 2. dxn and the LN backward
   float sg[kMaxCols], sb[kMaxCols];
 #pragma unroll
   for (int j = 0; j < kMaxCols; ++j) sg[j] = sb[j] = 0.f;
-  if (!kSpill) {
-    // the fp32 dxn over the (now dead) xn / dyk buffers
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int t = warp + kWarps * i;
-      if (t < ntiles)
-        wmma::store_matrix_sync(
-            ys + (size_t)((t / ctiles) * 16) * L.ldy + (t % ctiles) * 16,
-            dxacc[i], L.ldy, wmma::mem_row_major);
+  // dxn = dqkv Wqkv in 16-row tiles from the emitted dqkv (written by this
+  // block, ordered by the head loop's last __syncthreads), staged over dyk
+  const __nv_bfloat16* dq_w = p.dqkv_out + (size_t)w * kRows * 3 * C;
+  for (int mt = 0; mt * 16 < N; ++mt) {
+    for (int n = warp; n < ctiles; n += kWarps) {
+      FragC acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int k0 = 0; k0 < 3 * C; k0 += 16) {
+        FragA a;
+        FragBRow b;
+        wmma::load_matrix_sync(a, dq_w + (size_t)(mt * 16) * 3 * C + k0,
+                               3 * C);
+        wmma::load_matrix_sync(b, p.wqkv + (size_t)k0 * C + n * 16, C);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(ys + n * 16, acc, L.ldy, wmma::mem_row_major);
     }
     __syncthreads();
-    ln_backward_rows(ys, L.ldy, 0, N, xw, dyw, dxw, p.gamma, smean, srstd, C,
-                     tid, sg, sb);
-  } else {
-    // dxn = dqkv Wqkv in 16-row tiles from the emitted dqkv (written by this
-    // block, ordered by the head loop's last __syncthreads), staged over dyk
-    const __nv_bfloat16* dq_w = p.dqkv_out + (size_t)w * kRows * 3 * C;
-    for (int mt = 0; mt * 16 < N; ++mt) {
-      for (int n = warp; n < ctiles; n += kWarps) {
-        FragC acc;
-        wmma::fill_fragment(acc, 0.f);
-        for (int k0 = 0; k0 < 3 * C; k0 += 16) {
-          FragA a;
-          FragBRow b;
-          wmma::load_matrix_sync(a, dq_w + (size_t)(mt * 16) * 3 * C + k0,
-                                 3 * C);
-          wmma::load_matrix_sync(b, p.wqkv + (size_t)k0 * C + n * 16, C);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(ys + n * 16, acc, L.ldy, wmma::mem_row_major);
-      }
-      __syncthreads();
-      ln_backward_rows(ys, L.ldy, mt * 16, min(16, N - mt * 16), xw, dyw, dxw,
-                       p.gamma, smean, srstd, C, tid, sg, sb);
-      __syncthreads();
-    }
+    ln_backward_rows(ys, L.ldy, mt * 16, min(16, N - mt * 16), xw, dyw, dxw,
+                     p.gamma, smean, srstd, C, tid, sg, sb);
+    __syncthreads();
   }
 #pragma unroll
   for (int j = 0; j < kMaxCols; ++j) {
@@ -536,15 +409,14 @@ __global__ void __launch_bounds__(kThreads) fused_block_bwd_kernel(Args p) {
   }
 }
 
-template <bool kSpill, int kAcc>
 int launch(const Args& a, int W, void* stream) {
-  const size_t bytes = layout(a.C, a.C / a.heads, kSpill).bytes;
+  const size_t bytes = layout(a.C, a.C / a.heads).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_block_bwd_kernel<kSpill, kAcc>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      fused_block_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_block_bwd_kernel<kSpill, kAcc>
-      <<<W, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  fused_block_bwd_kernel<<<W, kThreads, bytes,
+                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -553,11 +425,22 @@ bool bad_shape(int N, int C, int heads) {
          (C / heads) % 16 != 0;
 }
 
-Args common_args(const void* x, const void* dy, const void* gamma,
-                 const void* beta, const void* wqkv, const void* bqkv,
-                 const void* wproj, const void* bias, const void* keep,
-                 void* dx, void* dgamma, void* dbeta, void* dbias, int N, int C,
-                 int heads, int nW, float eps) {
+}  // namespace
+
+// Shared-memory bytes one block needs; the wrapper checks this against the
+// card's limit before launching.
+FMMT_API long long fmmt_fused_attention_block_bwd_spill_smem(int C,
+                                                             int heads) {
+  return static_cast<long long>(layout(C, C / heads).bytes);
+}
+
+FMMT_API int fmmt_fused_attention_block_bwd_spill(
+    const void* x, const void* dy, const void* gamma, const void* beta,
+    const void* wqkv, const void* bqkv, const void* wproj, const void* bias,
+    const void* keep, void* dx, void* dgamma, void* dbeta, void* dbias,
+    void* xn_out, void* dqkv_out, void* attn_out, int W, int N, int C,
+    int heads, int nW, float eps, void* stream) {
+  if (bad_shape(N, C, heads)) return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.dy = static_cast<const __nv_bfloat16*>(dy);
@@ -572,54 +455,13 @@ Args common_args(const void* x, const void* dy, const void* gamma,
   a.dgamma = static_cast<float*>(dgamma);
   a.dbeta = static_cast<float*>(dbeta);
   a.dbias = static_cast<float*>(dbias);
+  a.xn_out = static_cast<__nv_bfloat16*>(xn_out);
+  a.dqkv_out = static_cast<__nv_bfloat16*>(dqkv_out);
+  a.attn_out = static_cast<__nv_bfloat16*>(attn_out);
   a.N = N;
   a.C = C;
   a.heads = heads;
   a.nW = nW;
   a.eps = eps;
-  return a;
-}
-
-}  // namespace
-
-// Shared-memory bytes one block needs (spill != 0: the spill kernel); the
-// wrapper checks this against the card's limit before launching.
-FMMT_API long long fmmt_fused_attention_block_bwd_smem(int C, int heads,
-                                                       int spill) {
-  return static_cast<long long>(layout(C, C / heads, spill != 0).bytes);
-}
-
-FMMT_API int fmmt_fused_attention_block_bwd(
-    const void* x, const void* dy, const void* gamma, const void* beta,
-    const void* wqkv, const void* bqkv, const void* wproj, const void* bias,
-    const void* keep, void* dx, void* dgamma, void* dbeta, void* dwqkv,
-    void* dbqkv, void* dwproj, void* dbproj, void* dbias, int W, int N, int C,
-    int heads, int nW, float eps, void* stream) {
-  if (bad_shape(N, C, heads) || acc_tiles(C) > 12)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a = common_args(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep, dx,
-                       dgamma, dbeta, dbias, N, C, heads, nW, eps);
-  a.dwqkv = static_cast<float*>(dwqkv);
-  a.dbqkv = static_cast<float*>(dbqkv);
-  a.dwproj = static_cast<float*>(dwproj);
-  a.dbproj = static_cast<float*>(dbproj);
-  const int need = acc_tiles(C);
-  if (need <= 3) return launch<false, 3>(a, W, stream);
-  if (need <= 6) return launch<false, 6>(a, W, stream);
-  return launch<false, 12>(a, W, stream);
-}
-
-FMMT_API int fmmt_fused_attention_block_bwd_spill(
-    const void* x, const void* dy, const void* gamma, const void* beta,
-    const void* wqkv, const void* bqkv, const void* wproj, const void* bias,
-    const void* keep, void* dx, void* dgamma, void* dbeta, void* dbias,
-    void* xn_out, void* dqkv_out, void* attn_out, int W, int N, int C,
-    int heads, int nW, float eps, void* stream) {
-  if (bad_shape(N, C, heads)) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = common_args(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep, dx,
-                       dgamma, dbeta, dbias, N, C, heads, nW, eps);
-  a.xn_out = static_cast<__nv_bfloat16*>(xn_out);
-  a.dqkv_out = static_cast<__nv_bfloat16*>(dqkv_out);
-  a.attn_out = static_cast<__nv_bfloat16*>(attn_out);
-  return launch<true, 1>(a, W, stream);
+  return launch(a, W, stream);
 }

@@ -116,11 +116,14 @@ _SIGNATURES = {
     "fmmt_fused_ln_mlp_residual": ([_VP] * 11 + [_I] * 3 + [_F, _VP], _I),
     "fmmt_fused_ln_mlp_residual_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_ln_mlp_residual_bwd": ([_VP] * 15 + [_I] * 3 + [_F, _VP], _I),
-    "fmmt_fused_ln_mlp_residual_bwd_smem": ([_I], ctypes.c_longlong),
+    "fmmt_fused_ln_mlp_residual_bwd_smem": ([_I] * 2, ctypes.c_longlong),
+    "fmmt_fused_ln_mlp_residual_bwd_scratch": ([_I] * 3, ctypes.c_longlong),
     "fmmt_fused_attention_block_bwd": ([_VP] * 17 + [_I] * 5 + [_F, _VP], _I),
+    "fmmt_fused_attention_block_bwd_smem": ([_I] * 2, ctypes.c_longlong),
+    "fmmt_fused_attention_block_bwd_scratch": ([_I] * 5, ctypes.c_longlong),
     "fmmt_fused_attention_block_bwd_spill": ([_VP] * 16 + [_I] * 5 + [_F, _VP],
                                              _I),
-    "fmmt_fused_attention_block_bwd_smem": ([_I] * 3, ctypes.c_longlong),
+    "fmmt_fused_attention_block_bwd_spill_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_window_attention": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
     "fmmt_window_attention_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_merge": ([_VP] * 5 + [_I] * 3 + [_F, _VP], _I),

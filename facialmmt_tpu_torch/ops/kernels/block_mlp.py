@@ -2,7 +2,8 @@
 
 Counterpart of facialmmt_tpu/ops/pallas/block_mlp.py: fused_ln_mlp_residual
 (CUDA kernel csrc/block_mlp.cu) and its backward _bwd_impl_pallas (CUDA
-kernel csrc/block_mlp_bwd.cu).  x (T, C) tokens; weights in torch Linear
+kernel csrc/block_mlp_bwd.cu; both on the tiled products of
+csrc/tile_gemm.cuh).  x (T, C) tokens; weights in torch Linear
 layout, w1 (HID, C) and w2 (C, HID); keep (T,) is an optional per-token
 stochastic-depth multiplier, which gets no gradient.
 
@@ -125,9 +126,12 @@ def fused_ln_mlp_residual_bwd_plain(x, dy, gamma, beta, w1, b1, w2, keep=None,
 
 def fused_ln_mlp_residual_bwd_cuda(x, dy, gamma, beta, w1, b1, w2, keep=None,
                                    eps: float = 1e-5):
-    """Launch csrc/block_mlp_bwd.cu: bf16 tokens, gradient and weights, fp32
-    keep, any T, C a multiple of 16 up to 768, HID a multiple of 64; raises
-    on anything else.  Same returns as the plain version."""
+    """Launch csrc/block_mlp_bwd.cu (the LN2 statistics, xn and dy * keep,
+    the hidden layer's two products with the GELU backward, dxn, the LN
+    backward, the split-T weight-gradient products and their fixed-order
+    sums): bf16 tokens, gradient and weights, fp32 keep, any T, C a multiple
+    of 16 up to 768, HID a multiple of 64; raises on anything else.  Same
+    returns as the plain version; two launches give the same bits."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
     kernels.require(x.dim() == 2, f"x: expected (T, C), got {tuple(x.shape)}")
@@ -145,22 +149,26 @@ def fused_ln_mlp_residual_bwd_cuda(x, dy, gamma, beta, w1, b1, w2, keep=None,
     if keep is not None:
         kernels.check_cuda_tensor("keep", keep, torch.float32, (t,), dev)
     lib = kernels.library()
-    smem = lib.fmmt_fused_ln_mlp_residual_bwd_smem(c)
+    smem = lib.fmmt_fused_ln_mlp_residual_bwd_smem(c, hid)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
+    # the products read both weights transposed too (B operands K-major)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    scratch = torch.empty(
+        lib.fmmt_fused_ln_mlp_residual_bwd_scratch(t, c, hid),
+        dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
-    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-    dgamma, dbeta, db2 = zeros(c), zeros(c), zeros(c)
-    dw1, db1, dw2 = zeros(hid, c), zeros(hid), zeros(c, hid)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dvec, dw1, db1, dw2 = f32(3, c), f32(hid, c), f32(hid), f32(c, hid)
     err = lib.fmmt_fused_ln_mlp_residual_bwd(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        None if keep is None else keep.data_ptr(), dx.data_ptr(),
-        dgamma.data_ptr(), dbeta.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-        dw2.data_ptr(), db2.data_ptr(), t, c, hid, eps,
-        kernels.stream_ptr(dev))
+        w1.data_ptr(), b1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
+        None if keep is None else keep.data_ptr(), scratch.data_ptr(),
+        dx.data_ptr(), dvec.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), t, c, hid, eps, kernels.stream_ptr(dev))
     kernels.check_launch("fused_ln_mlp_residual_bwd", err)
     fused_ln_mlp_residual_bwd_cuda.launches += 1
+    dgamma, dbeta, db2 = dvec
     return dx, dgamma, dbeta, dw1, db1, dw2, db2
 
 

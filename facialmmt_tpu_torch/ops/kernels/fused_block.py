@@ -2,8 +2,9 @@
 
 Counterpart of facialmmt_tpu/ops/pallas/fused_block.py: fused_attention_block
 (CUDA kernel csrc/attention_block.cu) and its two backwards, _bwd_impl_pallas
-and _bwd_impl_spill (CUDA kernels in csrc/fused_block_bwd.cu).  x (W, N, C) is
-window-resident (faces-major windows, so window w reads bias row w % nW).
+(csrc/attention_block_bwd.cu) and _bwd_impl_spill (csrc/fused_block_bwd.cu).
+x (W, N, C) is window-resident (faces-major windows, so window w reads bias
+row w % nW).
 Weights are in torch Linear layout: wqkv (3C, C) with q|k|v on the output
 axis, wproj (C, C).  q is scaled by hd^-0.5 inside.  bias (nW, h, N, N) is the
 relative-position bias plus the shifted-window mask; keep (W,) is an optional
@@ -109,8 +110,8 @@ def fused_attention_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
 
 fused_attention_block_cuda.launches = 0
 
-RESIDENT_MAX_C = 384   # widest C whose fp32 dxn fits the resident kernel's
-                       # register fragments (csrc/fused_block_bwd.cu)
+RESIDENT_MAX_C = 384   # widest C the resident backward serves: the JAX
+                       # kernel's VMEM budget (_pick_pairs_bwd) ends there
 
 
 def backward_variant(c: int) -> str:
@@ -242,32 +243,41 @@ def _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep):
 
 def fused_attention_block_bwd_cuda(x, dy, gamma, beta, wqkv, bqkv, wproj,
                                    bias, keep=None, eps: float = 1e-5):
-    """Launch the resident kernel of csrc/fused_block_bwd.cu: bf16 tokens,
-    gradient and weights, fp32 bias/keep, N <= 64, C <= 384, C and the head
-    dim multiples of 16; raises on anything else.  Returns as the plain
-    version."""
+    """Launch csrc/attention_block_bwd.cu (the LN1 statistics, xn and dy *
+    keep, the qkv and dattn products, the window pass, dxn, the LN backward,
+    the split-T weight-gradient products and their fixed-order sums): bf16
+    tokens, gradient and weights, fp32 bias/keep, N <= 64, C <= 384, C and
+    the head dim multiples of 16; raises on anything else.  Returns as the
+    plain version; two launches give the same bits."""
     w, n, c, nw, h, dev = _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv,
                                               wproj, bias, keep)
     kernels.require(c <= RESIDENT_MAX_C,
                     f"C={c}: the resident backward takes C <= {RESIDENT_MAX_C}")
     lib = kernels.library()
-    smem = lib.fmmt_fused_attention_block_bwd_smem(c, h, 0)
+    smem = lib.fmmt_fused_attention_block_bwd_smem(c, h)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
+    # the products read both weights transposed too (B operands K-major)
+    wqkvt, wprojt = wqkv.t().contiguous(), wproj.t().contiguous()
+    scratch = torch.empty(
+        lib.fmmt_fused_attention_block_bwd_scratch(w, n, c, h, nw),
+        dtype=torch.uint8, device=dev)
     dx = torch.empty_like(x)
-    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-    dgamma, dbeta, dbproj, dbqkv = zeros(c), zeros(c), zeros(c), zeros(3 * c)
-    dwqkv, dwproj, dbias = zeros(3 * c, c), zeros(c, c), zeros(nw, h, n, n)
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dvec, dwqkv, dbqkv = f32(3, c), f32(3 * c, c), f32(3 * c)
+    dwproj, dbias = f32(c, c), f32(nw, h, n, n)
+    dbias[1:].zero_()
     err = lib.fmmt_fused_attention_block_bwd(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bias.data_ptr(),
-        None if keep is None else keep.data_ptr(), dx.data_ptr(),
-        dgamma.data_ptr(), dbeta.data_ptr(), dwqkv.data_ptr(),
-        dbqkv.data_ptr(), dwproj.data_ptr(), dbproj.data_ptr(),
+        wqkv.data_ptr(), bqkv.data_ptr(), wqkvt.data_ptr(), wprojt.data_ptr(),
+        bias.data_ptr(), None if keep is None else keep.data_ptr(),
+        scratch.data_ptr(), dx.data_ptr(), dvec.data_ptr(), dwqkv.data_ptr(),
+        dbqkv.data_ptr(), dwproj.data_ptr(),
         dbias.data_ptr(),           # group 0 of (nW, h, N, N) is its head
         w, n, c, h, nw, eps, kernels.stream_ptr(dev))
     kernels.check_launch("fused_attention_block_bwd", err)
     fused_attention_block_bwd_cuda.launches += 1
+    dgamma, dbeta, dbproj = dvec
     return dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, dbias
 
 
@@ -285,7 +295,7 @@ def fused_attention_block_bwd_spill_cuda(x, dy, gamma, beta, wqkv, bqkv,
     w, n, c, nw, h, dev = _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv,
                                               wproj, bias, keep)
     lib = kernels.library()
-    smem = lib.fmmt_fused_attention_block_bwd_smem(c, h, 1)
+    smem = lib.fmmt_fused_attention_block_bwd_spill_smem(c, h)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
     dx = torch.empty_like(x)
