@@ -13,9 +13,8 @@ The inputs are made from a numpy seed at the shapes the training path gives
 the kernels: kernel 2 (the attention half, forward) and kernel 3 (the MLP
 half, forward) at stage 1 of a 64-face pack, kernel 6 (the spill backward)
 at stage 3 of the 150-image auxiliary batch with a stochastic-depth keep.
-Kernel 6 adds dgamma, dbeta and dbias across windows with fp32 atomics, so
-those three can differ from run to run in any build; its other outputs (dx,
-and the weight gradients it forms outside) cannot.
+No kernel of the port adds with atomics, so every output repeats launch
+after launch: a difference is the two builds'.
 """
 
 import os

@@ -45,6 +45,25 @@
 // softmax probabilities and the concatenated head outputs are rounded to
 // bf16; the scores, the softmax and the residual add are fp32; out is
 // rounded once.
+//
+// The WHOLE Swin block, the attention half then the MLP half
+//   y = the attention half above (no keep), rounded to bf16,
+//   out = y + fc2(GELU(fc1(LN2(y))))
+// (fmmt_fused_whole_block; replaces facialmmt_tpu/ops/pallas/fused_block.py::
+// fused_whole_block, which JAX refuses at C = 768 for want of VMEM: here
+// every Swin-tiny width, C <= 768) is one wrapper call over the same device
+// kernels: the
+// four above, then kernel 3's two products (csrc/block_mlp.cu), fc1 with LN2
+// in its prologue and bias + GELU as its epilogue, fc2 with bias and the
+// residual.  What the JAX kernel saves by keeping y in VMEM (one HBM round
+// trip of y, T C bytes each way) is the smaller part of the split's cost on
+// the H100 (the products; PERF.md): the split's y round trip stays, and the
+// work the fusion removes is the split's LN2 statistics pass, one more read
+// of y.  proj's epilogue (kResidualStats) leaves, per row and 128- / 96- /
+// 64-column tile of y, the (mean, M2) of the bf16-rounded outputs it wrote,
+// and fc1's prologue (kLnParts) merges a row's partials in column order into
+// (rstd, -mean rstd): a fixed order, so two launches give the same bits.  At
+// C = 768 a row spans six partials, at C = 96 one.
 #include "tile_gemm.cuh"
 
 #include <math.h>
@@ -239,6 +258,93 @@ window_pass_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 size_t window_pass_bytes(int hd) { return kUnits * unit_bytes(hd); }
 
+// The four device kernels of the attention half into out (W N, C).  kEpi:
+// proj's epilogue, kResidual, or kResidualStats with the rows' LN2 partials
+// to row_part.  stats (W N) float2, qkv (W N, 3C) and heads_out (W N, C) bf16
+// are scratch.
+template <int kEpi>
+int attention_half(const __nv_bfloat16* x, const void* gamma,
+                   const void* beta, const void* wqkv, const void* bqkv,
+                   const void* wproj, const void* bproj, const void* bias,
+                   const void* keep, float2* stats, __nv_bfloat16* qkv,
+                   __nv_bfloat16* heads_out, __nv_bfloat16* out,
+                   float2* row_part, int W, int N, int C, int heads, int nW,
+                   float eps, cudaStream_t s) {
+  const int hd = C / heads;
+  int err = fmmt::gemm::launch_row_stats(x, stats, W * N, C, eps, s);
+  if (err != 0) return err;
+  fmmt::gemm::Args a{};
+  a.a = x;
+  a.stats = stats;
+  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
+  a.beta = static_cast<const __nv_bfloat16*>(beta);
+  a.b = static_cast<const __nv_bfloat16*>(wqkv);
+  a.bias = static_cast<const __nv_bfloat16*>(bqkv);
+  a.out = qkv;
+  a.M = W * N;
+  a.N = 3 * C;
+  a.K = C;
+  a.keep_div = 1;
+  a.q_cols = C;
+  a.q_scale = 1.f / sqrtf(static_cast<float>(hd));
+  err = fmmt::gemm::launch<fmmt::gemm::kLnStats, fmmt::gemm::kScaleQ>(a, s);
+  if (err != 0) return err;
+
+  const int units = W * heads;
+  const size_t bytes = window_pass_bytes(hd);
+  cudaError_t cerr = cudaFuncSetAttribute(
+      window_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  window_pass_kernel<<<(units + kUnits - 1) / kUnits, kUnits * kGroupThreads,
+                       bytes, s>>>(qkv, static_cast<const float*>(bias),
+                                   heads_out, units, heads, N, nW, C, hd);
+  cerr = cudaGetLastError();
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+
+  fmmt::gemm::Args p{};
+  p.a = heads_out;
+  p.b = static_cast<const __nv_bfloat16*>(wproj);
+  p.bias = static_cast<const __nv_bfloat16*>(bproj);
+  p.res = x;
+  p.keep = static_cast<const float*>(keep);
+  p.keep_div = N;
+  p.out = out;
+  p.row_part = row_part;
+  p.M = W * N;
+  p.N = C;
+  p.K = C;
+  return fmmt::gemm::launch<fmmt::gemm::kLnNone, kEpi>(p, s);
+}
+
+bool bad_shape(int W, int N, int C, int heads, int nW) {
+  return W < 1 || N < 1 || N > kRows || C % 16 != 0 || C < 16 || heads < 1 ||
+         C % heads != 0 || (C / heads) % 16 != 0 || nW < 1 || W % nW != 0;
+}
+
+// The whole block's scratch, in the order it is handed out.
+struct WholeScratch {
+  float2 *stats, *parts;
+  __nv_bfloat16 *qkv, *heads_out, *y, *h;
+};
+
+WholeScratch whole_plan(fmmt::Arena& ar, int W, int N, int C, int HID) {
+  const size_t T = (size_t)W * N;
+  WholeScratch s;
+  s.stats = ar.take<float2>(T);
+  s.parts = ar.take<float2>(T * fmmt::gemm::col_tiles(C));
+  s.qkv = ar.take<__nv_bfloat16>(T * 3 * C);
+  s.heads_out = ar.take<__nv_bfloat16>(T * C);
+  s.y = ar.take<__nv_bfloat16>(T * C);
+  s.h = ar.take<__nv_bfloat16>(T * HID);
+  return s;
+}
+
+bool bad_whole_shape(int W, int N, int C, int heads, int nW, int HID) {
+  return bad_shape(W, N, C, heads, nW) || C > 768 || HID % 64 != 0 ||
+         HID < 64;
+}
+
 }  // namespace
 
 // Shared-memory bytes the largest of the steps needs per block; the
@@ -258,57 +364,85 @@ FMMT_API int fmmt_fused_attention_block(
     const void* bqkv, const void* wproj, const void* bproj, const void* bias,
     const void* keep, void* stats, void* qkv_buf, void* attn_buf, void* out,
     int W, int N, int C, int heads, int nW, float eps, void* stream) {
-  if (W < 1 || N < 1 || N > kRows || C % 16 != 0 || heads < 1 ||
-      C % heads != 0 || (C / heads) % 16 != 0 || nW < 1 || W % nW != 0)
+  if (bad_shape(W, N, C, heads, nW))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int hd = C / heads;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* qkvb = static_cast<__nv_bfloat16*>(qkv_buf);
-  __nv_bfloat16* attnb = static_cast<__nv_bfloat16*>(attn_buf);
+  return attention_half<fmmt::gemm::kResidual>(
+      static_cast<const __nv_bfloat16*>(x), gamma, beta, wqkv, bqkv, wproj,
+      bproj, bias, keep, static_cast<float2*>(stats),
+      static_cast<__nv_bfloat16*>(qkv_buf),
+      static_cast<__nv_bfloat16*>(attn_buf), static_cast<__nv_bfloat16*>(out),
+      nullptr, W, N, C, heads, nW, eps, static_cast<cudaStream_t>(stream));
+}
 
-  float2* st = static_cast<float2*>(stats);
-  int err = fmmt::gemm::launch_row_stats(xb, st, W * N, C, eps, s);
+// Bytes of scratch one whole-block call needs (-1: a shape it does not
+// take); the wrapper allocates them.
+FMMT_API long long fmmt_fused_whole_block_scratch(int W, int N, int C,
+                                                  int heads, int nW, int HID) {
+  if (bad_whole_shape(W, N, C, heads, nW, HID)) return -1;
+  fmmt::Arena ar{nullptr, 0};
+  whole_plan(ar, W, N, C, HID);
+  return static_cast<long long>(ar.used);
+}
+
+// Shared-memory bytes the largest of the whole block's steps needs per block.
+FMMT_API long long fmmt_fused_whole_block_smem(int N, int C, int heads,
+                                               int HID) {
+  size_t most = static_cast<size_t>(fmmt_fused_attention_block_smem(N, C,
+                                                                    heads));
+  const size_t more[] = {fmmt::gemm::smem_bytes(HID, C, true,
+                                                fmmt::gemm::col_tiles(C)),
+                         fmmt::gemm::smem_bytes(C, HID, false)};
+  for (size_t m : more) most = m > most ? m : most;
+  return static_cast<long long>(most);
+}
+
+// The whole block: the attention half's operands (no keep), then LN2
+// gamma2 / beta2 (C), w1 (HID, C), b1 (HID), w2 (C, HID), b2 (C), all bf16;
+// scratch of fmmt_fused_whole_block_scratch bytes; out (W, N, C) bf16.
+FMMT_API int fmmt_fused_whole_block(
+    const void* x, const void* gamma, const void* beta, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* bproj, const void* bias,
+    const void* gamma2, const void* beta2, const void* w1, const void* b1,
+    const void* w2, const void* b2, void* scratch, void* out, int W, int N,
+    int C, int heads, int nW, int HID, float eps, void* stream) {
+  if (bad_whole_shape(W, N, C, heads, nW, HID))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fmmt::Arena ar{static_cast<unsigned char*>(scratch), 0};
+  const WholeScratch sc = whole_plan(ar, W, N, C, HID);
+  int err = attention_half<fmmt::gemm::kResidualStats>(
+      static_cast<const __nv_bfloat16*>(x), gamma, beta, wqkv, bqkv, wproj,
+      bproj, bias, nullptr, sc.stats, sc.qkv, sc.heads_out, sc.y, sc.parts, W,
+      N, C, heads, nW, eps, s);
   if (err != 0) return err;
+
   fmmt::gemm::Args a{};
-  a.a = xb;
-  a.stats = st;
-  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
-  a.beta = static_cast<const __nv_bfloat16*>(beta);
-  a.b = static_cast<const __nv_bfloat16*>(wqkv);
-  a.bias = static_cast<const __nv_bfloat16*>(bqkv);
-  a.out = qkvb;
+  a.a = sc.y;
+  a.stats = sc.parts;
+  a.parts = fmmt::gemm::col_tiles(C);
+  a.part_cols = fmmt::gemm::tile_n(C);
+  a.eps = eps;
+  a.gamma = static_cast<const __nv_bfloat16*>(gamma2);
+  a.beta = static_cast<const __nv_bfloat16*>(beta2);
+  a.b = static_cast<const __nv_bfloat16*>(w1);
+  a.bias = static_cast<const __nv_bfloat16*>(b1);
+  a.out = sc.h;
   a.M = W * N;
-  a.N = 3 * C;
+  a.N = HID;
   a.K = C;
   a.keep_div = 1;
-  a.q_cols = C;
-  a.q_scale = 1.f / sqrtf(static_cast<float>(hd));
-  err = fmmt::gemm::launch<true, fmmt::gemm::kScaleQ>(a, s);
+  err = fmmt::gemm::launch<fmmt::gemm::kLnParts, fmmt::gemm::kGelu>(a, s);
   if (err != 0) return err;
 
-  const int units = W * heads;
-  const size_t bytes = window_pass_bytes(hd);
-  cudaError_t cerr = cudaFuncSetAttribute(
-      window_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  window_pass_kernel<<<(units + kUnits - 1) / kUnits, kUnits * kGroupThreads,
-                       bytes, s>>>(qkvb, static_cast<const float*>(bias),
-                                   attnb, units, heads, N, nW, C, hd);
-  cerr = cudaGetLastError();
-  if (cerr != cudaSuccess) return static_cast<int>(cerr);
-
   fmmt::gemm::Args p{};
-  p.a = attnb;
-  p.b = static_cast<const __nv_bfloat16*>(wproj);
-  p.bias = static_cast<const __nv_bfloat16*>(bproj);
-  p.res = xb;
-  p.keep = static_cast<const float*>(keep);
-  p.keep_div = N;
+  p.a = sc.h;
+  p.b = static_cast<const __nv_bfloat16*>(w2);
+  p.bias = static_cast<const __nv_bfloat16*>(b2);
+  p.res = sc.y;
+  p.keep_div = 1;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.M = W * N;
   p.N = C;
-  p.K = C;
-  return fmmt::gemm::launch<false, fmmt::gemm::kResidual>(p, s);
+  p.K = HID;
+  return fmmt::gemm::launch<fmmt::gemm::kLnNone, fmmt::gemm::kResidual>(p, s);
 }

@@ -1,4 +1,5 @@
-// Backward of the Swin block attention half, resident variant (C <= 384):
+// Backward of the Swin block attention half, both variants of the JAX
+// package (kernels 5 and 6 of the port's table):
 //   out[w] = x[w] + keep[w] * (proj(MHA(LN1(x[w])) + bias[w % nW]))
 // From x and the output gradient dy (both (W,N,C) bf16) the kernels recompute
 // LN1, qkv and the softmax and return dx (W,N,C) bf16 and, in fp32, dgamma |
@@ -6,23 +7,33 @@
 // cotangent summed over ALL windows, dbias (h,N,N).  Weights are in torch
 // Linear layout, wqkv (3C,C) with q|k|v on the output axis, wproj (C,C).
 // keep (W,) fp32 is optional and gets no gradient: the residual gradient is
-// dy, the branch gradient dy * keep.
+// dy, the branch gradient dy * keep.  C up to 768.
 //
 // Replaces: facialmmt_tpu/ops/pallas/fused_block.py::_bwd_impl_pallas (the
-// spill variant, _bwd_impl_spill, is csrc/fused_block_bwd.cu).
+// resident variant, fmmt_fused_attention_block_bwd; the port sends it C <=
+// 384, stages 0-2) and ::_bwd_impl_spill (the spill variant,
+// fmmt_fused_attention_block_bwd_spill; stage 3, C = 768).  On the TPU the
+// two differ in where the weight gradients are formed (inside the kernel, or
+// as K = T matmuls outside it from the emitted xn, dqkv and attn); here both
+// form them as the same split-T products, and the variants differ in one
+// rounding point only: the spill variant's dbqkv sums the bf16-rounded dq |
+// dk | dv that JAX emits, the resident one the fp32 values.
 //
 // What bounds it on the H100: per token 22 C^2 + 12 N C FLOP of products
 // (qkv recomputed, dattn, dxn, dWqkv, dWproj, and the attention's scores,
 // P v, dP, dv, dq, dk): 96-170 GFLOP per call at stages 0-2 of a 150-image
-// batch (0.10-0.17 ms at 989 TFLOP/s), against the scratch the steps hand
-// each other through device memory: xn, dyk, dattn and attn (T,C) bf16, qkv
-// and dqkv (T,3C) bf16, the fp32 dxn (T,C), about 30 T C bytes (1.35 GB,
-// 0.40 ms at 3.35 TB/s, at stage 0 where T = 470,400 and C = 96; 0.34 GB at
-// stage 2).  So it is bound by the bytes at every stage it serves.  The
-// first version of this kernel (one block a window walking the heads with
-// wmma, every window reloading all four weight matrices from L2, each head's
-// dWqkv and dWproj slices K = 64 products added by fp32 atomics) ran at
-// 2-4 % of that bound and gave other bits every launch.
+// batch (0.10-0.17 ms at 989 TFLOP/s) and 95 GFLOP at stage 3, against the
+// scratch the steps hand each other through device memory: xn, dyk, dattn
+// and attn (T,C) bf16, qkv and dqkv (T,3C) bf16, the fp32 dxn (T,C), about
+// 30 T C bytes (1.35 GB, 0.40 ms at 3.35 TB/s, at stage 0 where T = 470,400
+// and C = 96; 0.34 GB at stage 2, 0.17 GB at stage 3).  So it is bound by
+// the bytes at stages 0-2 and by the products at stage 3.  The first
+// versions of this kernel (one block a window walking the heads with wmma,
+// every window reloading all four weight matrices from L2; the resident one
+// adding each head's dWqkv and dWproj slices by fp32 atomics, the spill one
+// adding dgamma, dbeta and dbias by fp32 atomics and leaving the weight
+// gradients to fp32 SIMT matmuls outside) ran at 1-4 % of that bound and
+// gave other bits every launch.
 //
 // What the design does about it: device kernels on tile_gemm.cuh's tiled
 // wgmma product and one window pass, one wrapper call (one launch in
@@ -43,7 +54,7 @@
 //      dv = bf16(p)^T dattn_h for the warp's 16 key rows; dq | dk | dv to
 //      dqkv (T,3C) bf16.  Across its windows the block keeps an fp32 (N,N)
 //      sum of ds (each element owned by one lane) and per-warp column sums
-//      of the fp32 dq | dk | dv, and writes them as its partials of dbias and
+//      of dq | dk | dv, and writes them as its partials of dbias and
 //      dbqkv;
 //   5. dxn = dqkv Wqkv (B = Wqkv^T, the wrapper's copy), fp32 out, and the
 //      LayerNorm backward (swin_bwd.cuh::ln_bwd_rows, the MLP backward's),
@@ -52,12 +63,12 @@
 //      sum_rows adds every set of partials in a fixed order.
 // No step adds with atomics: two launches give the same bits.
 //
-// Rounding follows the JAX kernel: xn, q (after the scale), k, v, dyk,
+// Rounding follows the JAX kernels: xn, q (after the scale), k, v, dyk,
 // dattn, the probabilities, ds, dq, dk, dv and attn are rounded to bf16 as
 // matmul operands; the softmax, its vjp on the fp32 probabilities, every
-// accumulation and the LN backward are fp32; dbqkv sums the unrounded fp32
-// dq | dk | dv (the spill variant sums the rounded ones) and dbias the fp32
-// ds.
+// accumulation and the LN backward are fp32; dbqkv sums the fp32 dq | dk |
+// dv (the spill variant: the bf16-rounded ones, as JAX sums the emitted
+// dqkv) and dbias the fp32 ds.
 #include "swin_bwd.cuh"
 
 #include <math.h>
@@ -65,7 +76,7 @@
 
 namespace {
 
-using fmmt::bwd::Arena;
+using fmmt::Arena;
 namespace gemm = fmmt::gemm;
 
 constexpr int kWarps = 4;
@@ -122,6 +133,12 @@ __device__ __forceinline__ float col_sum(float v) {
   return v;
 }
 
+// A dq | dk | dv value as it enters the dbqkv sums.
+template <bool kRounded>
+__device__ __forceinline__ float summand(float v) {
+  return kRounded ? fmmt::round_bf16(v) : v;
+}
+
 struct WinArgs {
   const __nv_bfloat16* qkv;    // (T, 3C), q scaled
   const __nv_bfloat16* dattn;  // (T, C)
@@ -134,6 +151,9 @@ struct WinArgs {
   float scale;
 };
 
+// kRounded: the dbqkv partials sum dq | dk | dv as rounded to bf16 (the
+// spill variant), else their fp32 values.
+template <bool kRounded>
 __global__ void __launch_bounds__(kThreads) window_bwd_kernel(const WinArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int N = p.N, C = p.C, heads = p.heads;
@@ -296,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) window_bwd_kernel(const WinArgs p) {
     }
 
     // 5. attn_h = bf16(p) v and dq = bf16(ds) k scale for the warp's rows;
-    //    attn and dq (bf16) out, the fp32 dq's column sums kept
+    //    attn and dq (bf16) out, dq's column sums kept
     for (int c0 = 0; c0 < hd; c0 += 16) {
       float oa[2][4], oq[2][4];
 #pragma unroll
@@ -326,8 +346,10 @@ __global__ void __launch_bounds__(kThreads) window_bwd_kernel(const WinArgs p) {
         const int c = c0 + 8 * jn + 2 * tig;
 #pragma unroll
         for (int e = 0; e < 4; ++e) oq[jn][e] *= p.scale;
-        const float s0 = col_sum(oq[jn][0] + oq[jn][2]);
-        const float s1 = col_sum(oq[jn][1] + oq[jn][3]);
+        const float s0 = col_sum(summand<kRounded>(oq[jn][0]) +
+                                 summand<kRounded>(oq[jn][2]));
+        const float s1 = col_sum(summand<kRounded>(oq[jn][1]) +
+                                 summand<kRounded>(oq[jn][3]));
         if (gid == 0) {
           colacc[c] += s0;
           colacc[c + 1] += s1;
@@ -381,10 +403,14 @@ __global__ void __launch_bounds__(kThreads) window_bwd_kernel(const WinArgs p) {
 #pragma unroll
       for (int jn = 0; jn < 2; ++jn) {
         const int c = c0 + 8 * jn + 2 * tig;
-        const float k0 = col_sum(ok[jn][0] + ok[jn][2]);
-        const float k1 = col_sum(ok[jn][1] + ok[jn][3]);
-        const float v0 = col_sum(ov[jn][0] + ov[jn][2]);
-        const float v1 = col_sum(ov[jn][1] + ov[jn][3]);
+        const float k0 = col_sum(summand<kRounded>(ok[jn][0]) +
+                                 summand<kRounded>(ok[jn][2]));
+        const float k1 = col_sum(summand<kRounded>(ok[jn][1]) +
+                                 summand<kRounded>(ok[jn][3]));
+        const float v0 = col_sum(summand<kRounded>(ov[jn][0]) +
+                                 summand<kRounded>(ov[jn][2]));
+        const float v1 = col_sum(summand<kRounded>(ov[jn][1]) +
+                                 summand<kRounded>(ov[jn][3]));
         if (gid == 0) {
           colacc[hd + c] += k0;
           colacc[hd + c + 1] += k1;
@@ -460,7 +486,7 @@ Scratch plan(Arena& ar, int W, int N, int C, int heads) {
 }
 
 bool bad_shape(int W, int N, int C, int heads, int nW) {
-  return W < 1 || N < 1 || N > kRows || C % 16 != 0 || C < 16 || C > 384 ||
+  return W < 1 || N < 1 || N > kRows || C % 16 != 0 || C < 16 || C > 768 ||
          heads < 1 || C % heads != 0 || (C / heads) % 16 != 0 || nW < 1 ||
          W % nW != 0;
 }
@@ -488,17 +514,16 @@ FMMT_API long long fmmt_fused_attention_block_bwd_smem(int C, int heads) {
   return static_cast<long long>(most);
 }
 
-// wqkv (3C,C), bqkv (3C), wqkvt = Wqkv^T (C,3C), wprojt = Wproj^T (C,C), all
-// bf16; bias (nW,h,N,N) and keep (W) fp32 (keep may be null); scratch of
-// fmmt_fused_attention_block_bwd_scratch bytes.  Outputs: dx (W,N,C) bf16;
-// dvec (3C) fp32 = dgamma | dbeta | dbproj; dwqkv (3C,C), dbqkv (3C), dwproj
-// (C,C) and dbias (h,N,N) fp32.
-FMMT_API int fmmt_fused_attention_block_bwd(
-    const void* x, const void* dy, const void* gamma, const void* beta,
-    const void* wqkv, const void* bqkv, const void* wqkvt, const void* wprojt,
-    const void* bias, const void* keep, void* scratch, void* dx, void* dvec,
-    void* dwqkv, void* dbqkv, void* dwproj, void* dbias, int W, int N, int C,
-    int heads, int nW, float eps, void* stream) {
+namespace {
+
+// The whole sequence; kSpill: dbqkv from the bf16-rounded dq | dk | dv.
+template <bool kSpill>
+int attention_bwd(const void* x, const void* dy, const void* gamma,
+                  const void* beta, const void* wqkv, const void* bqkv,
+                  const void* wqkvt, const void* wprojt, const void* bias,
+                  const void* keep, void* scratch, void* dx, void* dvec,
+                  void* dwqkv, void* dbqkv, void* dwproj, void* dbias, int W,
+                  int N, int C, int heads, int nW, float eps, void* stream) {
   if (bad_shape(W, N, C, heads, nW))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
@@ -532,7 +557,7 @@ FMMT_API int fmmt_fused_attention_block_bwd(
   a.keep_div = 1;
   a.q_cols = C;
   a.q_scale = 1.f / sqrtf(static_cast<float>(hd));
-  err = gemm::launch<true, gemm::kScaleQ>(a, cs);
+  err = gemm::launch<gemm::kLnStats, gemm::kScaleQ>(a, cs);
   if (err) return err;
 
   gemm::Args d{};
@@ -542,7 +567,7 @@ FMMT_API int fmmt_fused_attention_block_bwd(
   d.M = T;
   d.N = C;
   d.K = C;
-  err = gemm::launch<false, gemm::kPlain>(d, cs);
+  err = gemm::launch<gemm::kLnNone, gemm::kPlain>(d, cs);
   if (err) return err;
 
   const WinPlan wp = win_plan(W, heads);
@@ -563,10 +588,10 @@ FMMT_API int fmmt_fused_attention_block_bwd(
   w.scale = a.q_scale;
   const size_t bytes = win_layout(hd).bytes;
   cudaError_t cerr = cudaFuncSetAttribute(
-      window_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      window_bwd_kernel<kSpill>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  window_bwd_kernel<<<dim3(heads, wp.groups), kThreads, bytes, cs>>>(w);
+  window_bwd_kernel<kSpill><<<dim3(heads, wp.groups), kThreads, bytes, cs>>>(w);
   cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
 
@@ -577,7 +602,7 @@ FMMT_API int fmmt_fused_attention_block_bwd(
   q.M = T;
   q.N = C;
   q.K = 3 * C;
-  err = gemm::launch<false, gemm::kF32>(q, cs);
+  err = gemm::launch<gemm::kLnNone, gemm::kF32>(q, cs);
   if (err) return err;
   err = fmmt::bwd::launch_ln_bwd(s.dxn, xb, dyb, s.st, gb, kp, N,
                                  static_cast<__nv_bfloat16*>(dx), s.ln_part,
@@ -603,4 +628,36 @@ FMMT_API int fmmt_fused_attention_block_bwd(
   if (err) return err;
   return gemm::sum_rows(s.dbias_part, static_cast<float*>(dbias), wp.groups,
                         heads * N * N, s.tmp, cs);
+}
+
+}  // namespace
+
+// wqkv (3C,C), bqkv (3C), wqkvt = Wqkv^T (C,3C), wprojt = Wproj^T (C,C), all
+// bf16; bias (nW,h,N,N) and keep (W) fp32 (keep may be null); scratch of
+// fmmt_fused_attention_block_bwd_scratch bytes.  Outputs: dx (W,N,C) bf16;
+// dvec (3C) fp32 = dgamma | dbeta | dbproj; dwqkv (3C,C), dbqkv (3C), dwproj
+// (C,C) and dbias (h,N,N) fp32.  The resident variant: dbqkv sums the fp32
+// dq | dk | dv.
+FMMT_API int fmmt_fused_attention_block_bwd(
+    const void* x, const void* dy, const void* gamma, const void* beta,
+    const void* wqkv, const void* bqkv, const void* wqkvt, const void* wprojt,
+    const void* bias, const void* keep, void* scratch, void* dx, void* dvec,
+    void* dwqkv, void* dbqkv, void* dwproj, void* dbias, int W, int N, int C,
+    int heads, int nW, float eps, void* stream) {
+  return attention_bwd<false>(x, dy, gamma, beta, wqkv, bqkv, wqkvt, wprojt,
+                              bias, keep, scratch, dx, dvec, dwqkv, dbqkv,
+                              dwproj, dbias, W, N, C, heads, nW, eps, stream);
+}
+
+// The spill variant, the same operands: dbqkv sums the bf16-rounded dq | dk
+// | dv.
+FMMT_API int fmmt_fused_attention_block_bwd_spill(
+    const void* x, const void* dy, const void* gamma, const void* beta,
+    const void* wqkv, const void* bqkv, const void* wqkvt, const void* wprojt,
+    const void* bias, const void* keep, void* scratch, void* dx, void* dvec,
+    void* dwqkv, void* dbqkv, void* dwproj, void* dbias, int W, int N, int C,
+    int heads, int nW, float eps, void* stream) {
+  return attention_bwd<true>(x, dy, gamma, beta, wqkv, bqkv, wqkvt, wprojt,
+                             bias, keep, scratch, dx, dvec, dwqkv, dbqkv,
+                             dwproj, dbias, W, N, C, heads, nW, eps, stream);
 }

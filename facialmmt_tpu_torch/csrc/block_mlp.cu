@@ -74,7 +74,7 @@ FMMT_API int fmmt_fused_ln_mlp_residual(const void* x, const void* gamma,
   a.N = HID;
   a.K = C;
   a.keep_div = 1;
-  err = fmmt::gemm::launch<true, fmmt::gemm::kGelu>(a, s);
+  err = fmmt::gemm::launch<fmmt::gemm::kLnStats, fmmt::gemm::kGelu>(a, s);
   if (err != 0) return err;
 
   fmmt::gemm::Args p{};
@@ -88,5 +88,5 @@ FMMT_API int fmmt_fused_ln_mlp_residual(const void* x, const void* gamma,
   p.M = T;
   p.N = C;
   p.K = HID;
-  return fmmt::gemm::launch<false, fmmt::gemm::kResidual>(p, s);
+  return fmmt::gemm::launch<fmmt::gemm::kLnNone, fmmt::gemm::kResidual>(p, s);
 }

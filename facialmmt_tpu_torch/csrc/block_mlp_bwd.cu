@@ -51,7 +51,7 @@
 
 namespace {
 
-using fmmt::bwd::Arena;
+using fmmt::Arena;
 namespace gemm = fmmt::gemm;
 
 struct Scratch {
@@ -161,7 +161,7 @@ FMMT_API int fmmt_fused_ln_mlp_residual_bwd(
   a.M = T;
   a.N = C;
   a.K = HID;
-  err = gemm::launch<false, gemm::kF32>(a, cs);
+  err = gemm::launch<gemm::kLnNone, gemm::kF32>(a, cs);
   if (err) return err;
 
   err = fmmt::bwd::launch_ln_bwd(s.dxn, xb, dyb, s.st, gb, kp, 1,

@@ -9,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #define FMMT_API extern "C" __attribute__((visibility("default")))
@@ -119,60 +120,24 @@ __device__ __forceinline__ float round_bf16(const float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Dot product of two bf16 rows of even length n, fp32 accumulation.  Both
-// pointers must be 4-byte aligned (even element offsets).
-__device__ __forceinline__ float dot_bf16(const __nv_bfloat16* a,
-                                          const __nv_bfloat16* b, int n) {
-  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(a);
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(b);
-  float acc = 0.f;
-  for (int i = 0; i < n / 2; ++i) {
-    const float2 x = __bfloat1622float2(a2[i]);
-    const float2 y = __bfloat1622float2(b2[i]);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
-  }
-  return acc;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// LayerNorm of one row of c bf16 values by one warp: fp32 statistics
-// (two-pass mean / biased variance), affine, result rounded to bf16 into dst.
-// The row's mean and reciprocal standard deviation come back through
-// mean / rstd (every lane holds them): the backward kernels keep them.
-__device__ __forceinline__ void warp_layernorm_row_stats(
-    const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ g,
-    const __nv_bfloat16* __restrict__ b, __nv_bfloat16* dst, int c, float eps,
-    int lane, float& mean, float& rstd) {
-  float s = 0.f;
-  for (int i = lane; i < c; i += 32) s += bf(src[i]);
-  mean = warp_sum(s) / c;
-  float q = 0.f;
-  for (int i = lane; i < c; i += 32) {
-    const float d = bf(src[i]) - mean;
-    q = fmaf(d, d, q);
+// A bump allocator over one scratch buffer.  Run once with base = nullptr it
+// counts the bytes a call needs (the wrapper's query), then hands out the
+// same offsets over the buffer the wrapper allocated.
+struct Arena {
+  unsigned char* base;
+  size_t used;
+  template <typename T>
+  T* take(size_t n) {
+    used = (used + 255) / 256 * 256;
+    T* p = base ? reinterpret_cast<T*>(base + used) : nullptr;
+    used += n * sizeof(T);
+    return p;
   }
-  rstd = rsqrtf(warp_sum(q) / c + eps);
-  for (int i = lane; i < c; i += 32)
-    dst[i] = __float2bfloat16((bf(src[i]) - mean) * rstd * bf(g[i]) + bf(b[i]));
-}
-
-__device__ __forceinline__ void warp_layernorm_row(
-    const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ g,
-    const __nv_bfloat16* __restrict__ b, __nv_bfloat16* dst, int c, float eps,
-    int lane) {
-  float mean, rstd;
-  warp_layernorm_row_stats(src, g, b, dst, c, eps, lane, mean, rstd);
-}
+};
 
 }  // namespace fmmt

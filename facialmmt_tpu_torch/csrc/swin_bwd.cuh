@@ -1,7 +1,7 @@
-// Row kernels shared by the two Swin block backwards (kernel 4,
-// csrc/block_mlp_bwd.cu; kernel 5, csrc/attention_block_bwd.cu), and the
-// scratch arena their wrappers hand in.  Both backwards are sequences of
-// tile_gemm.cuh products between these passes:
+// Row kernels shared by the Swin block backwards (kernel 4,
+// csrc/block_mlp_bwd.cu; kernels 5 and 6, csrc/attention_block_bwd.cu).
+// Both halves' backwards are sequences of tile_gemm.cuh products between
+// these passes:
 //   prep_rows      xn = bf16(LN(x)) and dyk = bf16(dy keep), (T, C) each,
 //                  from the rows' statistics (launch_row_stats);
 //   ln_bwd_rows    the LayerNorm backward of each row from the fp32 dxn,
@@ -17,21 +17,6 @@
 
 namespace fmmt {
 namespace bwd {
-
-// A bump allocator over one scratch buffer.  Run once with base = nullptr it
-// counts the bytes a call needs (the wrapper's query), then hands out the
-// same offsets over the buffer the wrapper allocated.
-struct Arena {
-  unsigned char* base;
-  size_t used;
-  template <typename T>
-  T* take(size_t n) {
-    used = (used + 255) / 256 * 256;
-    T* p = base ? reinterpret_cast<T*>(base + used) : nullptr;
-    used += n * sizeof(T);
-    return p;
-  }
-};
 
 // 8 elements a thread: xn = bf16((x rstd - mean rstd) gamma + beta), the
 // forward's normalise in tile_gemm.cuh, and dyk = bf16(dy keep[t / keep_div]).

@@ -5,14 +5,19 @@
 // layouts are at the end of this note):
 //   out[m, n] = epilogue(sum_k A'[m, k] * B[n, k] + bias[n])
 // A (M, K) bf16 row-major; B (N, K) bf16 row-major, the torch Linear weight
-// layout; bias (N) bf16; out (M, N) bf16.  A' is A itself, or with
-// kLayerNorm bf16((A[m] - mean) rstd * gamma + beta), the row's LayerNorm
-// rounded to bf16 as the JAX kernels round it before their products; the
-// rows' (rstd, -mean rstd) come from row_stats_kernel, one pass over A
-// before the product.  Epilogues, all in fp32 and rounded once:
+// layout; bias (N) bf16; out (M, N) bf16.  A' is A itself (kLnNone), or
+// bf16((A[m] - mean) rstd * gamma + beta), the row's LayerNorm rounded to
+// bf16 as the JAX kernels round it before their products; the rows' (rstd,
+// -mean rstd) come from row_stats_kernel, one pass over A before the product
+// (kLnStats), or are merged in the prologue from the (mean, M2) partials that
+// the product writing A left per row and column tile (kLnParts).  Epilogues,
+// all in fp32 and rounded once:
 //   kGelu      exact-erf GELU(y), y = acc + bias           (fc1 of the MLP)
 //   kScaleQ    y, times q_scale in the columns n < q_cols  (the qkv product)
 //   kResidual  res[m, n] + keep[m / keep_div] * y          (fc2, proj)
+//   kResidualStats  kResidual, and the (mean, M2) of each row's rounded
+//              outputs in the tile to row_part     (proj of the whole block;
+//              per 8-column group, merged in order in two halves)
 //   kPlain     acc, no bias                   (the backward's dattn, bf16)
 //   kF32       acc, no bias, fp32 out_f32     (the backward's dxn)
 // Any M; N and K multiples of 16.
@@ -75,7 +80,12 @@
 namespace fmmt {
 namespace gemm {
 
-enum Epilogue { kGelu = 0, kScaleQ = 1, kResidual = 2, kPlain = 3, kF32 = 4 };
+enum Epilogue {
+  kGelu = 0, kScaleQ = 1, kResidual = 2, kPlain = 3, kF32 = 4,
+  kResidualStats = 5
+};
+// Where a LayerNorm prologue's row statistics come from (none: no LayerNorm)
+enum Prologue { kLnNone = 0, kLnStats = 1, kLnParts = 2 };
 
 constexpr int kWarps = 8;         // two warpgroups
 constexpr int kThreads = 32 * kWarps;
@@ -86,7 +96,9 @@ constexpr size_t kABytes = (size_t)kBM * kBK * 2;
 
 struct Args {
   const __nv_bfloat16* a;
-  const float2* stats;            // kLayerNorm: (rstd, -mean rstd) per row
+  const float2* stats;            // kLnStats: (rstd, -mean rstd) per row;
+                                  // kLnParts: (mean, M2) partials, `parts` a
+                                  // row, each over part_cols columns of A
   const __nv_bfloat16* gamma;
   const __nv_bfloat16* beta;
   const __nv_bfloat16* b;
@@ -95,36 +107,45 @@ struct Args {
   const float* keep;              // kResidual, optional
   __nv_bfloat16* out;
   float* out_f32;                 // kF32
+  float2* row_part;               // kResidualStats: (mean, M2) of row m over
+                                  // column tile j at [m * (N / BN) + j]
   int M, N, K;
   int keep_div;                   // keep index of row m: m / keep_div
   int q_cols;                     // kScaleQ
   float q_scale;
+  int parts, part_cols;           // kLnParts
+  float eps;                      // kLnParts
 };
 
 template <int BN>
 struct Tile {
   static constexpr size_t kStageBytes = kABytes + (size_t)BN * kBK * 2;
   static constexpr int ldo = BN + 4;        // fp32 stride of the output tile
-  static_assert((size_t)kBM * ldo * 4 <= kStages * kStageBytes,
-                "the output tile is staged over the ring");
+  static_assert((size_t)kBM * ldo * 4 + (size_t)kBM * (BN / 8 + 1) * 8 <=
+                    kStages * kStageBytes,
+                "the output tile and its rows' group statistics are staged "
+                "over the ring");
 };
 
 __host__ __device__ constexpr size_t align_up(size_t n, size_t a) {
   return (n + a - 1) / a * a;
 }
 
-// gamma, beta (bf16, K each) | stats (float2, kBM) | ring, 1024-aligned for
-// the swizzle (the dynamic shared memory base is aligned at run time, hence
-// the 1024 bytes of slack)
+// gamma, beta (bf16, K each) | stats (float2, kBM) | with kLnParts the rows'
+// partials (float2, kBM x parts) | ring, 1024-aligned for the swizzle (the
+// dynamic shared memory base is aligned at run time, hence the 1024 bytes
+// of slack)
 struct Layout {
   size_t off_stats, off_ring, bytes;
 };
 
 template <int BN>
-__host__ __device__ inline Layout layout(int K, bool ln) {
+__host__ __device__ inline Layout layout(int K, bool ln, int parts = 0) {
   Layout L;
   L.off_stats = ln ? align_up((size_t)2 * K * sizeof(__nv_bfloat16), 128) : 0;
-  L.off_ring = align_up(L.off_stats + (ln ? kBM * sizeof(float2) : 0), 1024);
+  L.off_ring = align_up(
+      L.off_stats + (ln ? (size_t)kBM * (1 + parts) * sizeof(float2) : 0),
+      1024);
   L.bytes = L.off_ring + kStages * Tile<BN>::kStageBytes + 1024;
   return L;
 }
@@ -299,15 +320,17 @@ row_stats_kernel(const __nv_bfloat16* __restrict__ a, float2* __restrict__ st,
   if (sub == 0 && row < M) st[row] = make_float2(rstd, -mean * rstd);
 }
 
-template <int BN, bool kLayerNorm, int kEpi>
+template <int BN, int kLN, int kEpi>
 __global__ void __launch_bounds__(kThreads, 2)
 tile_gemm_kernel(const Args p) {
   using TL = Tile<BN>;
+  constexpr bool kLayerNorm = kLN != kLnNone;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Layout L = layout<BN>(p.K, kLayerNorm);
+  const Layout L = layout<BN>(p.K, kLayerNorm, kLN == kLnParts ? p.parts : 0);
   __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* bs = gs + p.K;
   float2* st_s = reinterpret_cast<float2*>(smem_raw + L.off_stats);
+  [[maybe_unused]] float2* part_s = st_s + kBM;   // kLnParts
   unsigned char* ring = smem_raw + L.off_ring;
   ring += (1024 - (smem_addr(ring) & 1023)) & 1023;
   auto as = [&](int s) { return ring + s * TL::kStageBytes; };
@@ -378,6 +401,17 @@ tile_gemm_kernel(const Args p) {
       cp_async16(gs + i * 8, p.gamma + i * 8, true);
       cp_async16(bs + i * 8, p.beta + i * 8, true);
     }
+  }
+  if constexpr (kLN == kLnParts) {
+    // the rows' partials, contiguous in memory, 16 bytes a copy (an odd last
+    // float2 alone)
+    const int count = min(kBM, M - m0) * p.parts;
+    const float2* src = p.stats + (size_t)m0 * p.parts;
+    for (int i = tid; i < count / 2; i += kThreads)
+      cp_async16(part_s + 2 * i, src + 2 * i, true);
+    if (count % 2 == 1 && tid == 0) part_s[count - 1] = src[count - 1];
+  }
+  if constexpr (kLN == kLnStats) {
     for (int i = tid; i < kBM / 2; i += kThreads) {
       const bool real = m0 + 2 * i < M;
       if (m0 + 2 * i + 1 < M || !real) {
@@ -407,6 +441,34 @@ tile_gemm_kernel(const Args p) {
     cp_async_wait<kStages - 2>();
     if constexpr (kLayerNorm) {
       __syncthreads();
+      if constexpr (kLN == kLnParts) {
+        if (c == 0) {
+          // each row's partials merged in column order, rows past M (0, 0):
+          //   mean = sum_j n_j mean_j / K,
+          //   M2 = sum_j (M2_j + n_j (mean_j - mean)^2)
+          if (tid < kBM) {
+            float2 sc = make_float2(0.f, 0.f);
+            if (m0 + tid < M) {
+              const float2* part = part_s + tid * p.parts;
+              float sum = 0.f;
+              for (int j = 0; j < p.parts; ++j)
+                sum = fmaf(part[j].x,
+                           (float)min(p.part_cols, K - j * p.part_cols), sum);
+              const float mean = sum / K;
+              float m2 = 0.f;
+              for (int j = 0; j < p.parts; ++j) {
+                const float d = part[j].x - mean;
+                m2 += part[j].y +
+                      (float)min(p.part_cols, K - j * p.part_cols) * d * d;
+              }
+              const float rstd = rsqrtf(m2 / K + p.eps);
+              sc = make_float2(rstd, -mean * rstd);
+            }
+            st_s[tid] = sc;
+          }
+          __syncthreads();
+        }
+      }
       normalise(c, c % kStages);
     }
     fence_proxy_async();
@@ -431,6 +493,9 @@ tile_gemm_kernel(const Args p) {
   cp_async_wait<0>();
   __syncthreads();
   float* os = reinterpret_cast<float*>(ring);
+  // kResidualStats: (mean, M2) of each row's 8-column groups, past the tile
+  [[maybe_unused]] float2* group_s =
+      reinterpret_cast<float2*>(os + kBM * TL::ldo);
   {
     const int t = tid % 128;
     const int row = wg * 64 + (t / 32) * 16 + (t % 32) / 4;
@@ -479,7 +544,7 @@ tile_gemm_kernel(const Args p) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) y[e] *= p.q_scale;
       }
-    } else if constexpr (kEpi == kResidual) {
+    } else if constexpr (kEpi == kResidual || kEpi == kResidualStats) {
       const float kw = p.keep ? p.keep[m / p.keep_div] : 1.f;
       const uint4 res8 =
           *reinterpret_cast<const uint4*>(p.res + (size_t)m * N + n);
@@ -497,6 +562,52 @@ tile_gemm_kernel(const Args p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) o32[e] = pack_bf16(y[2 * e], y[2 * e + 1]);
     *reinterpret_cast<uint4*>(p.out + (size_t)m * N + n) = o;
+    if constexpr (kEpi == kResidualStats) {
+      // (mean, M2) of the 8 rounded values, for the row's statistics below
+      const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(r2[e]);
+        v[2 * e] = f.x;
+        v[2 * e + 1] = f.y;
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += v[e];
+      const float mean = sum * 0.125f;
+      float m2 = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) m2 = fmaf(v[e] - mean, v[e] - mean, m2);
+      group_s[r * (BN / 8 + 1) + col / 8] = make_float2(mean, m2);
+    }
+  }
+  if constexpr (kEpi == kResidualStats) {
+    // two threads a row, each merging half of its real 8-column groups
+    // (G, even: N is a multiple of 16) in column order, then the two halves:
+    // with equal counts n, mean = sum mean_g / g and M2 = sum M2_g + n sum
+    // (mean_g - mean)^2, the halves' n = 4 G; the row's partial over this
+    // tile to row_part
+    __syncthreads();
+    const int half = min(BN, N - n0) / 16;      // G / 2
+    const int r = tid / 2;
+    const float2* g = group_s + r * (BN / 8 + 1) + (tid % 2) * half;
+    float sum = 0.f;
+    for (int j = 0; j < half; ++j) sum += g[j].x;
+    const float mean = sum / half;
+    float m2 = 0.f, dev = 0.f;
+    for (int j = 0; j < half; ++j) {
+      m2 += g[j].y;
+      dev = fmaf(g[j].x - mean, g[j].x - mean, dev);
+    }
+    m2 = fmaf(8.f, dev, m2);
+    const float mean_b = __shfl_xor_sync(0xffffffffu, mean, 1);
+    const float m2_b = __shfl_xor_sync(0xffffffffu, m2, 1);
+    if (tid % 2 == 0 && m0 + r < M) {
+      const float d = mean_b - mean;
+      p.row_part[(size_t)(m0 + r) * ntiles_n + n0 / BN] = make_float2(
+          0.5f * (mean + mean_b), m2 + m2_b + 4.f * half * d * d);
+    }
   }
 }
 
@@ -506,15 +617,16 @@ inline int tile_n(int N) {
   return N % 128 == 0 ? 128 : (N % 96 == 0 ? 96 : 64);
 }
 
-inline size_t smem_bytes(int N, int K, bool ln) {
+// parts: the rows' partials a kLnParts product reads (0 otherwise).
+inline size_t smem_bytes(int N, int K, bool ln, int parts = 0) {
   switch (tile_n(N)) {
-    case 128: return layout<128>(K, ln).bytes;
-    case 96: return layout<96>(K, ln).bytes;
-    default: return layout<64>(K, ln).bytes;
+    case 128: return layout<128>(K, ln, parts).bytes;
+    case 96: return layout<96>(K, ln, parts).bytes;
+    default: return layout<64>(K, ln, parts).bytes;
   }
 }
 
-// The rows' LayerNorm statistics for a kLayerNorm product: st (M) float2.
+// The rows' LayerNorm statistics for a kLnStats product: st (M) float2.
 static inline int launch_row_stats(const __nv_bfloat16* a, float2* st,
                                    int M, int K, float eps,
                                    cudaStream_t stream) {
@@ -527,31 +639,37 @@ static inline int launch_row_stats(const __nv_bfloat16* a, float2* st,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, bool kLayerNorm, int kEpi>
+// Column tiles of a product's output (the kResidualStats partials per row).
+inline int col_tiles(int N) { return (N + tile_n(N) - 1) / tile_n(N); }
+
+template <int BN, int kLN, int kEpi>
 int launch_tile(const Args& p, cudaStream_t stream) {
-  const size_t bytes = layout<BN>(p.K, kLayerNorm).bytes;
+  const size_t bytes =
+      layout<BN>(p.K, kLN != kLnNone, kLN == kLnParts ? p.parts : 0).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      tile_gemm_kernel<BN, kLayerNorm, kEpi>,
+      tile_gemm_kernel<BN, kLN, kEpi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
       (long long)((p.M + kBM - 1) / kBM) * ((p.N + BN - 1) / BN);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  tile_gemm_kernel<BN, kLayerNorm, kEpi>
+  tile_gemm_kernel<BN, kLN, kEpi>
       <<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One product; the tile width by N.  N and K multiples of 16, M >= 1; with
-// kLayerNorm, p.stats from launch_row_stats on the same stream.
-template <bool kLayerNorm, int kEpi>
+// kLnStats, p.stats from launch_row_stats on the same stream; with kLnParts,
+// from a kResidualStats product over the same rows (parts = col_tiles of its
+// N = K, part_cols = its tile width).
+template <int kLN, int kEpi>
 int launch(const Args& p, cudaStream_t stream) {
   if (p.M < 1 || p.N % 16 != 0 || p.K % 16 != 0 || p.N < 16 || p.K < 16)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (tile_n(p.N)) {
-    case 128: return launch_tile<128, kLayerNorm, kEpi>(p, stream);
-    case 96: return launch_tile<96, kLayerNorm, kEpi>(p, stream);
-    default: return launch_tile<64, kLayerNorm, kEpi>(p, stream);
+    case 128: return launch_tile<128, kLN, kEpi>(p, stream);
+    case 96: return launch_tile<96, kLN, kEpi>(p, stream);
+    default: return launch_tile<64, kLN, kEpi>(p, stream);
   }
 }
 

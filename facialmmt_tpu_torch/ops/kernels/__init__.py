@@ -121,15 +121,15 @@ _SIGNATURES = {
     "fmmt_fused_attention_block_bwd": ([_VP] * 17 + [_I] * 5 + [_F, _VP], _I),
     "fmmt_fused_attention_block_bwd_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_attention_block_bwd_scratch": ([_I] * 5, ctypes.c_longlong),
-    "fmmt_fused_attention_block_bwd_spill": ([_VP] * 16 + [_I] * 5 + [_F, _VP],
+    "fmmt_fused_attention_block_bwd_spill": ([_VP] * 17 + [_I] * 5 + [_F, _VP],
                                              _I),
-    "fmmt_fused_attention_block_bwd_spill_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_window_attention": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
     "fmmt_window_attention_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_merge": ([_VP] * 5 + [_I] * 3 + [_F, _VP], _I),
     "fmmt_fused_merge_smem": ([_I], ctypes.c_longlong),
-    "fmmt_fused_whole_block": ([_VP] * 15 + [_I] * 6 + [_F, _VP], _I),
-    "fmmt_fused_whole_block_smem": ([_I] * 3, ctypes.c_longlong),
+    "fmmt_fused_whole_block": ([_VP] * 16 + [_I] * 6 + [_F, _VP], _I),
+    "fmmt_fused_whole_block_smem": ([_I] * 4, ctypes.c_longlong),
+    "fmmt_fused_whole_block_scratch": ([_I] * 6, ctypes.c_longlong),
     "fmmt_shift_permute": ([_VP] * 2 + [_I] * 7 + [_VP], _I),
 }
 

@@ -2,7 +2,7 @@
 
 Counterpart of facialmmt_tpu/ops/pallas/fused_block.py: fused_attention_block
 (CUDA kernel csrc/attention_block.cu) and its two backwards, _bwd_impl_pallas
-(csrc/attention_block_bwd.cu) and _bwd_impl_spill (csrc/fused_block_bwd.cu).
+and _bwd_impl_spill (the two variants of csrc/attention_block_bwd.cu).
 x (W, N, C) is window-resident (faces-major windows, so window w reads bias
 row w % nW).
 Weights are in torch Linear layout: wqkv (3C, C) with q|k|v on the output
@@ -18,8 +18,9 @@ boundary, gradients returned in their parameter's dtype).  Which backward
 serves a shape is decided in one place, `backward_variant`.
 
 `fused_whole_block` is the WHOLE block, the attention half followed by the
-MLP half y + fc2(GELU(fc1(LN2(y)))), in one kernel (csrc/fused_block.cu;
-JAX's fused_whole_block).  Its backward differentiates
+MLP half y + fc2(GELU(fc1(LN2(y)))), in one wrapper call
+(csrc/attention_block.cu's second entry point, on the device kernels of the
+two halves; JAX's fused_whole_block).  Its backward differentiates
 the plain version recomputed from the saved inputs, as JAX's does: neither
 package has a backward kernel for it.  As in the JAX package, SwinBlock keeps
 the two halves; nothing in the model calls it.
@@ -115,9 +116,11 @@ RESIDENT_MAX_C = 384   # widest C the resident backward serves: the JAX
 
 
 def backward_variant(c: int) -> str:
-    """Which backward serves width C: 'resident' (weight gradients inside the
-    kernel; Swin-tiny stages 0-2) or 'spill' (the kernel emits xn / dqkv /
-    attn and the weight gradients are K = T products outside; stage 3)."""
+    """Which backward serves width C, as in the JAX package: 'resident'
+    (Swin-tiny stages 0-2) or 'spill' (stage 3).  On the TPU they differ in
+    where the weight gradients are formed; on the card both variants are the
+    same sequence of device kernels, and the spill variant's dbqkv sums the
+    bf16-rounded dq | dk | dv, as JAX sums the dqkv its kernel emits."""
     return "resident" if c <= RESIDENT_MAX_C else "spill"
 
 
@@ -177,8 +180,9 @@ def _group0(dbias_sum, nw: int):
 
 
 def _outside_weight_grads(xn_b, dqkv_b, attn_b, dyk_b):
-    """The spill variant's weight gradients: K = T products over all rows,
-    operands as emitted, fp32 accumulation.  dbqkv sums the rounded dqkv."""
+    """The weight gradients: K = T products over all rows, bf16 operands,
+    fp32 accumulation (JAX's spill variant forms them so outside its
+    kernel).  dbqkv sums the rounded dqkv."""
     c = xn_b.shape[-1]
     xn2, dqkv2 = xn_b.reshape(-1, c).float(), dqkv_b.reshape(-1, 3 * c).float()
     dwqkv = dqkv2.t() @ xn2                                       # (3C, C)
@@ -225,8 +229,7 @@ def _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep):
     w, n, c = x.shape
     nw, h = bias.shape[0], bias.shape[1]
     dev = x.device
-    kernels.require(0 < n <= 64 and c % h == 0 and (c // h) % 16 == 0
-                    and c <= 768,
+    kernels.require(0 < n <= 64 and c % h == 0 and (c // h) % 16 == 0,
                     f"unsupported window shape N={n}, C={c}, heads={h}")
     kernels.require(w % nw == 0, f"W={w} is not a multiple of nW={nw}")
     bf16 = torch.bfloat16
@@ -241,23 +244,19 @@ def _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep):
     return w, n, c, nw, h, dev
 
 
-def fused_attention_block_bwd_cuda(x, dy, gamma, beta, wqkv, bqkv, wproj,
-                                   bias, keep=None, eps: float = 1e-5):
-    """Launch csrc/attention_block_bwd.cu (the LN1 statistics, xn and dy *
-    keep, the qkv and dattn products, the window pass, dxn, the LN backward,
-    the split-T weight-gradient products and their fixed-order sums): bf16
-    tokens, gradient and weights, fp32 bias/keep, N <= 64, C <= 384, C and
-    the head dim multiples of 16; raises on anything else.  Returns as the
-    plain version; two launches give the same bits."""
+def _attention_bwd_cuda(entry, max_c, x, dy, gamma, beta, wqkv, bqkv, wproj,
+                        bias, keep, eps):
+    """Launch one variant of csrc/attention_block_bwd.cu (`entry`, the C
+    entry point's name, taking C <= max_c): the operands checked, the
+    scratch and the outputs allocated, the weights' transposed copies made
+    (the products read B operands K-major)."""
     w, n, c, nw, h, dev = _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv,
                                               wproj, bias, keep)
-    kernels.require(c <= RESIDENT_MAX_C,
-                    f"C={c}: the resident backward takes C <= {RESIDENT_MAX_C}")
+    kernels.require(c <= max_c, f"C={c}: {entry} takes C <= {max_c}")
     lib = kernels.library()
     smem = lib.fmmt_fused_attention_block_bwd_smem(c, h)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
-    # the products read both weights transposed too (B operands K-major)
     wqkvt, wprojt = wqkv.t().contiguous(), wproj.t().contiguous()
     scratch = torch.empty(
         lib.fmmt_fused_attention_block_bwd_scratch(w, n, c, h, nw),
@@ -267,7 +266,7 @@ def fused_attention_block_bwd_cuda(x, dy, gamma, beta, wqkv, bqkv, wproj,
     dvec, dwqkv, dbqkv = f32(3, c), f32(3 * c, c), f32(3 * c)
     dwproj, dbias = f32(c, c), f32(nw, h, n, n)
     dbias[1:].zero_()
-    err = lib.fmmt_fused_attention_block_bwd(
+    err = getattr(lib, entry)(
         x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         wqkv.data_ptr(), bqkv.data_ptr(), wqkvt.data_ptr(), wprojt.data_ptr(),
         bias.data_ptr(), None if keep is None else keep.data_ptr(),
@@ -275,10 +274,25 @@ def fused_attention_block_bwd_cuda(x, dy, gamma, beta, wqkv, bqkv, wproj,
         dbqkv.data_ptr(), dwproj.data_ptr(),
         dbias.data_ptr(),           # group 0 of (nW, h, N, N) is its head
         w, n, c, h, nw, eps, kernels.stream_ptr(dev))
-    kernels.check_launch("fused_attention_block_bwd", err)
-    fused_attention_block_bwd_cuda.launches += 1
+    kernels.check_launch(entry, err)
     dgamma, dbeta, dbproj = dvec
     return dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, dbias
+
+
+def fused_attention_block_bwd_cuda(x, dy, gamma, beta, wqkv, bqkv, wproj,
+                                   bias, keep=None, eps: float = 1e-5):
+    """Launch the resident variant of csrc/attention_block_bwd.cu (the LN1
+    statistics, xn and dy * keep, the qkv and dattn products, the window
+    pass, dxn, the LN backward, the split-T weight-gradient products and
+    their fixed-order sums): bf16 tokens, gradient and weights, fp32
+    bias/keep, N <= 64, C <= 384, C and the head dim multiples of 16; raises
+    on anything else.  Returns as the plain version; two launches give the
+    same bits."""
+    out = _attention_bwd_cuda("fmmt_fused_attention_block_bwd",
+                              RESIDENT_MAX_C, x, dy, gamma, beta, wqkv, bqkv,
+                              wproj, bias, keep, eps)
+    fused_attention_block_bwd_cuda.launches += 1
+    return out
 
 
 fused_attention_block_bwd_cuda.launches = 0
@@ -287,38 +301,15 @@ fused_attention_block_bwd_cuda.launches = 0
 def fused_attention_block_bwd_spill_cuda(x, dy, gamma, beta, wqkv, bqkv,
                                          wproj, bias, keep=None,
                                          eps: float = 1e-5):
-    """Launch the spill kernel of csrc/fused_block_bwd.cu (same operands, C up
-    to 768), then form dwqkv, dbqkv, dwproj and dbproj from what it emitted
-    with K = T matmuls and sums over all rows.  The emitted tensors hold 64
-    rows per window, rows N..63 zero, so they enter the products as they
-    are.  Returns as the plain version."""
-    w, n, c, nw, h, dev = _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv,
-                                              wproj, bias, keep)
-    lib = kernels.library()
-    smem = lib.fmmt_fused_attention_block_bwd_spill_smem(c, h)
-    kernels.require(smem <= kernels.max_shared_memory(dev),
-                    f"needs {smem} B of shared memory per block")
-    dx = torch.empty_like(x)
-    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-    dgamma, dbeta, dbias = zeros(c), zeros(c), zeros(nw, h, n, n)
-    emit = lambda width: torch.empty((w, 64, width), dtype=torch.bfloat16,
-                                     device=dev)
-    xn, dqkv, attn = emit(c), emit(3 * c), emit(c)
-    err = lib.fmmt_fused_attention_block_bwd_spill(
-        x.data_ptr(), dy.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bias.data_ptr(),
-        None if keep is None else keep.data_ptr(), dx.data_ptr(),
-        dgamma.data_ptr(), dbeta.data_ptr(), dbias.data_ptr(),
-        xn.data_ptr(), dqkv.data_ptr(), attn.data_ptr(),
-        w, n, c, h, nw, eps, kernels.stream_ptr(dev))
-    kernels.check_launch("fused_attention_block_bwd_spill", err)
+    """Launch the spill variant of csrc/attention_block_bwd.cu: the resident
+    variant's device kernels, with dbqkv summed from the bf16-rounded dq | dk
+    | dv; the same operands, C up to 768.  Returns as the plain version; two
+    launches give the same bits."""
+    out = _attention_bwd_cuda("fmmt_fused_attention_block_bwd_spill", 768, x,
+                              dy, gamma, beta, wqkv, bqkv, wproj, bias, keep,
+                              eps)
     fused_attention_block_bwd_spill_cuda.launches += 1
-    dyk = dy.float()
-    if keep is not None:
-        dyk = dyk * keep.reshape(w, 1, 1)
-    dwqkv, dbqkv, dwproj = _outside_weight_grads(
-        xn, dqkv, attn[:, :n], dyk.to(torch.bfloat16))
-    return dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dyk.sum((0, 1)), dbias
+    return out
 
 
 fused_attention_block_bwd_spill_cuda.launches = 0
@@ -397,10 +388,13 @@ def fused_whole_block_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
 
 def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                            gamma2, beta2, w1, b1, w2, b2, eps: float = 1e-5):
-    """Launch the whole-block kernel of csrc/fused_block.cu: bf16 tokens and
-    weights (w1 (HID, C), w2 (C, HID): what SwinBlock's fc1 / fc2 Linears
-    hold), fp32 bias, N <= 64, C and the head dim multiples of 16, HID a
-    multiple of 64; raises on anything else."""
+    """Launch the whole-block entry point of csrc/attention_block.cu (the
+    attention half's four device kernels, proj leaving the rows' LN2
+    partials, then fc1 + GELU with the partials merged in its prologue and
+    fc2 + residual): bf16 tokens and weights (w1 (HID, C), w2 (C, HID): what
+    SwinBlock's fc1 / fc2 Linears hold), fp32 bias, N <= 64, C <= 768, C and
+    the head dim multiples of 16, HID a multiple of 64; raises on anything
+    else.  Two launches give the same bits."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
     kernels.require(x.dim() == 3 and bias.dim() == 4 and w1.dim() == 2,
@@ -412,7 +406,7 @@ def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     hid = w1.shape[0]
     dev = x.device
     kernels.require(0 < n <= 64 and c % h == 0 and (c // h) % 16 == 0
-                    and hid % 64 == 0,
+                    and c <= 768 and hid % 64 == 0,
                     f"unsupported block shape N={n}, C={c}, heads={h}, "
                     f"HID={hid}")
     kernels.require(w % nw == 0, f"W={w} is not a multiple of nW={nw}")
@@ -427,13 +421,19 @@ def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
         kernels.check_cuda_tensor(name, t, bf16, shape, dev)
     kernels.check_cuda_tensor("bias", bias, torch.float32, (nw, h, n, n), dev)
     lib = kernels.library()
-    smem = lib.fmmt_fused_whole_block_smem(n, c, h)
+    smem = lib.fmmt_fused_whole_block_smem(n, c, h, hid)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
+    # the call's scratch: LN1 statistics, qkv, the head outputs, y and its
+    # LN2 partials, the hidden layer
+    scratch = torch.empty(
+        lib.fmmt_fused_whole_block_scratch(w, n, c, h, nw, hid),
+        dtype=torch.uint8, device=dev)
     out = torch.empty_like(x)
     err = lib.fmmt_fused_whole_block(
         *[t.data_ptr() for t in (x, gamma, beta, wqkv, bqkv, wproj, bproj,
-                                 bias, gamma2, beta2, w1, b1, w2, b2, out)],
+                                 bias, gamma2, beta2, w1, b1, w2, b2, scratch,
+                                 out)],
         w, n, c, h, nw, hid, eps, kernels.stream_ptr(dev))
     kernels.check_launch("fused_whole_block", err)
     fused_whole_block_cuda.launches += 1

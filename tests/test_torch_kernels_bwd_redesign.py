@@ -1,6 +1,6 @@
-"""The algorithms of kernel 4 (csrc/block_mlp_bwd.cu) and kernel 5
-(csrc/attention_block_bwd.cu) written out in PyTorch, against the plain
-versions and the JAX package.
+"""The algorithms of kernel 4 (csrc/block_mlp_bwd.cu) and kernels 5 and 6
+(csrc/attention_block_bwd.cu's resident and spill variants) written out in
+PyTorch, against the plain versions and the JAX package.
 
 A CUDA kernel cannot run here, so what the two backwards compute is mirrored
 step by step, and their launch plans are checked from the constants of
@@ -10,7 +10,8 @@ csrc/tile_gemm.cuh, csrc/swin_bwd.cuh and csrc/attention_block_bwd.cu:
     and every (window, head) unit of the window pass is computed by exactly
     one block, every row by one LayerNorm-backward block, every partial row
     by one fixed-order sum; at each Swin-tiny stage of a 150-image batch
-    (kernel 5: stages 0-2, the widths it serves) every device kernel but the
+    (the attention half: kernel 5 at stages 0-2, kernel 6, the same device
+    kernels, at stage 3) every device kernel but the
     fixed-order sums launches at least 132 blocks (the H100's SMs; the
     split-T products aim at two an SM); shared memory fits the 232,448
     bytes a Hopper block can take, the products' two to an SM.  The sums
@@ -243,9 +244,7 @@ def test_fixed_order_sum_visits_every_partial_row_once(r):
 def test_plans_fill_the_card_and_fit_shared_memory(stage):
     res, c, heads = SWIN_STAGES[stage]
     w, t = AUX_IMAGES * (res // 7) ** 2, AUX_IMAGES * res * res
-    plans = mlp_bwd_plan(t, c)
-    if c <= fused_block.RESIDENT_MAX_C:
-        plans += attn_bwd_plan(w, c, heads)
+    plans = mlp_bwd_plan(t, c) + attn_bwd_plan(w, c, heads)
     for name, blocks, smem in plans:
         assert blocks >= SMS, (name, blocks)
         assert smem <= SMEM_OPTIN, (name, smem)
@@ -365,12 +364,12 @@ def mlp_bwd_mirror(x, dy, gamma, beta, w1, b1, w2, keep, rnd):
     return dx, dgamma, dbeta, wgrad(dh, xn), db1, wgrad(dyk, g), db2
 
 
-def window_pass(qkv, dattn, bias, w, n, c, heads, rnd):
+def window_pass(qkv, dattn, bias, w, n, c, heads, rnd, spill=False):
     """The window pass: per (head, block) its windows in order, 64-row padded
     tiles, the fp32 softmax and its vjp, the five products, the block's fp32
-    dbias sum and per-warp dbqkv column sums.  Returns attn (T, C), dqkv
-    (T, 3C) (rounded with `rnd`), the unrounded dq | dk | dv, dbqkv (3C) and
-    dbias (h, N, N)."""
+    dbias sum and per-warp dbqkv column sums (with `spill`, of the dq | dk |
+    dv rounded with `rnd`).  Returns attn (T, C), dqkv (T, 3C) (rounded with
+    `rnd`), the unrounded dq | dk | dv, dbqkv (3C) and dbias (h, N, N)."""
     hd, nw = c // heads, bias.shape[0]
     scale = hd ** -0.5
     t = w * n
@@ -410,7 +409,8 @@ def window_pass(qkv, dattn, bias, w, n, c, heads, rnd):
                                  which * c + (head + 1) * hd)
                     dqkv32[rows, cols] = o[:n]
                     dqkv[rows, cols] = _bf(o[:n], rnd)
-                    colacc[:, which] = colacc[:, which] + o.reshape(
+                    summand = _bf(o, rnd) if spill else o
+                    colacc[:, which] = colacc[:, which] + summand.reshape(
                         WIN_WARPS, 16, hd).sum(1)
             dbias_part[g, head] = dbacc
             tot = torch.zeros(3, hd)
@@ -423,9 +423,10 @@ def window_pass(qkv, dattn, bias, w, n, c, heads, rnd):
             sum_rows(dbias_part.reshape(groups, -1)).reshape(heads, n, n))
 
 
-def attn_bwd_mirror(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep, rnd):
-    """Kernel 5: (dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, dbias in
-    group 0), and the unrounded dq | dk | dv."""
+def attn_bwd_mirror(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep, rnd,
+                    spill=False):
+    """Kernel 5, or with `spill` kernel 6: (dx, dgamma, dbeta, dwqkv, dbqkv,
+    dwproj, dbproj, dbias in group 0), and the unrounded dq | dk | dv."""
     w, n, c = x.shape
     heads = bias.shape[1]
     t = w * n
@@ -439,7 +440,7 @@ def attn_bwd_mirror(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep, rnd):
     qkv = _bf(qkv, rnd)
     dattn = _bf(chunked(dyk, wproj.float().t()), rnd)
     attn, dqkv, dqkv32, dbqkv, dbias = window_pass(qkv, dattn, bias, w, n, c,
-                                                   heads, rnd)
+                                                   heads, rnd, spill)
     dxn = chunked(dqkv, wqkv.float().t())
     dx, (dgamma, dbeta, dbproj) = ln_bwd_rows(dxn, xr, dyr, rstd, shift,
                                               gamma, kvec, rnd)
