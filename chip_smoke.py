@@ -25,7 +25,9 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      the wrapper's device kernels and the same half's backward as torch
      autograd (xla_mlp_half, xla_attention_half: a yardstick only);
      the three window-attention entry points at every stage of a 64-face pack
-     (shifted bias, nW = 64 / 16 / 4, and nW = 1) and the merge tail at the
+     (shifted bias, nW = 64 / 16 / 4, and nW = 1; the bias in bf16, with the
+     fp32 bias's cast and the share of the HBM bound beside each shape) and
+     the merge tail at the
      three stage transitions; the whole block at every stage shape of a
      64-face pack, two launches bit for bit, also into NaN-filled outputs
      and scratch (beside it the split, kernel 2 then kernel 3, on the same
@@ -747,7 +749,10 @@ def phase_kernels(torch, dev, rng):
     # pack, with the shifted blocks' bias (nW = 64 / 16 / 4) and the unshifted
     # blocks' (nW = 1).  The library call is scaled_dot_product_attention with
     # the bf16 bias as attn_mask: faces as its batch, (window, head) as its
-    # heads, so that the (nW, h, N, N) bias broadcasts over the faces.
+    # heads, so that the (nW, h, N, N) bias broadcasts over the faces.  The
+    # kernels get the bias in bf16, so their times hold no cast; the cast of
+    # the route's fp32 bias (the wrapper's first device kernel on the
+    # 'pallas' / 'pair' routes) is timed apart.
     n, hd = 49, 32
     for stage, (res, c, heads) in enumerate(SWIN_STAGES):
         w = FACES * (res // 7) ** 2
@@ -756,17 +761,29 @@ def phase_kernels(torch, dev, rng):
             mask = shifted_window_mask(res, res, 7, 3)[:, None] if nw > 1 else 0
             q, k, v = (bf(rng.normal(size=(w, heads, n, hd)) * scale)
                        for scale in (hd ** -0.5, 1.0, 1.0))
-            bias = f32(rel + mask)
+            bias32 = f32(rel + mask)
+            bias = bias32.to(torch.bfloat16)
+            cast_ms = device_ms(torch, lambda: bias32.to(torch.bfloat16))
             sdpa = [t.view(w // nw, nw * heads, n, hd) for t in (q, k, v)]
-            sdpa_mask = bias.to(torch.bfloat16).view(1, nw * heads, n, n)
+            sdpa_mask = bias.view(1, nw * heads, n, n)
+            label = f"stage {stage} W={w} h={heads} nW={nw}"
             for name in WINDOW_KERNELS:
                 compare(torch, name, getattr(window_attention, name + "_cuda"),
                         window_attention.window_attention_plain,
                         (q, k, v, bias), results,
-                        flops=4.0 * w * heads * n * n * hd,
-                        label=f"stage {stage} W={w} h={heads} nW={nw}",
+                        flops=4.0 * w * heads * n * n * hd, label=label,
                         library=lambda: F.scaled_dot_product_attention(
                             *sdpa, attn_mask=sdpa_mask, scale=1.0))
+                entry = results[name]["shapes"][-1]
+                share = (None if entry["device_ms"] is None
+                         else entry["bound_ms"] / entry["device_ms"])
+                entry.update(cast_device_ms=cast_ms, hbm_bound_share=share)
+                print(f"kernel {name} {label}: "
+                      + ("share of its bound not measured" if share is None
+                         else f"{share:.1%} of its {entry['bound_by']} bound "
+                              f"on the device alone")
+                      + f"; the fp32 bias's cast to bf16 {fmt_ms(cast_ms)} "
+                        f"on the device alone")
     # kernel 11: the merge tail at the three stage transitions of a 64-face
     # pack.  No single PyTorch call computes it; layer_norm + linear, two
     # calls, are timed for information.

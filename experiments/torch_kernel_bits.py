@@ -12,11 +12,16 @@ per checkout, so that both see the same card.
 The inputs are made from a numpy seed at the shapes the training path gives
 the kernels: kernel 2 (the attention half, forward) and kernel 3 (the MLP
 half, forward) at stage 1 of a 64-face pack, kernel 6 (the spill backward)
-at stage 3 of the 150-image auxiliary batch with a stochastic-depth keep.
+at stage 3 of the 150-image auxiliary batch with a stochastic-depth keep;
+kernels 8-10 (the window-attention core's three entry points) at every
+stage shape of a 64-face pack, shifted bias and nW = 1 (the first entry
+point's outputs whole, with max|d| beside a difference; the others as a
+SHA-256 of their bits).
 No kernel of the port adds with atomics, so every output repeats launch
 after launch: a difference is the two builds'.
 """
 
+import hashlib
 import os
 import sys
 
@@ -26,7 +31,8 @@ import torch
 
 def outputs(root):
     sys.path.insert(0, os.path.abspath(root))
-    from facialmmt_tpu_torch.ops.kernels import block_mlp, fused_block
+    from facialmmt_tpu_torch.ops.kernels import (block_mlp, fused_block,
+                                                 window_attention)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -61,7 +67,22 @@ def outputs(root):
         fused_block.fused_attention_block_bwd_spill_cuda(
             s[0], dy, *s[1:6], s[7], keep)
     torch.cuda.synchronize()
-    return {k: [t.cpu() for t in v] for k, v in out.items()}
+    out = {k: [t.cpu() for t in v] for k, v in out.items()}
+    for res, heads in ((56, 3), (28, 6), (14, 12), (7, 24)):
+        side = res // 7
+        w = 64 * side * side
+        for nw in ((side * side, 1) if side > 1 else (1,)):
+            args = (*(bf(rng.normal(size=(w, heads, 49, 32)) * s)
+                      for s in (32 ** -0.5, 1.0, 1.0)),
+                    f32(rng.normal(size=(nw, heads, 49, 49))))
+            for name in ("fused_window_attention", "paired_window_attention",
+                         "fused_window_attention_v2"):
+                got = getattr(window_attention, name + "_cuda")(*args)
+                out[f"{name} W={w} nW={nw}"] = [
+                    got.cpu() if name == "fused_window_attention" else
+                    hashlib.sha256(got.view(torch.int16).cpu().numpy()
+                                   .tobytes()).hexdigest()]
+    return out
 
 
 SPILL_NAMES = ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwproj", "dbproj",
@@ -76,10 +97,16 @@ def main(root, out_path, base_path=None):
     base = torch.load(base_path)
     for name, tensors in got.items():
         names = SPILL_NAMES if len(tensors) > 1 else ("out",)
-        same = {n: torch.equal(a, b) for n, a, b in zip(names, tensors,
-                                                        base[name])}
-        print(f"bits: {name} vs {base_path}: " + ", ".join(
-            f"{n} {'same' if v else 'differ'}" for n, v in same.items()))
+        same = {n: a == b if isinstance(a, str) else torch.equal(a, b)
+                for n, a, b in zip(names, tensors, base[name])}
+        line = f"bits: {name} vs {base_path}: " + ", ".join(
+            f"{n} {'same' if v else 'differ'}" for n, v in same.items())
+        if len(tensors) == 1 and torch.is_tensor(tensors[0]):
+            d = (tensors[0].float() - base[name][0].float()).abs().max()
+            line += (f" (max|d| {float(d):.3g} = "
+                     f"{float(d / base[name][0].float().abs().max()):.3g} of "
+                     f"max|base|)")
+        print(line)
     return 0
 
 

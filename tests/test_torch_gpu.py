@@ -555,6 +555,47 @@ def test_window_attention_tilings_agree_bit_for_bit(rng, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd,n", [(16, 49), (32, 49), (64, 64), (16, 16)])
+@pytest.mark.parametrize("conc", [1, 2, 4])
+def test_window_attention_walks_write_every_unit(rng, cuda_device,
+                                                 monkeypatch, conc, hd, n):
+    """7 faces of 4 windows walked 3 faces a block (a short last chunk), the
+    output memory filled with NaN first: every unit is written, two launches
+    give the same bits, and so does the plan's own chunk."""
+    args = _window_inputs(rng, cuda_device, 28, 3, n, hd, 4)
+    empty_like = torch.empty_like
+    monkeypatch.setattr(torch, "empty_like", lambda *a, **kw: empty_like(
+        *a, **kw).fill_(float("nan")))
+    launch = lambda chunk: window_attention._launch(
+        window_attention.fused_window_attention_cuda, *args, conc, chunk)
+    got = launch(3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, window_attention.window_attention_plain(*args)) <= BOUND
+    for chunk in (3, 0):
+        assert torch.equal(launch(chunk), got)
+
+
+@pytest.mark.gpu
+def test_window_attention_checks_alignment_and_shared_memory(rng, cuda_device):
+    """A q, k or v that is not 16-byte aligned raises (the bulk copies need
+    it); the C side's shared-memory count is the launch plan's."""
+    q, k, v, bias = _window_inputs(rng, cuda_device, 8, 2, 49, 32, 4)
+    for i in range(3):
+        args = [q, k, v]
+        flat = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda_device)
+        args[i] = flat[1:1 + q.numel()].view(q.shape).copy_(q)
+        with pytest.raises(ValueError, match="aligned"):
+            window_attention.fused_window_attention_cuda(*args, bias)
+    lib = kernels.library()
+    for hd in window_attention.HEAD_DIMS:
+        for conc in range(1, window_attention.MAX_SIDE_BY_SIDE + 1):
+            assert lib.fmmt_window_attention_smem(hd, conc) == \
+                window_attention.launch_plan(4 * conc, 1, hd, 1, conc,
+                                             132).smem
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("t,c4", [(1568, 384), (1000, 768), (196, 1536),
                                   (50, 32)])
 def test_fused_merge_kernel(rng, cuda_device, t, c4):
