@@ -79,7 +79,31 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      auxiliary step (its loss and every Swin tensor after it) and its final
      resume file held against the first run's, per kind of tensor; the
      trained model out as the reference's two released files and back in
-     behind an EmotionServer, answers unchanged.
+     behind an EmotionServer, answers unchanged;
+  9. command-line eval: files in the reference's MELD layout at full
+     width, written to a temporary directory by tests/fixtures.py's writers
+     (feature pickles, profile and face-path JSONs, face JPEGs by cv2) with
+     the text npz cache from its whitespace tokenizer; the decoder the
+     machine picks held to PIL's decode within one level; a released pair
+     and a unimodal_model_V.pt from seed-7 weights; `main.run` with
+     --choice_modality T+A+V --doEval 1 on 24 test utterances (two eval
+     batches), its W-F1 equal to Trainer.eval_multimodal_only's on the same
+     files and exactly kernels 1-3 launched; the same command with its eval
+     loop under torch.profiler; the time end to end, of the loop and of its
+     first batch, the decoder's faces/s and the device's share of the
+     profiled loop, all of two batches (smoke readings, not rates:
+     experiments/torch_file_steps.py takes them at MELD's test-split
+     size); then `python -m facialmmt_tpu_torch.main --choice_modality V
+     --doEval 1` in its own process, equal to eval_unimodal_only;
+ 10. command-line training: an Aff-Wild2 tree (tests/fixtures.py, the
+     decoder held to PIL on its frames), a `backbone.*` Swin file and an
+     HF-layout text directory; --doEval 0 --num_epochs 1 (2 auxiliary steps
+     of 150 frames, 2 target steps of 4 utterances, validation, test): the
+     grafted towers equal the files before the first step, finite losses,
+     kernels 2-6 launched, best and resume files written; the same command
+     with --resume 1 runs no step and gives the same W-F1; step times from
+     files beside phase 7's in-memory ones, and each batch's decode time
+     alone.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -1498,7 +1522,7 @@ def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
     ckpt = CheckpointManager(save_dir)
     run = {"cfg": cfg, "datasets": (aux_ds, train_ds, eval_ds), "f1": f1,
            "final": ckpt.restore(f"step_{cfg.optim.num_epochs}"),
-           "first_aux": seen["first_aux"]}
+           "first_aux": seen["first_aux"], "step_times": seen["times"]}
     for name in os.listdir(save_dir):
         os.remove(os.path.join(save_dir, name))
 
@@ -1959,6 +1983,416 @@ def grad_check(torch, dev, cfg, model, aux_ds, generator):
               f"<= {GRAD_BOUND} (largest held |grad| {top:.3g})")
 
 
+# ------------------------------------------------------------ command line --
+
+CLI_SPLITS = {"train": (2, 4), "val": (2, 4), "test": (4, 6)}  # dias, utts
+CLI_FACES_PER_UTT = 10                 # 1-10 face JPEGs an utterance
+AFFWILD_VIDEOS, AFFWILD_FRAMES = 4, 90  # 277 kept: 2 steps of 150
+
+
+def fixtures():
+    """tests/fixtures.py, loaded by its path: the reference's MELD and
+    Aff-Wild2 layout from numpy seeds, JPEGs written by cv2.  It imports
+    nothing of JAX."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "repo_fixtures", os.path.join(ROOT, "tests", "fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_meld_layout(root, cfg, splits=CLI_SPLITS,
+                      faces_per_utt=CLI_FACES_PER_UTT):
+    """tests/fixtures.py's MELD layout under `root` at the config's widths,
+    for `splits` {split: (dialogues, utterances a dialogue)} (per split the
+    T+A+V and V pickles, profile and face-path JSONs, 1 to `faces_per_utt`
+    face JPEGs an utterance, CSV and text JSON), and the tokenized-text npz
+    cache at max_seq_length tokens from the fixtures' whitespace
+    tokenizer."""
+    from facialmmt_tpu_torch.data.text_prep import MeldTextPreprocessor
+
+    fx, d = fixtures(), cfg.data
+    roberta = cfg.plm_name == "roberta-large"
+    prep = MeldTextPreprocessor(fx.WhitespaceTokenizer(roberta), roberta,
+                                d.max_seq_length)
+    for seed, (split, (dias, per)) in enumerate(splits.items()):
+        fx.write_meld_fixture(
+            root, split, dias, per, audio_len=d.audio_utt_max_len,
+            vision_len=d.vision_utt_max_len, audio_dim=d.audio_feat_dim,
+            vision_dim=d.vision_feat_dim, seed=seed,
+            faces_per_utt=faces_per_utt)
+        ids, mask, sep = MeldTextPreprocessor.to_arrays(prep.preprocess_split(
+            os.path.join(root, f"{split}_sent_emo.csv"),
+            os.path.join(root, f"{split}_text.json")))
+        np.savez(os.path.join(root, "T+A+V",
+                              f"text_{split}_{cfg.plm_name}.npz"),
+                 ids=ids, mask=mask, sep=sep)
+
+
+def check_decoder(gpu_name, kind, paths, px):
+    """The decoder this machine picks against PIL's decode of the same
+    JPEGs (written at `px`: no resize), within one level."""
+    from PIL import Image
+
+    from facialmmt_tpu_torch import native
+
+    name = native.decoder_name()
+    got = native.decode_images(paths, px).astype(np.int16)
+    want = np.stack([np.asarray(Image.open(p).convert("RGB"))[..., ::-1]
+                     for p in paths]).astype(np.int16)
+    worst = int(np.abs(got - want).max())
+    if got.shape != want.shape or worst > 1:
+        raise AssertionError(f"decoder {name}: {kind} pixels off PIL's by "
+                             f"{worst} levels (bound 1)")
+    print(f"cli: JPEG decoder '{name}' within 1 level of PIL on {len(paths)} "
+          f"{kind}s (max |d| {worst}) on {gpu_name}")
+    return name
+
+
+def cli_eval_timed(torch, argv, profiled=False):
+    """`main.run(argv)` for a --doEval 1 T+A+V command line, its eval loop
+    (Trainer._eval_multimodal) timed: (W-F1, the kernels' launch counts,
+    {'total': the whole call, s (data, released weights, eval); 'loop': the
+    eval loop, s; 'first': its first batch, s (the loader's first assembly
+    included); 'wait': the loop's time waiting for the loader's batches, s;
+    with `profiled`, the loop runs under torch.profiler and 'device' is its
+    kernels' summed device time, s})."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train import trainer as trainer_module
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    timing = {"wait": 0.0}
+    real_eval = Trainer._eval_multimodal
+
+    class WaitTimedLoader(trainer_module.PrefetchLoader):
+        def epoch(self, *args, **kwargs):
+            batches = super().epoch(*args, **kwargs)
+            while True:
+                t = time.perf_counter()
+                item = next(batches, None)
+                timing["wait"] += time.perf_counter() - t
+                if item is None:
+                    return
+                yield item
+
+    def timed_eval(self, eval_step, ds, *args, **kwargs):
+        def first_timed(*a, **k):
+            out = eval_step(*a, **k)
+            if "first" not in timing:
+                torch.cuda.synchronize()
+                timing["first"] = time.perf_counter() - start
+            return out
+
+        trace = (profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA])
+                 if profiled else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        with trace as prof:
+            start = time.perf_counter()
+            out = real_eval(self, first_timed, ds, *args, **kwargs)
+            torch.cuda.synchronize()
+            timing["loop"] = time.perf_counter() - start
+        if profiled:
+            timing["device"] = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e6
+        return out
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(Trainer, "_eval_multimodal", timed_eval), \
+            mock.patch.object(trainer_module, "PrefetchLoader",
+                              WaitTimedLoader):
+        f1 = cli.run(argv)
+    torch.cuda.synchronize()
+    timing["total"] = time.perf_counter() - t0
+    return f1, kernels.launch_counts(), timing
+
+
+def write_released(torch, dev, cfg, pm):
+    """The released pair (save_released) and a unimodal_model_V.pt from
+    seed-7 weights under `pm`: (multimodal path, Swin path)."""
+    from facialmmt_tpu_torch.checkpoint.torch_load import save_released
+    from facialmmt_tpu_torch.models.pipeline import build_pipeline, init_random_
+    from facialmmt_tpu_torch.models.unimodal import MeldUttTransformer
+
+    os.makedirs(pm, exist_ok=True)
+    weights = build_pipeline(cfg.replace(runtime=dataclasses.replace(
+        cfg.runtime, seed=7)), dev).state_dict()
+    mm_pt = os.path.join(pm, cfg.load_multimodal_path)
+    swin_pt = os.path.join(pm, cfg.load_swin_path)
+    save_released(weights, mm_pt, swin_pt)
+    with torch.device(dev):
+        uni = init_random_(MeldUttTransformer(cfg),
+                           torch.Generator(dev).manual_seed(7))
+    torch.save({k: v.cpu() for k, v in uni.state_dict().items()},
+               os.path.join(pm, cfg.load_unimodal_path))
+    return mm_pt, swin_pt
+
+
+def cli_argv(root, *extra):
+    """The flags every command-line phase passes; `extra` (a rehearsal's
+    --device cpu and small widths) and the phase's own follow."""
+    return ["--data_load_path", os.path.join(root, "meld"),
+            "--pretrained_model_dir", os.path.join(root, "pretrained_model"),
+            "--save_Model_path", os.path.join(root, "saved_model"),
+            "--metrics_path", os.path.join(root, "metrics.jsonl"), *extra]
+
+
+def phase_cli_eval(torch, dev, gpu_name, root, extra=()):
+    """The port's command line on files in the reference's layout
+    (tests/fixtures.py's writers) at full width: `--choice_modality T+A+V
+    --doEval 1` on a 24-utterance test split (two eval batches of 16) from a
+    released pair written by save_released, its W-F1 held against
+    Trainer.eval_multimodal_only on the same files, exactly kernels 1-3
+    launched; the same command again with its eval loop under
+    torch.profiler, for the device's share of the loop.  Two batches give
+    smoke readings, not rates (experiments/torch_file_steps.py takes those
+    at MELD's test-split size).  Then `python -m facialmmt_tpu_torch.main
+    --choice_modality V --doEval 1` in a subprocess, its W-F1 held against
+    eval_unimodal_only."""
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.checkpoint.torch_load import (
+        load_torch_state_dict, released_state_dict)
+    from facialmmt_tpu_torch.data.meld import (RAW_FACE_SIZE,
+                                               MeldMultimodalDataset,
+                                               MeldVisionDataset)
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    argv = cli_argv(root, *extra, "--choice_modality", "T+A+V", "--doEval",
+                    "1", "--deterministic_gumbel", "1")
+    cfg = cli.config_from_args(cli.build_argparser().parse_args(argv))
+    t0 = time.perf_counter()
+    write_meld_layout(os.path.join(root, "meld"), cfg)
+    test_ds = MeldMultimodalDataset(os.path.join(root, "meld"), "test",
+                                    cli.text_arrays(cfg, "test"))
+    cfg = cli._adapt_static_shapes(cfg, test_ds)
+    pm = os.path.join(root, "pretrained_model")
+    mm_pt, swin_pt = write_released(torch, dev, cfg, pm)
+    print(f"cli: files in the reference's layout written in "
+          f"{time.perf_counter() - t0:.1f} s: splits {CLI_SPLITS} "
+          f"(dialogues, utterances a dialogue), released pair "
+          f"{(os.path.getsize(mm_pt) + os.path.getsize(swin_pt)) / 1e9:.3f} GB")
+
+    face_paths = [p for name in sorted(test_ds.utt_face_path)
+                  for p in test_ds.utt_face_path[name]]
+    decoder = check_decoder(gpu_name, "face", face_paths, RAW_FACE_SIZE)
+    t0 = time.perf_counter()
+    test_ds._decode_faces(face_paths)
+    decode_s = time.perf_counter() - t0
+
+    f1_cli, launches, timing = cli_eval_timed(torch, argv)
+    f1_prof, _, prof = cli_eval_timed(torch, argv, profiled=True)
+    f1_api = Trainer(cfg, dev).eval_multimodal_only(
+        released_state_dict(mm_pt, swin_pt), test_ds)
+    require_launched(launches, SERVING_KERNELS, "the command line's eval")
+    others = {k: n for k, n in launches.items()
+              if n and k not in SERVING_KERNELS}
+    if others:
+        raise AssertionError(f"the command line's eval launched {others}")
+    if not (np.isfinite(f1_cli) and abs(f1_cli - f1_api) <= 1e-6
+            and f1_prof == f1_cli):
+        raise AssertionError(f"command line W-F1 {f1_cli} (profiled "
+                             f"{f1_prof}) vs eval_multimodal_only {f1_api}")
+    n = len(test_ds)
+    print(f"cli: --choice_modality T+A+V --doEval 1 at FacialMMTConfig() "
+          f"width on {n} utterances ({len(face_paths)} faces): W-F1 "
+          f"{f1_cli:.4f} = the profiled run's = eval_multimodal_only's "
+          f"{f1_api:.4f}; launches {launches} on {gpu_name}")
+    print(f"cli (two eval batches: smoke readings, not rates): end to end "
+          f"{timing['total']:.2f} s, {n / timing['total']:.1f} utterances/s "
+          f"(data, weights from the released files, eval); eval loop "
+          f"{timing['loop']:.2f} s ({timing['wait']:.2f} s of it waiting for "
+          f"the loader), first batch of 16 "
+          f"{timing['first'] * 1e3:.0f} ms; decoder '{decoder}' "
+          f"{len(face_paths) / decode_s:.0f} faces/s "
+          f"({'one thread' if decoder == 'cv2' else 'thread pool'}, 160 px); "
+          f"the command's eval loop under torch.profiler: device busy "
+          f"{prof['device']:.3f} s of {prof['loop']:.2f} s "
+          f"({100 * prof['device'] / prof['loop']:.1f} %) on {gpu_name}")
+
+    # V-only through the module entry, in its own process
+    argv_v = cli_argv(root, *extra, "--choice_modality", "V", "--doEval", "1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "facialmmt_tpu_torch.main", *argv_v],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    sub_s = time.perf_counter() - t0
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("**TEST** | wg_av_f1")]
+    if proc.returncode != 0 or len(line) != 1:
+        raise AssertionError(f"python -m facialmmt_tpu_torch.main "
+                             f"{' '.join(argv_v)}: exit "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+    v_ds = MeldVisionDataset(os.path.join(root, "meld"), "test")
+    cfg_v = cli._adapt_static_shapes(cli.config_from_args(
+        cli.build_argparser().parse_args(argv_v)), v_ds)
+    f1_v = Trainer(cfg_v, dev).eval_unimodal_only(load_torch_state_dict(
+        os.path.join(pm, cfg.load_unimodal_path)), v_ds)
+    if f"wg_av_f1 {f1_v:5.4f}" not in line[0]:
+        raise AssertionError(f"V-only: the module printed {line[0]!r}, "
+                             f"eval_unimodal_only gives {f1_v}")
+    print(f"cli: python -m facialmmt_tpu_torch.main --choice_modality V "
+          f"--doEval 1: {line[0].strip()} = eval_unimodal_only's, "
+          f"{sub_s:.1f} s in its own process on {gpu_name}")
+    return {"cli_eval": launches}
+
+
+def phase_cli_train(torch, dev, gpu_name, root, in_memory, extra=()):
+    """`--doEval 0 --num_epochs 1` T+A+V from files, with a `backbone.*` Swin
+    file and an HF-layout text directory (both from seed-7 weights, not the
+    run's seed): 2 auxiliary steps of 150 frames, 2 target steps of 4
+    utterances, validation and test.  The Swin and the text tower before the
+    first step are the files' tensors, losses are finite, kernels 2-6
+    launch, the best and resume files are written; then the same command
+    with --resume 1 takes the resume file (epoch 1 done: no step runs) and
+    gives the same test W-F1.  Step times beside phase_training's on
+    in-memory data (`in_memory`), and the decode time of one batch of
+    each."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.checkpoint.torch_load import save_hf_text_tower
+    from facialmmt_tpu_torch.data.affwild2 import AffwildDataset
+    from facialmmt_tpu_torch.data.meld import MeldMultimodalDataset
+    from facialmmt_tpu_torch.models.multimodal import text_prefix
+    from facialmmt_tpu_torch.models.pipeline import build_pipeline
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.trainer import Trainer
+    from facialmmt_tpu_torch.utils import preemption
+
+    aux_root = os.path.join(root, "affwild")
+    frames = fixtures().write_affwild_fixture(aux_root, AFFWILD_VIDEOS,
+                                              AFFWILD_FRAMES, seed=22)
+    vid = os.path.join(frames["file_folder"], "vid0")
+    check_decoder(gpu_name, "frame", [os.path.join(vid, f) for f in
+                                      sorted(os.listdir(vid))], 112)
+    save = os.path.join(root, "saved_train")
+    argv = cli_argv(
+        root, *extra, "--choice_modality", "T+A+V", "--doEval", "0",
+        "--num_epochs", "1", "--save_Model_path", save,
+        "--data_folder", os.path.join(aux_root, "cropped_aligned"),
+        "--anno_folder", os.path.join(aux_root, "annos"),
+        "--data_list_train", os.path.join(aux_root, "train_list.txt"),
+        "--pretrained_backbone_path", os.path.join(root, "ms1m_swin.pt"),
+        "--pretrainedtextmodel_path", os.path.join(root, "roberta-large"),
+        "--aux_log_interval", "1", "--trg_log_interval", "1")
+    cfg = cli._adapt_static_shapes(
+        cli.config_from_args(cli.build_argparser().parse_args(argv)),
+        MeldMultimodalDataset(os.path.join(root, "meld"), "test",
+                              cli.text_arrays(cli.config_from_args(
+                                  cli.build_argparser().parse_args(argv)),
+                                  "test")))
+    tower = text_prefix(cfg)
+    files = {k: v.cpu() for k, v in build_pipeline(cfg.replace(
+        runtime=dataclasses.replace(cfg.runtime, seed=7)), dev)
+        .state_dict().items()}
+    torch.save({**{"backbone." + k[len("swin_model.swin."):]: v
+                   for k, v in files.items()
+                   if k.startswith("swin_model.swin.")},
+                "head.kernel": torch.zeros(8, 512)},
+               os.path.join(root, "ms1m_swin.pt"))
+    save_hf_text_tower(files, cfg.text, f"multimodal.{tower}",
+                       os.path.join(root, "roberta-large"))
+    grafted = [k for k in files
+               if k.startswith(("swin_model.swin.", f"multimodal.{tower}."))
+               and not k.endswith(("relative_position_index", "attn_mask",
+                                   "num_batches_tracked"))]
+
+    seen = {"losses": [], "aux_step": [], "trg_step": []}
+    mark = {}
+
+    def on_event(trainer, name, **info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if name == "start" and "grafted" not in seen:
+            sd = trainer.state.model.state_dict()
+            bad = [k for k in grafted if not torch.equal(sd[k].cpu(), files[k])]
+            if bad or not grafted:
+                raise AssertionError(f"grafts: {len(bad)} of {len(grafted)} "
+                                     f"tensors differ from the files: "
+                                     f"{bad[:4]}")
+            seen["grafted"] = len(grafted)
+        if name in ("aux_step", "trg_step"):
+            seen["losses"].append(info["loss"])
+            seen[name].append(now - mark["t"])
+        mark["t"] = now
+
+    real_run = Trainer.run_multimodal
+
+    def run_with_events(self, *args, **kwargs):
+        return real_run(self, *args, **kwargs,
+                        on_event=lambda name, **info: on_event(self, name,
+                                                               **info))
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(Trainer, "run_multimodal", run_with_events), \
+                timed_saves(gpu_name):
+            f1 = cli.run(argv)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            written = sorted(os.listdir(save))
+            seen_before = len(seen["losses"])
+            f1_resumed = cli.run(argv + ["--resume", "1"])
+    finally:
+        if preemption._guard is not None:      # cli.run installed it
+            preemption._guard.uninstall()
+    require_launched(launches, SERVING_KERNELS[1:] + BACKWARD_KERNELS,
+                     "the command line's training")
+    if not (seen.get("grafted") and np.isfinite(seen["losses"]).all()
+            and len(seen["aux_step"]) == 2 and len(seen["trg_step"]) == 2
+            and "best_1" in written and "step_1" in written):
+        raise AssertionError(f"cli training: losses {seen['losses']}, "
+                             f"steps {len(seen['aux_step'])} + "
+                             f"{len(seen['trg_step'])}, files {written}")
+    if len(seen["losses"]) != seen_before or f1_resumed != f1:
+        raise AssertionError(f"--resume 1: {len(seen['losses']) - seen_before} "
+                             f"steps ran, W-F1 {f1_resumed} vs {f1}")
+    print(f"cli: --doEval 0 --num_epochs 1 at FacialMMTConfig() width from "
+          f"files in {train_s:.1f} s: {seen['grafted']} Swin and text-tower "
+          f"tensors equal the backbone file's and the HF directory's before "
+          f"the first step; losses {[round(x, 4) for x in seen['losses']]}; "
+          f"test W-F1 {f1:.4f}; files {written}; --resume 1 ran no step and "
+          f"gave W-F1 {f1_resumed:.4f}; launches {launches} on {gpu_name}")
+
+    aux_ds = AffwildDataset(os.path.join(aux_root, "cropped_aligned"),
+                            data_list=os.path.join(aux_root, "train_list.txt"))
+    train_ds = MeldMultimodalDataset(os.path.join(root, "meld"), "train",
+                                     cli.text_arrays(cfg, "train"))
+    t0 = time.perf_counter()
+    aux_ds.get_batch(range(150))
+    aux_decode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = train_ds.get_batch(range(4), face_capacity=64)
+    trg_decode = time.perf_counter() - t0
+    for name, what, decode, n in (
+            ("aux_step", "aux step (150 frames)", aux_decode, "150 frames"),
+            ("trg_step", "target step (4 utterances)", trg_decode,
+             f"{int(batch['n_faces'].sum())} faces")):
+        files_ms = [t * 1e3 for t in seen[name]]
+        mem_ms = [t * 1e3 for t in in_memory[name]]
+        print(f"cli: {what}, loader wait and augment included: from files "
+              f"first {files_ms[0]:.1f} ms, then {files_ms[1]:.1f} ms; "
+              f"in memory (phase 7) first {mem_ms[0]:.1f} ms, then "
+              f"{statistics.median(mem_ms[1:]):.1f} ms; decoding its "
+              f"{n} alone {decode * 1e3:.1f} ms on {gpu_name}")
+    return {"cli_train": launches}
+
+
 def main(json_out: str = "") -> int:
     """`json_out`: where to write the per-shape kernel times and the launch
     counts per path, if anywhere."""
@@ -2009,6 +2443,12 @@ def main(json_out: str = "") -> int:
         paths.update(train_paths)
         torch.cuda.empty_cache()
         paths.update(phase_resume(torch, dev, gpu_name, run, save_dir))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as cli_root:
+        paths.update(phase_cli_eval(torch, dev, gpu_name, cli_root))
+        torch.cuda.empty_cache()
+        paths.update(phase_cli_train(torch, dev, gpu_name, cli_root,
+                                     run["step_times"]))
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)

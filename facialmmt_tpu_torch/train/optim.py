@@ -146,3 +146,27 @@ class MultiTaskState:
         self.mm_opt.load_state_dict(state["mm_opt"])
         self.swin_step = int(state["swin_step"])
         self.mm_step = int(state["mm_step"])
+
+
+class SingleTaskState:
+    """Train state of the V-only model: the model, one optimizer over all of
+    its parameters (trg_lr, weight decay; reference train.py:245-292) and
+    its update count."""
+
+    def __init__(self, model, opt: ClippedAdamW):
+        self.model = model
+        self.opt = opt
+        self.step = 0
+
+    @staticmethod
+    def create(model, cfg: OptimConfig, total_steps: int) -> "SingleTaskState":
+        return SingleTaskState(model, make_optimizer(
+            model.parameters(), cfg, cfg.trg_lr, max(total_steps, 1),
+            cfg.weight_decay))
+
+    def state_dict(self) -> dict:
+        return {"opt": self.opt.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["opt"])
+        self.step = int(state["step"])

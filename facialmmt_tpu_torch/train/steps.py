@@ -1,8 +1,8 @@
-"""Train and eval steps of the multi-task T+A+V run (counterpart of
-facialmmt_tpu/train/steps.py).
+"""Train and eval steps of the multi-task T+A+V run and of the V-only model
+(counterpart of facialmmt_tpu/train/steps.py).
 
-Each make_* returns a step function over a MultiTaskState (train/optim.py),
-which is updated in place.  Reference semantics preserved:
+Each make_* returns a step function over a MultiTaskState or, for the V-only
+model, a SingleTaskState (train/optim.py), which is updated in place.  Reference semantics preserved:
   * the target-task step leaves Swin's weights alone (two-optimizer coupling,
     reference train.py:305-340) unless joint training is enabled; without
     joint training the Swin pass runs without a graph;
@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from facialmmt_tpu_torch.models.pipeline import FacialMMTPipeline
-from facialmmt_tpu_torch.train.optim import MultiTaskState
+from facialmmt_tpu_torch.models.unimodal import MeldUttTransformer
+from facialmmt_tpu_torch.train.optim import MultiTaskState, SingleTaskState
 
 
 def cross_entropy(logits, labels):
@@ -152,5 +153,39 @@ def make_aux_train_step(model: FacialMMTPipeline, *,
         state.swin_opt.step()
         state.swin_step += 1
         return loss.detach()
+
+    return step
+
+
+# ------------------------------------------------------------ unimodal task --
+
+def make_unimodal_train_step(model: MeldUttTransformer, *,
+                             compute_dtype: str = "bfloat16"):
+    """V-only step (reference train.py:245-270): returns
+    step(state, feats, mask, labels, generator) -> loss."""
+
+    def step(state: SingleTaskState, feats, mask, labels, generator=None):
+        model.train()
+        with compute_context(_device(model), compute_dtype):
+            logits = model(feats, mask, generator)
+        loss = cross_entropy(logits, labels)
+        loss.backward()
+        state.opt.step()
+        state.step += 1
+        return loss.detach()
+
+    return step
+
+
+def make_unimodal_eval_step(model: MeldUttTransformer, *,
+                            compute_dtype: str = "bfloat16"):
+    """Returns step(feats, mask, labels) -> (logits, loss)."""
+
+    @torch.no_grad()
+    def step(feats, mask, labels):
+        model.eval()
+        with compute_context(_device(model), compute_dtype):
+            logits = model(feats, mask)
+        return logits, cross_entropy(logits, labels)
 
     return step

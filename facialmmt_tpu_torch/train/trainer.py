@@ -1,5 +1,5 @@
-"""The epoch loop of the multi-task T+A+V run (counterpart of
-facialmmt_tpu/train/trainer.py; reference train.py:297-435).
+"""The epoch loops of the multi-task T+A+V run and of the V-only model
+(counterpart of facialmmt_tpu/train/trainer.py; reference train.py:245-435).
 
 Per epoch: one auxiliary FER pass over Aff-Wild2-style image batches, one
 target pass over MELD utterance batches, validation, best-val-F1 model
@@ -24,36 +24,85 @@ makes the loop save the mid-epoch state at the next batch boundary and raise
 `Preempted`; `run_multimodal(..., resume=True)` then continues exactly where
 the interrupted run stopped (same batches, same random stream).
 
-Not ported yet: the pretrained-tower grafts, multi-device placement.
-Datasets are any objects with the protocol of data/meld.py.
+Training from scratch starts from pretrained towers as the reference does:
+`run_multimodal(..., pretrained_swin=...)` grafts the Ms-Celeb-1M Swin
+backbone and a non-empty `pretrained_text_model_path` the HF text tower
+(`graft_subtree`, checkpoint/torch_load.py's loaders).  Progress lines and
+the JSON-lines records of `--metrics_path` go through a MetricWriter
+(utils/observability.py).
+
+Not ported yet: multi-device placement.  Datasets are any objects with the
+protocol of data/meld.py; the V-only loop takes MeldVisionDataset's.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
-from facialmmt_tpu_torch.config import FacialMMTConfig
+from facialmmt_tpu_torch.config import FacialMMTConfig, resolve_text_config
 from facialmmt_tpu_torch.data.image_pipeline import (affwild2_train_augment,
                                                      meld_face_eval_transform,
                                                      meld_face_train_augment)
 from facialmmt_tpu_torch.data.loader import PrefetchLoader
 from facialmmt_tpu_torch.data.meld import FaceCapacityError
+from facialmmt_tpu_torch.models.multimodal import text_prefix
 from facialmmt_tpu_torch.models.pipeline import (FacialMMTPipeline,
-                                                 build_pipeline)
+                                                 build_pipeline, init_random_)
+from facialmmt_tpu_torch.models.unimodal import MeldUttTransformer
 from facialmmt_tpu_torch.ops.kernels import resolve_device
 from facialmmt_tpu_torch.train.metrics import eval_meld
-from facialmmt_tpu_torch.train.optim import MultiTaskState
+from facialmmt_tpu_torch.train.optim import MultiTaskState, SingleTaskState
 from facialmmt_tpu_torch.train.steps import (make_aux_train_step,
                                              make_multimodal_eval_step,
                                              make_multimodal_train_step,
-                                             make_multimodal_train_step_accum)
+                                             make_multimodal_train_step_accum,
+                                             make_unimodal_eval_step,
+                                             make_unimodal_train_step)
+from facialmmt_tpu_torch.utils.observability import MetricWriter
 from facialmmt_tpu_torch.utils.preemption import (Preempted,
                                                   preemption_requested)
+
+# buffers the model builds from its config (Swin's window index and shift
+# mask) and BatchNorm's update counter: a graft leaves the model's own
+_GEOMETRY = ("relative_position_index", "attn_mask", "num_batches_tracked")
+
+
+def graft_subtree(model: torch.nn.Module, src: Mapping[str, torch.Tensor],
+                  prefix: str, what: str) -> None:
+    """Copy the pretrained tensors `src` (names relative to `prefix`) into
+    the parameters and running statistics of `model` under `prefix`, after
+    checking that both hold the same names with the same shapes: a
+    wrong-dims checkpoint fails here, with the first six mismatches listed,
+    before anything is copied.  The model keeps its dtypes (counterpart of
+    the JAX package's graft_subtree)."""
+    def own(name):
+        return not name.endswith(_GEOMETRY)
+
+    dst = {k[len(prefix):]: v for k, v in model.state_dict().items()
+           if k.startswith(prefix) and own(k)}
+    src = {k: v for k, v in src.items() if own(k)}
+    problems = []
+    for k in sorted(set(dst) | set(src)):
+        if k not in src:
+            problems.append(f"{k}: missing from pretrained tree")
+        elif k not in dst:
+            problems.append(f"{k}: unexpected in pretrained tree")
+        elif tuple(dst[k].shape) != tuple(src[k].shape):
+            problems.append(f"{k}: shape {tuple(src[k].shape)} vs model "
+                            f"{tuple(dst[k].shape)}")
+    if problems:
+        raise ValueError(
+            f"pretrained {what} tree does not match the model "
+            f"({len(problems)} mismatch(es): {'; '.join(problems[:6])})")
+    with torch.no_grad():
+        for k, t in dst.items():
+            t.copy_(src[k].to(device=t.device, dtype=t.dtype))
 
 
 class StepTimer:
@@ -77,26 +126,21 @@ class StepTimer:
         return elapsed * 1000 / max(log_interval, 1), avg_loss
 
 
-def _log_train(task: str, epoch: int, batch: int, num_batches: int,
-               ms_per_batch: float, loss: float):
-    """Reference-format train line (reference train.py:39-40, 149-150)."""
-    print(f"**{task}** | Epoch {epoch:2d} | Batch {batch:3d}/"
-          f"{num_batches:3d} | Time/Batch(ms) {ms_per_batch:5.2f} | "
-          f"Train Loss {loss:5.4f}")
-
-
-def _log_pass(task: str, epoch: int, hours: float, tail: str = ""):
+def _log_pass(task: str, epoch: int, hours: float):
     print("-" * 50)
-    print(f"**{task}** | Epoch {epoch:2d} | Time {hours:5.4f} hour{tail}")
+    print(f"**{task}** | Epoch {epoch:2d} | Time {hours:5.4f} hour")
     print("-" * 50)
 
 
 class Trainer:
-    def __init__(self, cfg: FacialMMTConfig, device="cuda"):
+    def __init__(self, cfg: FacialMMTConfig, device="cuda",
+                 writer: Optional[MetricWriter] = None):
         """`device` defaults to the card; without a CUDA device the
-        constructor raises (pass "cpu" to train on the CPU)."""
+        constructor raises (pass "cpu" to train on the CPU).  `writer`
+        receives the progress records; by default they are printed only."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.writer = writer or MetricWriter()
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.runtime.seed)
         self.history: list = []       # per epoch: val_f1, val_loss
@@ -133,6 +177,44 @@ class Trainer:
         """The pipeline on the device with fp32 parameters: `state_dict` or
         random weights from runtime.seed (models/pipeline.py)."""
         return build_pipeline(self.cfg, self.device, state_dict).float()
+
+    def _pretrained_text_tower(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The HF text tower for training from scratch, as state_dict
+        entries under the multimodal model's `roberta.` / `bert.`, or None.
+        The reference always starts its text tower from pretrained PLM
+        weights (reference src/models.py:72-77, resolved from
+        <project>/pretrained_model/<plm_name> at reference main.py:118); a
+        random roberta-large cannot approach its W-F1.  An empty path keeps
+        the random tower (tests, ablations; the command line warns, in
+        main.resolve_pretrained_text_dir, where the JAX trainer warns on
+        every run); a path that is not a directory raises."""
+        path = self.cfg.pretrained_text_model_path
+        if not path:
+            return None
+        if not os.path.isdir(path):
+            raise FileNotFoundError(
+                f"--pretrainedtextmodel_path {path} is not a directory "
+                f"(expected a local HF pretrained model dir)")
+        from facialmmt_tpu_torch.checkpoint.torch_load import \
+            load_hf_text_tower
+
+        return load_hf_text_tower(path, resolve_text_config(self.cfg),
+                                  text_prefix(self.cfg))
+
+    def _graft_pretrained(self, model: FacialMMTPipeline, pretrained_swin):
+        """Graft the pretrained towers into a freshly built pipeline, where
+        the JAX package grafts them (at init, before the optimizers):
+        `pretrained_swin`, the backbone's state_dict
+        (checkpoint/torch_load.py::load_pretrained_swin_backbone), into
+        swin_model.swin; the HF text tower into the multimodal model."""
+        if pretrained_swin is not None:
+            graft_subtree(model, pretrained_swin, "swin_model.swin.",
+                          "pretrained Swin backbone")
+        text = self._pretrained_text_tower()
+        if text is not None:
+            tower = text_prefix(self.cfg) + "."
+            graft_subtree(model, {k[len(tower):]: v for k, v in text.items()},
+                          "multimodal." + tower, "text tower")
 
     def _init_multitask_state(self, model, train_ds, aux_len: int):
         cfg, opt = self.cfg, self.cfg.optim
@@ -234,9 +316,10 @@ class Trainer:
 
     # --------------------------------------------------------- checkpoints --
 
-    def _ckpt_payload(self, state: MultiTaskState, best_f1: float, epoch: int,
+    def _ckpt_payload(self, state, best_f1: float, epoch: int,
                       progress: Dict[str, int], early_stop: Dict[str, float]):
-        """Resume checkpoint contents.  `epoch` counts COMPLETED epochs;
+        """Resume checkpoint contents of `state`, a MultiTaskState or a
+        SingleTaskState (train/optim.py).  `epoch` counts COMPLETED epochs;
         `progress` counts the batches already applied in epoch + 1 (all zero
         at an epoch boundary).  The generator behind augmentation, dropout,
         drop-path and the gumbel noise rides along, so a resumed run
@@ -251,7 +334,7 @@ class Trainer:
                     "patience_counter": int(early_stop["patience_counter"])},
                 "generator": self.generator.get_state()}
 
-    def _restore_latest(self, ckpt: CheckpointManager, state: MultiTaskState,
+    def _restore_latest(self, ckpt: CheckpointManager, state,
                         progress_zero: Dict[str, int]):
         """Load the newest resume checkpoint into `state` and the generator.
         Returns (best_f1 or None, first epoch to run, progress, early_stop);
@@ -269,7 +352,7 @@ class Trainer:
                 {"best_val_loss": float(es["best_val_loss"]),
                  "patience_counter": int(es["patience_counter"])})
 
-    def _maybe_preempt(self, ckpt: CheckpointManager, state: MultiTaskState,
+    def _maybe_preempt(self, ckpt: CheckpointManager, state,
                        best_f1: float, epoch: int, progress: Dict[str, int],
                        early_stop: Dict[str, float]) -> None:
         """Poll the preemption guard at a batch boundary.  On a request, save
@@ -289,10 +372,13 @@ class Trainer:
 
     def run_multimodal(self, aux_ds, train_ds, valid_ds, test_ds,
                        state_dict=None, resume: bool = False,
-                       on_event=None) -> float:
+                       on_event=None, pretrained_swin=None) -> float:
         """T+A+V multi-task training (reference train.py:297-421); returns the
         test weighted F1 of the best-validation model.  `state_dict` holds the
-        starting weights (None: random from runtime.seed).  resume=True
+        starting weights (None: random from runtime.seed), onto which the
+        pretrained towers are grafted (`pretrained_swin`, the Ms-Celeb-1M
+        backbone's state_dict, and runtime's text tower, see
+        _graft_pretrained).  resume=True
         continues from the newest resume checkpoint in
         runtime.save_model_path (a fresh start when there is none).
         `on_event(name, **info)`, when given, is called after every step
@@ -303,6 +389,7 @@ class Trainer:
         notify = on_event or (lambda name, **info: None)
         cfg, opt = self.cfg, self.cfg.optim
         model = self._build_model(state_dict)
+        self._graft_pretrained(model, pretrained_swin)
         state, steps_per_epoch, trg_bsz = self._init_multitask_state(
             model, train_ds, len(aux_ds))
         self.state = state
@@ -349,7 +436,8 @@ class Trainer:
                                     early)
                 if i % cfg.runtime.aux_log_interval == 0 and i > 0:
                     ms, avg = timer.interval_stats(cfg.runtime.aux_log_interval)
-                    _log_train("SRC", epoch, i, len(aux_loader), ms, avg)
+                    self.writer.log_train("SRC", epoch, i, len(aux_loader),
+                                          ms, avg)
                     timer.reset()
             _log_pass("SRC", epoch, (time.time() - start) / 3600)
             notify("aux_pass", epoch=epoch)
@@ -369,14 +457,14 @@ class Trainer:
                                      "trg_batch": i + 1}, early)
                 if i % cfg.runtime.trg_log_interval == 0 and i > 0:
                     ms, avg = timer.interval_stats(cfg.runtime.trg_log_interval)
-                    _log_train("TRG", epoch, i, steps_per_epoch, ms, avg)
+                    self.writer.log_train("TRG", epoch, i, steps_per_epoch,
+                                          ms, avg)
                     timer.reset()
             notify("trg_pass", epoch=epoch)
             logits, labels, val_loss = self._eval_multimodal(
                 eval_step, valid_ds, return_loss=True)
             val_f1 = eval_meld(logits, labels, test=False)
-            _log_pass("TRG", epoch, (time.time() - start) / 3600,
-                      f" | val_wg_av_f1 {val_f1:5.4f} ")
+            self.writer.log_eval(epoch, (time.time() - start) / 3600, val_f1)
             self.history.append({"epoch": epoch, "val_f1": val_f1,
                                  "val_loss": val_loss})
             notify("valid", epoch=epoch)
@@ -403,7 +491,7 @@ class Trainer:
         model.load_state_dict(best, strict=True)
         logits, labels = self._eval_multimodal(eval_step, test_ds)
         test_f1 = eval_meld(logits, labels, test=True)
-        print(f"**TEST** | wg_av_f1 {test_f1:5.4f} ")
+        self.writer.log_test(test_f1)
         return test_f1
 
     def eval_multimodal_only(self, state_dict, test_ds,
@@ -416,7 +504,7 @@ class Trainer:
             compute_dtype=cfg.runtime.compute_dtype)
         logits, labels = self._eval_multimodal(eval_step, test_ds, batch_size)
         test_f1 = eval_meld(logits, labels, test=True)
-        print(f"**TEST** | wg_av_f1 {test_f1:5.4f} ")
+        self.writer.log_test(test_f1)
         return test_f1
 
     def _eval_multimodal(self, eval_step, ds, batch_size: int = 16,
@@ -440,3 +528,104 @@ class Trainer:
         if return_loss:
             return logits_cat, labels_cat, loss_sum / max(n_sum, 1)
         return logits_cat, labels_cat
+
+    # ------------------------------------------------------------- unimodal --
+
+    def _build_unimodal(self, state_dict=None) -> MeldUttTransformer:
+        """The V-only model on the device: `state_dict` (a released
+        unimodal_model_V.pt, strict) or random weights from runtime.seed."""
+        with torch.device(self.device):
+            model = MeldUttTransformer(self.cfg)
+        if state_dict is None:
+            return init_random_(model, torch.Generator(self.device)
+                                .manual_seed(self.cfg.runtime.seed))
+        model.load_state_dict(state_dict, strict=True)
+        return model
+
+    def run_unimodal(self, train_ds, valid_ds, test_ds,
+                     resume: bool = False) -> float:
+        """V-only training (reference train.py:245-292, 342-349, 390-409);
+        returns the test weighted F1 of the best-validation model.
+        Checkpoints, preemption and resume=True as in run_multimodal, with
+        the batch count of the interrupted epoch as its progress."""
+        cfg, opt = self.cfg, self.cfg.optim
+        model = self._build_unimodal()
+        bsz = opt.trg_batch_size * opt.trg_accumulation_steps
+        loader = PrefetchLoader(train_ds.get_batch, len(train_ds), bsz,
+                                shuffle=True, seed=cfg.runtime.seed)
+        steps_per_epoch = len(loader)
+        state = SingleTaskState.create(model, opt,
+                                       opt.num_epochs * steps_per_epoch)
+        self.state = state
+        dtype = cfg.runtime.compute_dtype
+        train_step = make_unimodal_train_step(model, compute_dtype=dtype)
+        eval_step = make_unimodal_eval_step(model, compute_dtype=dtype)
+
+        ckpt = CheckpointManager(cfg.runtime.save_model_path)
+        # the reference starts best at 0 with a strict '>' (train.py:352) and
+        # has no best model when val F1 never exceeds 0; -1 saves epoch 1
+        best_f1 = -1.0
+        no_early_stop = {"best_val_loss": float("inf"), "patience_counter": 0}
+        start_epoch, resume_batch = 1, 0
+        if resume:
+            bf, start_epoch, prog, _ = self._restore_latest(
+                ckpt, state, {"batch": 0})
+            if bf is not None:
+                best_f1 = bf
+            resume_batch = prog["batch"]
+        for epoch in range(start_epoch, opt.num_epochs + 1):
+            timer = StepTimer()
+            start = time.time()
+            sb = resume_batch if epoch == start_epoch else 0
+            for i, (batch, n_valid) in enumerate(
+                    loader.epoch(epoch, start_batch=sb), start=sb):
+                loss = train_step(state, self._to_device(batch["feats"]),
+                                  self._to_device(batch["mask"]),
+                                  self._to_device(batch["labels"]),
+                                  self.generator)
+                timer.update(float(loss), n_valid)
+                self._maybe_preempt(ckpt, state, best_f1, epoch,
+                                    {"batch": i + 1}, no_early_stop)
+                if i % cfg.runtime.trg_log_interval == 0 and i > 0:
+                    ms, avg = timer.interval_stats(cfg.runtime.trg_log_interval)
+                    self.writer.log_train("TRG", epoch, i, steps_per_epoch,
+                                          ms, avg)
+                    timer.reset()
+            logits, labels = self._eval_unimodal(eval_step, valid_ds)
+            val_f1 = eval_meld(logits, labels, test=False)
+            self.writer.log_eval(epoch, (time.time() - start) / 3600, val_f1)
+            if val_f1 > best_f1:
+                best_f1 = val_f1
+                ckpt.save_best(model.state_dict(), epoch)
+            ckpt.save_step(self._ckpt_payload(
+                state, best_f1, epoch, {"batch": 0}, no_early_stop), epoch)
+
+        self.best_epoch, best = ckpt.restore_best()
+        model.load_state_dict(best, strict=True)
+        logits, labels = self._eval_unimodal(eval_step, test_ds)
+        test_f1 = eval_meld(logits, labels, test=True)
+        self.writer.log_test(test_f1)
+        return test_f1
+
+    def eval_unimodal_only(self, state_dict, test_ds) -> float:
+        """Direct-eval path from a released unimodal state_dict (reference
+        train.py:431-434)."""
+        model = self._build_unimodal(state_dict)
+        eval_step = make_unimodal_eval_step(
+            model, compute_dtype=self.cfg.runtime.compute_dtype)
+        logits, labels = self._eval_unimodal(eval_step, test_ds)
+        test_f1 = eval_meld(logits, labels, test=True)
+        self.writer.log_test(test_f1)
+        return test_f1
+
+    def _eval_unimodal(self, eval_step, ds, batch_size: int = 64):
+        loader = PrefetchLoader(ds.get_batch, len(ds), batch_size,
+                                shuffle=False)
+        logits_all, labels_all = [], []
+        for batch, n_valid in loader.epoch(0):
+            logits, _ = eval_step(self._to_device(batch["feats"]),
+                                  self._to_device(batch["mask"]),
+                                  self._to_device(batch["labels"]))
+            logits_all.append(logits.float().cpu().numpy()[:n_valid])
+            labels_all.append(np.asarray(batch["labels"])[:n_valid])
+        return np.concatenate(logits_all), np.concatenate(labels_all)
