@@ -103,7 +103,21 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      kernels 2-6 launched, best and resume files written; the same command
      with --resume 1 runs no step and gives the same W-F1; step times from
      files beside phase 7's in-memory ones, and each batch's decode time
-     alone.
+     alone;
+ 11. the appendix (CCAC2023/M3ED) through `main.run` at the same width:
+     M3ED files from tests/fixtures.py's writers (8 dialogues of 6
+     utterances a split, audio (157, 768) and vision (32, 512), text caches
+     at 512 tokens, a 48-row submission template); --choice_modality T one
+     epoch, then --doEval 1 twice with the CSV and the dump; M3ED utt T+A+V
+     crossmodal and T+V concat; M3ED dia crossmodal (then --doEval 1 twice)
+     and concat; MELD T+V on phase 9's files through the FER pipeline.
+     Finite losses, kernel 1 never in a train step and once per text layer
+     in every eval batch (nothing else on the M3ED paths), kernels 1-6 on
+     MELD T+V, eval macro-F1 equal to eval_text_only / eval_dialogue_only,
+     the second eval bit for bit with a byte-identical CSV in test order,
+     one eval batch of the T and dialogue models on the card against fp32
+     on the CPU; step-time medians, eval utterances/s and the dialogue
+     step's peak memory as smoke readings.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -2393,6 +2407,358 @@ def phase_cli_train(torch, dev, gpu_name, root, in_memory, extra=()):
     return {"cli_train": launches}
 
 
+# --------------------------------------------------------------- appendix --
+
+APPENDIX_SPLITS = ("train", "val", "test")
+APPENDIX_DIALOGUES, APPENDIX_UTTS = 8, 6   # a split: 8 dialogues of 6
+
+
+def expect_text_kernel(launches, want, where):
+    """Kernel 1 launched exactly `want` times and no other kernel."""
+    others = {k: n for k, n in launches.items()
+              if n and k != "fused_attention"}
+    if launches["fused_attention"] != want or others:
+        raise AssertionError(f"{where}: launches {launches}, expected "
+                             f"fused_attention {want} and nothing else")
+
+
+def write_m3ed_layout(root, cfg):
+    """tests/fixtures.py's M3ED layout at the config's feature widths under
+    <root>/m3ed (per split the text JSON, the utterance- and dialogue-level
+    audio and vision pickles, the profile JSONs), the text caches
+    <root>/appendix_data/T/text_{split}_{plm}_m3ed.npz from the port's
+    M3edTextPreprocessor with the fixtures' whitespace tokenizer at
+    max_seq_length tokens, and a 48-row submission template."""
+    from facialmmt_tpu_torch.data.text_prep import M3edTextPreprocessor
+
+    fx, d = fixtures(), cfg.data
+    prep = M3edTextPreprocessor(fx.WhitespaceTokenizer(False),
+                                d.max_seq_length)
+    os.makedirs(os.path.join(root, "appendix_data", "T"), exist_ok=True)
+    for seed, split in enumerate(APPENDIX_SPLITS):
+        info = fx.write_m3ed_multimodal_fixture(
+            os.path.join(root, "m3ed"), split, APPENDIX_DIALOGUES,
+            APPENDIX_UTTS, audio_len=d.audio_utt_max_len,
+            vision_len=d.vision_utt_max_len, audio_dim=d.audio_feat_dim,
+            vision_dim=d.vision_feat_dim, seed=30 + seed)
+        ids, mask, sep, labels = M3edTextPreprocessor.to_arrays(
+            prep.preprocess_split(info["text"]["path"]))
+        np.savez(os.path.join(root, "appendix_data", "T",
+                              f"text_{split}_{cfg.plm_name}_m3ed.npz"),
+                 ids=ids, mask=mask, sep=sep, labels=labels)
+    template = os.path.join(root, "m3ed", "template.csv")
+    with open(template, "w") as f:
+        f.write("ID,Emotion\n")
+        f.writelines(f"dia{i // APPENDIX_UTTS}_utt{i % APPENDIX_UTTS},\n"
+                     for i in range(APPENDIX_DIALOGUES * APPENDIX_UTTS))
+    return template
+
+
+def appendix_run(torch, argv):
+    """`main.run(argv)` for an appendix command, watched: (F1, launch
+    counts, {'steps': each train step's seconds, 'losses', 'k1_at_steps':
+    kernel 1's count at each step, 'eval_batches', 'eval_s': seconds in
+    the prediction passes, 'logits': each pass's logits, 'peak_gib': peak
+    device memory from the model's start to the first validation, 'total':
+    the whole call, s})."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train import trainer as tm
+
+    cuda = torch.cuda.is_available()
+    seen = {"steps": [], "losses": [], "k1_at_steps": [], "eval_batches": 0,
+            "eval_s": 0.0, "logits": []}
+    mark = {}
+    real_run = tm._SingleModelTrainer._run
+
+    def on_event(name, **info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if name == "start" and cuda:
+            torch.cuda.reset_peak_memory_stats()
+        if name == "trg_step":
+            seen["steps"].append(now - mark["t"])
+            seen["losses"].append(info["loss"])
+            seen["k1_at_steps"].append(
+                kernels.launch_counts()["fused_attention"])
+        if name == "valid" and "peak_gib" not in seen and cuda:
+            seen["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        mark["t"] = time.perf_counter()
+
+    def run(self, *args, **kwargs):
+        kwargs["on_event"] = on_event
+        return real_run(self, *args, **kwargs)
+
+    def watched(real):
+        def predict(self, eval_step, ds, bsz):
+            def counted(batch):
+                seen["eval_batches"] += 1
+                return eval_step(batch)
+
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(self, counted, ds, bsz)
+            torch.cuda.synchronize()
+            seen["eval_s"] += time.perf_counter() - t
+            seen["logits"].append(out[0])
+            return out
+
+        return predict
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(tm._SingleModelTrainer, "_run", run), \
+            mock.patch.object(tm.TextTrainer, "_predict",
+                              watched(tm.TextTrainer._predict)), \
+            mock.patch.object(tm.DialogueTrainer, "_predict",
+                              watched(tm.DialogueTrainer._predict)):
+        f1 = cli.run(argv)
+    torch.cuda.synchronize()
+    seen["total"] = time.perf_counter() - t0
+    return f1, kernels.launch_counts(), seen
+
+
+def phase_appendix(torch, dev, gpu_name, root, extra=()):
+    """The appendix (CCAC2023/M3ED) through `main.run` at FacialMMTConfig()
+    width (RoBERTa-large, 768-wide fusion) on files that tests/fixtures.py's
+    writers put under `root` (M3ED: splits of 8 dialogues of 6 utterances,
+    audio (157, 768) and vision (32, 512) features, text caches at 512
+    tokens; MELD: phase 9's files, written here when absent), random weights
+    from the seed: --choice_modality T trained one epoch, then --doEval 1
+    with the submission template and the dump, twice; M3ED utt T+A+V
+    crossmodal and T+V concat, one epoch each; M3ED dia crossmodal (one
+    epoch, then --doEval 1 twice) and concat; MELD T+V through the FER
+    pipeline with its auxiliary task, one epoch.  Held: finite losses;
+    kernel 1 launched 0 times in the train steps and exactly once per text
+    layer in every eval batch, no other kernel on the M3ED paths, kernels
+    1-6 on MELD T+V; each eval's macro-F1 equal to eval_text_only's /
+    eval_dialogue_only's on the same files, the second eval's logits equal
+    to the first's bit for bit and its CSV byte for byte, the CSV's rows in
+    the template's order with the emotions of the logits' argmax; one eval
+    batch of the T model and of the dialogue model in bf16 on the card
+    against the same weights in fp32 on the CPU.  Prints smoke readings:
+    the step-time medians, eval utterances/s and the dialogue step's peak
+    memory."""
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
+    from facialmmt_tpu_torch.config import resolve_text_config
+    from facialmmt_tpu_torch.data.m3ed import (M3edDialogueDataset,
+                                               M3edTextDataset)
+    from facialmmt_tpu_torch.train.trainer import DialogueTrainer, TextTrainer
+    from facialmmt_tpu_torch.utils import preemption
+    from facialmmt_tpu_torch.utils.submission import M3ED_EMOTIONS
+
+    base = cli.config_from_args(cli.build_argparser().parse_args(list(extra)))
+    layers = resolve_text_config(base).num_layers
+    t0 = time.perf_counter()
+    template = write_m3ed_layout(root, base)
+    meld = os.path.join(root, "meld")
+    if not os.path.isdir(os.path.join(meld, "T+A+V")):
+        write_meld_layout(meld, base)
+    if not os.path.isdir(os.path.join(meld, "T+V")):
+        shutil.copytree(os.path.join(meld, "T+A+V"), os.path.join(meld, "T+V"))
+    aux_root = os.path.join(root, "affwild")
+    if not os.path.isdir(aux_root):
+        fixtures().write_affwild_fixture(aux_root, AFFWILD_VIDEOS,
+                                         AFFWILD_FRAMES, seed=22)
+    print(f"appendix: M3ED files ({len(APPENDIX_SPLITS)} splits of "
+          f"{APPENDIX_DIALOGUES} dialogues x {APPENDIX_UTTS} utterances) "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    n_test = APPENDIX_DIALOGUES * APPENDIX_UTTS
+
+    def argv(save, *own):
+        return ["--data_load_path", os.path.join(root, "appendix_data"),
+                "--m3ed_project_path", os.path.join(root, "m3ed"),
+                "--save_Model_path", save,
+                "--metrics_path", os.path.join(root, "appendix.jsonl"),
+                *extra, *own]
+
+    def train(key, save, *own, text_only=True):
+        try:
+            f1, launches, seen = appendix_run(torch, argv(
+                save, "--doEval", "0", "--num_epochs", "1", *own))
+        finally:
+            if preemption._guard is not None:    # cli.run installed it
+                preemption._guard.uninstall()
+        if not (seen["losses"] and np.isfinite(seen["losses"]).all()
+                and max(seen["k1_at_steps"]) == 0 and 0.0 <= f1 <= 1.0):
+            raise AssertionError(f"{key}: losses {seen['losses']}, kernel "
+                                 f"1 at the steps {seen['k1_at_steps']}, "
+                                 f"F1 {f1}")
+        if text_only:
+            expect_text_kernel(launches, layers * seen["eval_batches"], key)
+        files = sorted(os.listdir(save))
+        if "best_1" not in files or "step_1" not in files:
+            raise AssertionError(f"{key}: files {files}")
+        print(f"appendix: {key}: one epoch at FacialMMTConfig() width, "
+              f"{len(seen['steps'])} steps, losses "
+              f"{[round(x, 4) for x in seen['losses'][:4]]}..., step median "
+              f"{statistics.median(seen['steps']) * 1e3:.1f} ms (first "
+              f"{seen['steps'][0] * 1e3:.0f} ms), test F1 {f1:.4f}, "
+              f"{seen['eval_batches']} eval batches, {seen['total']:.1f} s in "
+              f"all; launches {launches} on {gpu_name}")
+        return launches, seen
+
+    def evaluate_twice(key, save, api, *own):
+        outs = []
+        stem = os.path.join(root, key.replace(" ", "_"))
+        for n in (1, 2):
+            out_csv = f"{stem}_{n}.csv"
+            f1, launches, seen = appendix_run(torch, argv(
+                save, "--doEval", "1", *own, "--submission_template", template,
+                "--submission_out", out_csv, "--pred_dump_path",
+                f"{stem}_{n}.txt"))
+            expect_text_kernel(launches, layers * seen["eval_batches"], key)
+            with open(out_csv, "rb") as f:
+                outs.append((f1, launches, seen, f.read()))
+        (f1, launches, seen, csv_bytes), second = outs
+        logits = seen["logits"][0]
+        rows = [line.split(",") for line in csv_bytes.decode().splitlines()]
+        want_rows = [[f"dia{i // APPENDIX_UTTS}_utt{i % APPENDIX_UTTS}",
+                      M3ED_EMOTIONS[int(k)]]
+                     for i, k in enumerate(logits.argmax(-1))]
+        if not (second[0] == f1 == api and second[3] == csv_bytes
+                and np.array_equal(second[2]["logits"][0], logits)
+                and rows[1:] == want_rows and logits.shape[0] == n_test):
+            raise AssertionError(f"{key}: F1 {f1} / {second[0]} / API {api}, "
+                                 f"CSV equal {second[3] == csv_bytes}, rows "
+                                 f"{rows[1:4]} vs {want_rows[:3]}")
+        print(f"appendix: {key} --doEval 1: macro-F1 {f1:.4f} = the second "
+              f"run's = the API's; logits bit for bit, the CSV byte for byte, "
+              f"{len(rows) - 1} rows in test order; {seen['eval_batches']} "
+              f"eval batches, {n_test / seen['eval_s']:.1f} utterances/s in "
+              f"the eval loop ({seen['total']:.2f} s end to end); launches "
+              f"{launches} on {gpu_name}")
+        return launches, seen
+
+    def card_vs_cpu(key, trainer_cls, cfg, ds, save):
+        """One eval batch: bf16 on the card against fp32 on the CPU, on the
+        best file's weights, compared on the per-row centred logits."""
+        _, best = CheckpointManager(save).restore_best()
+        got = []
+        for device, dtype in ((dev, cfg.runtime.compute_dtype),
+                              (torch.device("cpu"), "float32")):
+            trainer = trainer_cls(cfg.replace(runtime=dataclasses.replace(
+                cfg.runtime, compute_dtype=dtype)), device)
+            model = trainer._build_single(best)
+            _, step = trainer._steps(model)
+            batch = ds.get_batch(list(range(trainer._effective_batch())))
+            logits = step(trainer._batch_to_device(batch))[0]
+            got.append(logits.float().cpu().numpy().astype(np.float64))
+            del model
+        z_card, z_cpu = (z - z.mean(-1, keepdims=True) for z in got)
+        diff = float(np.abs(z_card - z_cpu).max())
+        scale = float(np.abs(z_cpu).max())
+        if not (np.isfinite(z_card).all() and diff <= SERVING_BOUND * scale):
+            raise AssertionError(f"{key}: card vs CPU fp32 max|d| {diff} > "
+                                 f"{SERVING_BOUND} * {scale}")
+        print(f"appendix: {key}: one eval batch {tuple(got[0].shape)}, card "
+              f"{cfg.runtime.compute_dtype} vs CPU fp32: centred logits "
+              f"max|d| {diff:.3g} <= {SERVING_BOUND} * {scale:.3g}")
+
+    paths, readings = {}, {}
+    # ---- T: train one epoch, then --doEval 1 twice
+    save = os.path.join(root, "appendix_t")
+    paths["appendix_t_train"], seen = train("T", save, "--choice_modality",
+                                            "T")
+    readings["T step"] = seen["steps"]
+    cfg_t = cli.config_from_args(cli.build_argparser().parse_args(
+        argv(save, "--choice_modality", "T")))
+    t_ds = M3edTextDataset(*cli.m3ed_text_arrays(cfg_t, "", "test"))
+    api = TextTrainer(cfg_t, dev).eval_text_only(t_ds, ckpt_dir=save)
+    paths["appendix_t_eval"], seen = evaluate_twice(
+        "T", save, api, "--choice_modality", "T")
+    readings["T eval utt/s"] = n_test / seen["eval_s"]
+    card_vs_cpu("T", TextTrainer, cfg_t, t_ds, save)
+    shutil.rmtree(save)
+    torch.cuda.empty_cache()
+
+    # ---- M3ED utterance level
+    for key, own in (("M3ED utt T+A+V crossmodal", ("--choice_modality",
+                                                    "T+A+V")),
+                     ("M3ED utt T+V concat", ("--choice_modality", "T+V",
+                                              "--modalityFuse", "concat"))):
+        save = os.path.join(root, "appendix_utt")
+        name = "appendix_" + key.split()[2].replace("+", "").lower() + "_utt"
+        paths[name], seen = train(key, save, *own)
+        readings[f"{key} step"] = seen["steps"]
+        shutil.rmtree(save)
+        torch.cuda.empty_cache()
+
+    # ---- M3ED dialogue level
+    save = os.path.join(root, "appendix_dia")
+    dia = ("--choice_modality", "T+A+V", "--uttORdia", "dia")
+    paths["appendix_dia_train"], seen = train("M3ED dia crossmodal", save,
+                                              *dia)
+    readings["dia step"] = seen["steps"]
+    dia_peak = seen.get("peak_gib", float("nan"))
+    cfg_d = cli.config_from_args(cli.build_argparser().parse_args(
+        argv(save, *dia)))
+    ids, mask, sep, _ = cli.m3ed_text_arrays(cfg_d, "", "test")
+    d_ds = M3edDialogueDataset(os.path.join(root, "m3ed"), "test", ids, mask,
+                               sep)
+    cfg_d = cli._adapt_static_shapes(cfg_d, d_ds)
+    api = DialogueTrainer(cfg_d, dev).eval_dialogue_only(d_ds, ckpt_dir=save)
+    paths["appendix_dia_eval"], seen = evaluate_twice("M3ED dia", save, api,
+                                                      *dia)
+    readings["dia eval utt/s"] = n_test / seen["eval_s"]
+    card_vs_cpu("M3ED dia", DialogueTrainer, cfg_d, d_ds, save)
+    shutil.rmtree(save)
+    torch.cuda.empty_cache()
+    save = os.path.join(root, "appendix_dia_concat")
+    paths["appendix_dia_concat_train"], seen = train(
+        "M3ED dia concat", save, *dia, "--modalityFuse", "concat")
+    readings["dia concat step"] = seen["steps"]
+    shutil.rmtree(save)
+    torch.cuda.empty_cache()
+
+    # ---- MELD T+V through the FER pipeline, with the auxiliary task
+    save = os.path.join(root, "appendix_meld_tv")
+    meld_argv = cli_argv(
+        root, *extra, "--choice_modality", "T+V", "--doEval", "0",
+        "--num_epochs", "1", "--save_Model_path", save,
+        "--data_folder", os.path.join(aux_root, "cropped_aligned"),
+        "--anno_folder", os.path.join(aux_root, "annos"),
+        "--data_list_train", os.path.join(aux_root, "train_list.txt"))
+    from facialmmt_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        f1 = cli.run(meld_argv)
+    finally:
+        if preemption._guard is not None:
+            preemption._guard.uninstall()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require_launched(launches, SERVING_KERNELS + BACKWARD_KERNELS,
+                     "MELD T+V training")
+    _, best = CheckpointManager(save).restore_best()
+    if not (0.0 <= f1 <= 1.0
+            and any(k.startswith("multimodal.CrossModalTrans_TV.")
+                    for k in best)
+            and not any(k.startswith("multimodal.audio") for k in best)):
+        raise AssertionError(f"MELD T+V: F1 {f1}, best file "
+                             f"{sorted(best)[:4]}...")
+    paths["appendix_meld_tv_train"] = launches
+    print(f"appendix: MELD --choice_modality T+V --doEval 0 --num_epochs 1 "
+          f"through the FER pipeline (CrossModalTrans_TV, no audio tower): "
+          f"test W-F1 {f1:.4f} in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches} on {gpu_name}")
+    shutil.rmtree(save)
+
+    medians = "; ".join(
+        f"{k} median {statistics.median(v) * 1e3:.1f} ms"
+        if isinstance(v, list) else f"{k} {v:.1f}"
+        for k, v in readings.items())
+    print(f"appendix smoke readings (one epoch on 48 utterances: not rates): "
+          f"{medians}; the dialogue step's peak memory {dia_peak:.2f} GiB "
+          f"on {gpu_name}")
+    return paths
+
+
 def main(json_out: str = "") -> int:
     """`json_out`: where to write the per-shape kernel times and the launch
     counts per path, if anywhere."""
@@ -2449,6 +2815,8 @@ def main(json_out: str = "") -> int:
         torch.cuda.empty_cache()
         paths.update(phase_cli_train(torch, dev, gpu_name, cli_root,
                                      run["step_times"]))
+        torch.cuda.empty_cache()
+        paths.update(phase_appendix(torch, dev, gpu_name, cli_root))
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)

@@ -2,7 +2,9 @@
 
 Takes the JAX FacialMMTPipeline's `variables` as nested mappings of arrays
 (`params` and `batch_stats`, each with `swin_model` and `multimodal`
-branches) and returns {name: np.ndarray} under the reference's torch names,
+branches), or those of the appendix's models (the utterance-level model's
+modality subsets and concat fusion, the dialogue-level model), and returns
+{name: np.ndarray} under the reference's torch names,
 which is what the port's modules are built with, so the result loads with
 load_state_dict(strict=True).  It is the numpy twin of
 facialmmt_tpu/checkpoint/torch_export.py (that module needs the JAX Swin ops
@@ -30,6 +32,8 @@ from facialmmt_tpu_torch.ops.swin import (relative_position_index,
                                           shifted_window_mask)
 
 StateDict = Dict[str, np.ndarray]
+CROSSMODAL_STACKS = ("CrossModalTrans_TA", "CrossModalTrans_TA_V",
+                     "CrossModalTrans_TV")
 Path = Tuple[str, ...]
 Rule = Tuple[Path, str, str]          # (JAX path, state_dict name, layout)
 
@@ -202,24 +206,62 @@ def _swin_stats_rules(at: Path, prefix: str) -> List[Rule]:
             (at + ("swin", "head_bn", "var"), f"{bn}.running_var", "copy")]
 
 
-def _multimodal_rules(tree, at: Path, plm_name: str, p: str) -> List[Rule]:
-    text = p + ("roberta" if "roberta" in plm_name else "bert")
-    rules = _text_encoder_rules(tree, at + ("text_encoder",), text)
-    rules += _linear(tree, at + ("text_linear",), f"{p}text_linear")
-    rules += _linear(tree, at + ("audio_linear",), f"{p}audio_linear")
-    rules += _utt_encoder_rules(tree, at + ("audio_utt_transformer",),
-                                f"{p}audio_utt_transformer")
-    rules += _linear(tree, at + ("vision_linear",), f"{p}vision_linear")
-    rules += _utt_encoder_rules(tree, at + ("vision_utt_transformer",),
-                                f"{p}vision_utt_transformer")
-    rules.append((at + ("attention", "query_vector"),
-                  f"{p}attention.query_vector", "copy"))
+def _pooling_rules(tree, at: Path, p: str) -> List[Rule]:
+    rules = [(at + ("query_vector",), f"{p}.query_vector", "copy")]
     for name in ("P", "Q", "value"):
-        rules += _linear(tree, at + ("attention", name), f"{p}attention.{name}")
-    for name in ("CrossModalTrans_TA", "CrossModalTrans_TA_V"):
-        rules += _crossmodal_rules(tree, at + (name,), f"{p}{name}")
-    rules += _linear(tree, at + ("classifier",), f"{p}classifier")
+        rules += _linear(tree, at + (name,), f"{p}.{name}")
     return rules
+
+
+def _text_rules(tree, at: Path, plm_name: str, p: str) -> List[Rule]:
+    text = p + ("roberta" if "roberta" in plm_name else "bert")
+    return (_text_encoder_rules(tree, at + ("text_encoder",), text)
+            + _linear(tree, at + ("text_linear",), f"{p}text_linear"))
+
+
+def _feature_tower_rules(tree, at: Path, p: str) -> List[Rule]:
+    """The audio and vision towers that the tree holds (a modality subset
+    has only its own)."""
+    rules: List[Rule] = []
+    for stream in ("audio", "vision"):
+        if f"{stream}_linear" in _get(tree, at):
+            rules += _linear(tree, at + (f"{stream}_linear",),
+                             f"{p}{stream}_linear")
+            rules += _utt_encoder_rules(
+                tree, at + (f"{stream}_utt_transformer",),
+                f"{p}{stream}_utt_transformer")
+    return rules
+
+
+def _fusion_rules(tree, at: Path, p: str) -> List[Rule]:
+    """The crossmodal stacks and fusion linears that the tree holds."""
+    rules: List[Rule] = []
+    for name in CROSSMODAL_STACKS:
+        if name in _get(tree, at):
+            rules += _crossmodal_rules(tree, at + (name,), f"{p}{name}")
+    for name in ("multimodal_linear", "multimodal_linear2"):
+        if name in _get(tree, at):
+            rules += _linear(tree, at + (name,), f"{p}{name}")
+    return rules
+
+
+def _multimodal_rules(tree, at: Path, plm_name: str, p: str) -> List[Rule]:
+    """The utterance-level model, T+A+V or a modality subset, crossmodal or
+    concat fusion: the towers the tree holds."""
+    return (_text_rules(tree, at, plm_name, p)
+            + _feature_tower_rules(tree, at, p)
+            + _pooling_rules(tree, at + ("attention",), f"{p}attention")
+            + _fusion_rules(tree, at, p)
+            + _linear(tree, at + ("classifier",), f"{p}classifier"))
+
+
+def _dialogue_rules(tree, at: Path, plm_name: str, p: str) -> List[Rule]:
+    return (_text_rules(tree, at, plm_name, p)
+            + _feature_tower_rules(tree, at, p)
+            + _pooling_rules(tree, at + ("attention_pooling",),
+                             f"{p}attention_pooling")
+            + _fusion_rules(tree, at, p)
+            + _linear(tree, at + ("classifier",), f"{p}classifier"))
 
 
 def _apply(rules: List[Rule], tree) -> StateDict:
@@ -259,13 +301,30 @@ def swin_fer_state_dict(variables, prefix: str = "") -> StateDict:
 
 def multimodal_state_dict(variables, plm_name: str = "roberta-large",
                           prefix: str = "") -> StateDict:
-    """JAX MultiModalTransformerForClassification variables -> state_dict.
-    plm_name picks the text tower's attribute ('roberta' or 'bert')."""
+    """JAX MultiModalTransformerForClassification variables (any modality
+    subset, crossmodal or concat fusion) -> state_dict.  plm_name picks the
+    text tower's attribute ('roberta' or 'bert')."""
     params = variables["params"]
     out = _apply(_multimodal_rules(params, (), plm_name, prefix), params)
-    for name in ("CrossModalTrans_TA", "CrossModalTrans_TA_V"):
-        _crossmodal_buffers(params[name], out, f"{prefix}{name}")
+    _stack_buffers(params, out, prefix)
     return out
+
+
+def dialogue_state_dict(variables, plm_name: str = "roberta-large",
+                        prefix: str = "") -> StateDict:
+    """JAX DialogueMultiModalTransformer variables -> state_dict, under the
+    names of the reference's (Appendix)CCAC2023/src/models.py, which the JAX
+    module names mirror (attention_pooling, multimodal_linear2, ...)."""
+    params = variables["params"]
+    out = _apply(_dialogue_rules(params, (), plm_name, prefix), params)
+    _stack_buffers(params, out, prefix)
+    return out
+
+
+def _stack_buffers(params, out: StateDict, prefix: str) -> None:
+    for name in CROSSMODAL_STACKS:
+        if name in params:
+            _crossmodal_buffers(params[name], out, f"{prefix}{name}")
 
 
 def pipeline_state_dict(variables, plm_name: str = "roberta-large") -> StateDict:

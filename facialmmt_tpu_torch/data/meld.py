@@ -28,7 +28,9 @@ The host only decodes JPEGs (native/, BGR order kept); resize, augmentation
 and normalisation run on the device (data/image_pipeline.py).  Face lists
 longer than vision_utt_max_len truncate (reference :278-279).
 SyntheticMeldDataset and SyntheticFerDataset build the same batches in memory
-from a numpy seed, for tests and smoke runs.
+from a numpy seed, for tests and smoke runs.  MeldDialogueDataset regroups a
+split's utterances into dialogues for the appendix's dialogue-level model
+(--uttORdia dia).
 """
 
 from __future__ import annotations
@@ -381,4 +383,71 @@ class MeldMultimodalDataset:
             "face_utt_id": face_utt_id,
             "face_pos": face_pos,
             "labels": self.labels[idx].astype(np.int32),
+        }
+
+
+class MeldDialogueDataset:
+    """Dialogue-level batches of a MELD split (--uttORdia dia; reference
+    (Appendix)CCAC2023/utils/dataset.py:154-302).
+
+    The appendix consumes precomputed (num_dia, max_dia_len, max_utt_len, dim)
+    pickles; here dialogues are assembled by grouping the utterance-level
+    arrays of `base` by utt_profile: the same batch layout as
+    data/m3ed.py::M3edDialogueDataset.  One sample is one dialogue: audio and
+    vision (D, L, feat), dia_mask (D,), labels (D,).  Vision is the pickle's
+    raw features: no faces, no FER distribution.
+    """
+
+    def __init__(self, base: MeldMultimodalDataset, max_dia_len: int = 0):
+        self.base = base
+        # dialogue -> ordered utterance indices
+        groups: Dict[int, List[int]] = {}
+        for idx_str, prof in base.utt_profile.items():
+            _, _, dia_i, _, utt_pos = prof
+            groups.setdefault(dia_i, {})[utt_pos] = int(idx_str)
+        self.dialogues = [
+            [groups[d][p] for p in sorted(groups[d])]
+            for d in sorted(groups)
+        ]
+        self.max_dia_len = max_dia_len or max(len(d) for d in self.dialogues)
+        # map dialogue order -> text array row (dia_idx from the profile)
+        self.dia_rows = sorted(groups)
+
+    def __len__(self):
+        return len(self.dialogues)
+
+    def get_batch(self, indices: Sequence[int]):
+        idx = list(indices)
+        b = len(idx)
+        d_max = self.max_dia_len
+        la, da = self.base.audio.shape[1:]
+        lv, dv = self.base.vision.shape[1:]
+
+        audio = np.zeros((b, d_max, la, da), np.float32)
+        audio_mask = np.zeros((b, d_max, la), np.int32)
+        vision = np.zeros((b, d_max, lv, dv), np.float32)
+        vision_mask = np.zeros((b, d_max, lv), np.int32)
+        dia_mask = np.zeros((b, d_max), np.int32)
+        labels = np.zeros((b, d_max), np.int32)
+        for j, di in enumerate(idx):
+            utts = self.dialogues[di][:d_max]
+            n = len(utts)
+            audio[j, :n] = self.base.audio[utts]
+            audio_mask[j, :n] = self.base.audio_mask[utts]
+            vision[j, :n] = self.base.vision[utts]
+            vision_mask[j, :n] = self.base.vision_mask[utts]
+            dia_mask[j, :n] = 1
+            labels[j, :n] = self.base.labels[utts]
+
+        rows = [self.dia_rows[di] for di in idx]
+        return {
+            "dia_input_ids": self.base.text.input_ids[rows],
+            "dia_input_mask": self.base.text.input_mask[rows],
+            "dia_sep_mask": self.base.text.sep_mask[rows],
+            "audio_inputs": audio,
+            "audio_mask": audio_mask,
+            "vision_inputs": vision,
+            "vision_mask": vision_mask,
+            "dia_mask": dia_mask,
+            "labels": labels,
         }

@@ -1,4 +1,4 @@
-"""MELD dialogue text preprocessing (counterpart of the MELD half of
+"""Dialogue text preprocessing of MELD and M3ED (counterpart of
 facialmmt_tpu/data/text_prep.py; pure Python and numpy on both sides).
 
 Rebuild of the reference's tokenize-whole-dialogue pipeline
@@ -15,7 +15,11 @@ Rebuild of the reference's tokenize-whole-dialogue pipeline
 The tokenizer is dependency-injected: anything exposing .tokenize(str)->[str]
 and .convert_tokens_to_ids([str])->[int] works (HF tokenizers do; tests use a
 tiny whitespace tokenizer).  Output arrays are int32 numpy.
-The M3ED half of the JAX module belongs to the appendix and is not ported.
+
+The M3ED half (the appendix, reference (Appendix)CCAC2023/src/
+data_bert_extraText.py) is M3edTextPreprocessor: BERT joining only, a
+truncation budget of max_seq_length - num_utterances - 1 and a per-token
+label channel.
 """
 
 from __future__ import annotations
@@ -136,3 +140,96 @@ class MeldTextPreprocessor:
         mask = np.asarray([f.input_mask for f in features], np.int32)
         sep = np.asarray([f.sep_mask for f in features], np.int32)
         return ids, mask, sep
+
+
+# ----------------------------------------------------- M3ED (appendix) prep --
+
+def make_text_dia_utt_emo(annot: Dict[str, Dict]) -> Dict[str, List[int]]:
+    """{dia_id: {utt_id: {'text', 'label'}}} -> {dia_id: [label, ...]} in
+    utterance order (reference (Appendix)CCAC2023/src/data_bert_extraText.py:12-21)."""
+    labels: Dict[str, List[int]] = defaultdict(list)
+    for dia_id, dia in annot.items():
+        for utt_id in dia:
+            labels[dia_id].append(dia[utt_id]["label"])
+    return labels
+
+
+@dataclass
+class M3edInputFeatures:
+    """Per-dialogue padded arrays with the per-token label channel
+    (reference (Appendix)CCAC2023/src/data_bert_extraText.py:48-55)."""
+
+    input_ids: List[int]
+    input_mask: List[int]
+    sep_mask: List[int]
+    label_id: List[int]  # label of the utterance at each sep position; 0 else
+
+
+class M3edTextPreprocessor:
+    """BERT-only dialogue prep emitting a per-token label_id channel
+    (reference (Appendix)CCAC2023/src/data_bert_extraText.py:57-124).
+
+    Differences from the MELD prep (MeldTextPreprocessor):
+      * truncation budget is max_seq_length - num_utterances - 1 (one [SEP]
+        per utterance + [CLS]; reference :89) instead of a fixed offset;
+      * label channel: token at each utterance-final [SEP] carries that
+        utterance's emotion label, all other positions 0 (reference :92-103);
+      * BERT joining only ([CLS] u1 [SEP] u2 [SEP] ...).
+    """
+
+    def __init__(self, tokenizer, max_seq_length: int = MAX_SEQ_LENGTH):
+        self.tokenizer = tokenizer
+        self.max_seq_length = max_seq_length
+
+    def preprocess_dialogues(self, dialogues: Sequence[Sequence[str]],
+                             labels: Sequence[Sequence[int]] = None
+                             ) -> List[M3edInputFeatures]:
+        """dialogues: utterance-text lists; labels: matching per-utterance
+        emotion ids, or None (test split — label channel all zero)."""
+        features = []
+        for d, utts in enumerate(dialogues):
+            toks = [list(self.tokenizer.tokenize(u)) for u in utts]
+            toks = truncate_seq_pair(
+                toks, self.max_seq_length - len(toks) - 1)
+            tokens: List[str] = []
+            sep_mask: List[int] = []
+            label_id: List[int] = []
+            for num, tu in enumerate(toks):
+                lab = int(labels[d][num]) if labels is not None else 0
+                if num == 0:
+                    tokens = ["[CLS]"] + tu + ["[SEP]"]
+                    sep_mask = [0] * (len(tokens) - 1) + [1]
+                    label_id = [0] * (len(tokens) - 1) + [lab]
+                else:
+                    tokens += tu + ["[SEP]"]
+                    sep_mask += [0] * len(tu) + [1]
+                    label_id += [0] * len(tu) + [lab]
+            ids = list(self.tokenizer.convert_tokens_to_ids(tokens))
+            input_mask = [1] * len(ids)
+            pad = [0] * (self.max_seq_length - len(ids))
+            features.append(M3edInputFeatures(ids + pad, input_mask + pad,
+                                              sep_mask + pad, label_id + pad))
+        return features
+
+    def preprocess_split(self, annot_json_path: str, with_labels: bool = True
+                         ) -> List[M3edInputFeatures]:
+        """Full reference flow (reference :65-124) over
+        {split}_utt_text_noEmo.json: {dia_id: {utt_id: {'text', 'label'}}}."""
+        with open(annot_json_path, encoding="utf8") as f:
+            annot = json.load(f)
+        labels = make_text_dia_utt_emo(annot) if with_labels else None
+        dialogues, label_lists = [], []
+        for dia_id, dia in annot.items():
+            dialogues.append([dia[u]["text"] for u in dia])
+            if labels is not None:
+                label_lists.append(labels[dia_id])
+        return self.preprocess_dialogues(
+            dialogues, label_lists if with_labels else None)
+
+    @staticmethod
+    def to_arrays(features: List[M3edInputFeatures]):
+        ids = np.asarray([f.input_ids for f in features], np.int32)
+        mask = np.asarray([f.input_mask for f in features], np.int32)
+        sep = np.asarray([f.sep_mask for f in features], np.int32)
+        labels = np.asarray([f.label_id for f in features], np.int32)
+        return ids, mask, sep, labels

@@ -11,14 +11,24 @@ plus `--device`.
     python -m facialmmt_tpu_torch.main --choice_modality T+A+V --doEval 0 \
         --data_folder ... --anno_folder ... --pretrained_backbone_path ... \
         --pretrainedtextmodel_path pretrained_model/roberta-large    (train)
+    python -m facialmmt_tpu_torch.main --choice_modality T --doEval 0 \
+        --meld_text_path m3ed --pretrainedtextmodel_path ...   (appendix)
+    python -m facialmmt_tpu_torch.main --choice_modality T+A+V \
+        --m3ed_project_path m3ed --uttORdia dia --modalityFuse concat \
+        --doEval 1 --submission_template nustm_submission_empty.csv
 
 Runs on the card (`--device cuda`, the default; without one it raises) unless
-`--device cpu` is given.  The MELD utterance branches are ported: T+A+V and V,
-evaluation from the reference's released files and training from the
-pretrained Swin backbone and a local HF text tower.  Any JAX command line
-parses; a flag whose work is not ported raises NotImplementedError before any
-data loads (UNPORTED), and the three flags that select a JAX implementation
-accept only the values that select nothing here (config_from_args).
+`--device cpu` is given.  Ported: MELD T+A+V, T+A, T+V (the FER pipeline)
+and V, evaluation from the reference's released files and training from the
+pretrained Swin backbone and a local HF text tower; the appendix: T on the
+M3ED text, M3ED T+A / T+V / T+A+V at the utterance or dialogue level,
+MELD's dialogue level, crossmodal or concat fusion, macro-F1, the submission
+CSV and the 'pred true' dump.  Any JAX command line parses; a flag whose
+work is not ported raises NotImplementedError before any data loads
+(UNPORTED), an explicit --submission_template that does not exist raises
+FileNotFoundError there too, and the three flags that select a JAX
+implementation accept only the values that select nothing here
+(config_from_args).
 """
 
 from __future__ import annotations
@@ -30,13 +40,11 @@ import sys
 
 import numpy as np
 
+# the template's name in the reference's project
+# ((Appendix)CCAC2023/nustm_submission_empty.csv)
+DEFAULT_TEMPLATE = "nustm_submission_empty.csv"
 # (flag, value that is ported, what would run it): anything else raises
 UNPORTED = (
-    ("modalityFuse", "crossmodal",
-     "concat fusion (appendix, ROADMAP Queue 1 item 1)"),
-    ("uttORdia", "utt",
-     "dialogue-level granularity (appendix, ROADMAP Queue 1 item 1)"),
-    ("m3ed_project_path", "", "the M3ED data (appendix, ROADMAP Queue 1 item 1)"),
     ("swin_remat", ("auto", "0"), "activation checkpointing (ROADMAP Queue 1 "
                                   "item 3)"),
     ("text_remat", ("auto", "0"), "activation checkpointing (ROADMAP Queue 1 "
@@ -46,7 +54,6 @@ UNPORTED = (
     ("debug_nans", 0, "profiler capture and NaN debugging (ROADMAP Queue 1 "
                       "item 5)"),
 )
-PORTED_MODALITIES = ("T+A+V", "V")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -111,29 +118,43 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--load_swin_path", type=str, default="best_swin_RoBERTa.pt")
     p.add_argument("--pretrained_model_dir", type=str,
                    default="pretrained_model")
-    # appendix (CCAC2023 / M3ED): parsed, not ported (UNPORTED)
+    # appendix (CCAC2023 / M3ED)
     p.add_argument("--modalityFuse", type=str, default="crossmodal",
                    choices=["crossmodal", "concat"])
     p.add_argument("--uttORdia", type=str, default="utt",
                    choices=["utt", "dia"])
     p.add_argument("--patience", type=int, default=0,
                    help="early stopping on val loss; 0 disables")
-    p.add_argument("--load_best_model_path", type=str, default="")
+    p.add_argument("--load_best_model_path", type=str, default="",
+                   help="directory of the best file for the appendix's "
+                        "--doEval 1; defaults to --save_Model_path")
     p.add_argument("--submission_template", type=str,
-                   default="nustm_submission_empty.csv")
-    p.add_argument("--submission_out", type=str, default="")
-    p.add_argument("--pred_dump_path", type=str, default="")
+                   default=DEFAULT_TEMPLATE,
+                   help="competition CSV template; the default name is "
+                        "skipped when absent, any other path must exist")
+    p.add_argument("--submission_out", type=str, default="",
+                   help="filled submission CSV; defaults to "
+                        "<save_Model_path>/nustm_submission.csv")
+    p.add_argument("--pred_dump_path", type=str, default="",
+                   help="'pred true' dump file of the appendix's eval")
     p.add_argument("--pretrainedtextmodel_path", type=str, default="",
                    help="local HF directory of the text tower's pretrained "
                         "weights (and tokenizer, to build a missing text "
                         "cache)")
-    p.add_argument("--m3ed_project_path", type=str, default="")
+    p.add_argument("--m3ed_project_path", type=str, default="",
+                   help="M3ED directory ({split}_utt_text_noEmo.json, "
+                        "m3ed_{split}_{audio,vision}_{utt,dia}.pkl and the "
+                        "profile JSONs): the multimodal data load M3ED-style "
+                        "(precomputed vision features, no faces or FER "
+                        "branch)")
     # extensions of the JAX package
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"],
                    help="bfloat16 = bf16 autocast on the card (fp32 on the "
                         "CPU whatever the flag)")
-    p.add_argument("--max_seq_length", type=int, default=512)
+    p.add_argument("--max_seq_length", type=int, default=512,
+                   help="M3ED dialogue token budget; MELD dialogues are "
+                        "512 tokens whatever it says, as in the reference")
     p.add_argument("--text_preset", type=str, default="auto",
                    choices=["auto", "tiny"])
     p.add_argument("--swin_from_target", type=int, default=0)
@@ -182,11 +203,6 @@ def check_ported(args) -> None:
     NotImplementedError naming the ROADMAP item for an unported branch,
     ValueError for a value of a JAX implementation switch, which has no
     counterpart here."""
-    if args.choice_modality not in PORTED_MODALITIES:
-        raise NotImplementedError(
-            f"--choice_modality {args.choice_modality}: the appendix's "
-            f"modality subsets are not ported (ROADMAP Queue 1 item 1); "
-            f"ported: {', '.join(PORTED_MODALITIES)}")
     for flag, ported, what in UNPORTED:
         value = getattr(args, flag)
         if value not in (ported if isinstance(ported, tuple) else (ported,)):
@@ -330,11 +346,27 @@ def _adapt_static_shapes(cfg, train_ds):
     return cfg.replace(data=dataclasses.replace(data, **kw))
 
 
+def resolve_submission_template(path: str) -> str:
+    """The submission template to fill, checked before any data loads: the
+    default name, when it is absent, is skipped (''; the appendix's eval
+    then notes that it writes no CSV), any other path that does not exist
+    raises FileNotFoundError.  (The JAX package raises for a mistyped
+    template only in the final eval, after training.)"""
+    if path and not os.path.exists(path):
+        if path != DEFAULT_TEMPLATE:
+            raise FileNotFoundError(f"--submission_template not found: {path}")
+        return ""
+    return path
+
+
 def text_arrays(cfg, split: str):
-    """The split's tokenized dialogues from the npz cache
+    """The split's tokenized MELD dialogues from the npz cache
     <data_load_path>/<modality>/text_{split}_{plm_name}.npz; a missing cache
     is built with the HF tokenizer (the only use of `transformers`) from
-    {split}_sent_emo.csv and {split}_text.json and written."""
+    {split}_sent_emo.csv and {split}_text.json and written.  The dialogues are
+    512 tokens whatever --max_seq_length says, as in the reference
+    (src/meld_bert_extraText.py:9) and the JAX CLI, so a cache either CLI
+    wrote holds the same arrays."""
     from facialmmt_tpu_torch.data.meld import MeldTextArrays
 
     cache = os.path.join(cfg.data.data_load_path, cfg.choice_modality,
@@ -348,8 +380,7 @@ def text_arrays(cfg, split: str):
 
     tok = AutoTokenizer.from_pretrained(
         cfg.pretrained_text_model_path or cfg.plm_name)
-    prep = MeldTextPreprocessor(tok, cfg.plm_name == "roberta-large",
-                                cfg.data.max_seq_length)
+    prep = MeldTextPreprocessor(tok, cfg.plm_name == "roberta-large")
     feats = prep.preprocess_split(
         os.path.join(cfg.data.load_anno_csv_path, f"{split}_sent_emo.csv"),
         os.path.join(cfg.data.meld_text_path, f"{split}_text.json"))
@@ -358,11 +389,39 @@ def text_arrays(cfg, split: str):
     return MeldTextArrays(ids, mask, sep)
 
 
+def m3ed_text_arrays(cfg, text_dir: str, split: str):
+    """(ids, mask, sep, labels) of the split's M3ED dialogues at
+    --max_seq_length tokens, from the npz cache
+    <data_load_path>/T/text_{split}_{plm_name}_m3ed.npz; a missing cache is
+    built from <text_dir>/{split}_utt_text_noEmo.json with the HF tokenizer
+    (reference (Appendix)CCAC2023/src/data_bert_extraText.py) and written."""
+    cache = os.path.join(cfg.data.data_load_path, "T",
+                         f"text_{split}_{cfg.plm_name}_m3ed.npz")
+    if os.path.exists(cache):
+        with np.load(cache) as z:
+            return z["ids"], z["mask"], z["sep"], z["labels"]
+    from transformers import AutoTokenizer
+
+    from facialmmt_tpu_torch.data.text_prep import M3edTextPreprocessor
+
+    tok = AutoTokenizer.from_pretrained(
+        cfg.pretrained_text_model_path or cfg.plm_name)
+    prep = M3edTextPreprocessor(tok, cfg.data.max_seq_length)
+    ids, mask, sep, labels = M3edTextPreprocessor.to_arrays(
+        prep.preprocess_split(
+            os.path.join(text_dir, f"{split}_utt_text_noEmo.json")))
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    np.savez(cache, ids=ids, mask=mask, sep=sep, labels=labels)
+    return ids, mask, sep, labels
+
+
 def run(argv=None) -> float:
     """Parse `argv` (sys.argv when None), evaluate or train, return the test
-    weighted F1."""
+    F1 (weighted for MELD utterances, macro for the appendix's trainers)."""
     args = build_argparser().parse_args(argv)
     cfg = config_from_args(args)          # raises for what is not ported
+    args.submission_template = resolve_submission_template(
+        args.submission_template)
     cfg = resolve_pretrained_text_dir(cfg, args.pretrained_model_dir)
 
     from facialmmt_tpu_torch.ops.kernels import resolve_device
@@ -381,9 +440,18 @@ def run(argv=None) -> float:
         print("&" * 50)
         if cfg.choice_modality == "V":
             return _run_unimodal(args, cfg, device, writer)
+        if cfg.choice_modality == "T" or args.m3ed_project_path:
+            return _run_m3ed(args, cfg, device, writer)
         return _run_multimodal(args, cfg, device, writer)
     finally:
         writer.close()
+
+
+def _appendix_eval_kwargs(args):
+    return dict(ckpt_dir=args.load_best_model_path or None,
+                submission_template=args.submission_template,
+                submission_out=args.submission_out,
+                pred_dump_path=args.pred_dump_path)
 
 
 def _run_unimodal(args, cfg, device, writer) -> float:
@@ -408,7 +476,57 @@ def _run_unimodal(args, cfg, device, writer) -> float:
         resume=bool(args.resume))
 
 
+def _run_m3ed(args, cfg, device, writer) -> float:
+    """The appendix's M3ED paths: choice_modality T (text only, reference
+    (Appendix)CCAC2023/utils/dataset.py:112-147) and, with
+    --m3ed_project_path, T+A / T+V / T+A+V on precomputed features at the
+    utterance or, with --uttORdia dia, the dialogue level (:165-302)."""
+    from facialmmt_tpu_torch.data.m3ed import (M3edDialogueDataset,
+                                               M3edMultimodalDataset,
+                                               M3edTextDataset)
+    from facialmmt_tpu_torch.train.trainer import (DialogueTrainer,
+                                                   TextTrainer)
+
+    text_dir = args.m3ed_project_path or cfg.data.meld_text_path
+    resume = bool(args.resume)
+    if cfg.choice_modality == "T":
+        def build(split):
+            return M3edTextDataset(*m3ed_text_arrays(cfg, text_dir, split))
+
+        trainer = TextTrainer(cfg, device, writer)
+        if cfg.do_eval:
+            return trainer.eval_text_only(build("test"),
+                                          **_appendix_eval_kwargs(args))
+        return trainer.run_text(build("train"), build("val"), build("test"),
+                                resume=resume)
+
+    dia = cfg.granularity == "dia"
+    ds_cls = M3edDialogueDataset if dia else M3edMultimodalDataset
+
+    def build(split):
+        ids, mask, sep, _ = m3ed_text_arrays(cfg, text_dir, split)
+        return ds_cls(args.m3ed_project_path, split, ids, mask, sep)
+
+    test_ds = build("test")
+    cfg = _adapt_static_shapes(cfg, test_ds)
+    if dia:
+        trainer = DialogueTrainer(cfg, device, writer)
+        if cfg.do_eval:
+            return trainer.eval_dialogue_only(test_ds,
+                                              **_appendix_eval_kwargs(args))
+        return trainer.run_dialogue(build("train"), build("val"), test_ds,
+                                    resume=resume)
+    trainer = TextTrainer(cfg, device, writer)
+    if cfg.do_eval:
+        return trainer.eval_text_only(test_ds, **_appendix_eval_kwargs(args))
+    return trainer.run_text(build("train"), build("val"), test_ds,
+                            resume=resume)
+
+
 def _run_multimodal(args, cfg, device, writer) -> float:
+    """MELD T+A+V, T+A and T+V through the FER pipeline, or with --uttORdia
+    dia the dialogue-level model on the same files (vision = the pickle's
+    raw features)."""
     from facialmmt_tpu_torch.data.meld import MeldMultimodalDataset
     from facialmmt_tpu_torch.train.trainer import Trainer
 
@@ -419,6 +537,20 @@ def _run_multimodal(args, cfg, device, writer) -> float:
 
     test_ds = build_split("test")
     cfg = _adapt_static_shapes(cfg, test_ds)
+    if cfg.granularity == "dia":
+        from facialmmt_tpu_torch.data.meld import MeldDialogueDataset
+        from facialmmt_tpu_torch.train.trainer import DialogueTrainer
+
+        trainer = DialogueTrainer(cfg, device, writer)
+        dia_test = MeldDialogueDataset(test_ds)
+        if cfg.do_eval:
+            return trainer.eval_dialogue_only(dia_test,
+                                              **_appendix_eval_kwargs(args))
+        return trainer.run_dialogue(
+            MeldDialogueDataset(build_split("train")),
+            MeldDialogueDataset(build_split("val")), dia_test,
+            resume=bool(args.resume))
+
     trainer = Trainer(cfg, device, writer)
     if cfg.do_eval:
         print("Evaluating on the test set directly...")

@@ -1,8 +1,9 @@
 """End-to-end FacialMMT forward (counterpart of
 facialmmt_tpu/models/pipeline.py): Swin FER over the packed faces,
 gumbel-softmax, scatter to per-utterance slots, the frame-importance filter,
-then the fusion model.  The module's train / eval mode selects dropout,
-stochastic depth and BatchNorm batch statistics.
+then the fusion model (T+A+V, or the appendix's T+A and T+V, whose FER
+branch runs all the same, as in JAX).  The module's train / eval mode
+selects dropout, stochastic depth and BatchNorm batch statistics.
 
 Faces arrive packed contiguously in a static-capacity buffer `faces`
 (N, H, W, 3) with `face_utt_id` / `face_pos` slot maps (-1 = pad slot).

@@ -1,14 +1,18 @@
-"""Train and eval steps of the multi-task T+A+V run and of the V-only model
-(counterpart of facialmmt_tpu/train/steps.py).
+"""Train and eval steps of the multi-task T+A+V run, the V-only model and the
+appendix's text-feature and dialogue-level models (counterpart of
+facialmmt_tpu/train/steps.py).
 
-Each make_* returns a step function over a MultiTaskState or, for the V-only
-model, a SingleTaskState (train/optim.py), which is updated in place.  Reference semantics preserved:
+Each make_* returns a step function over a MultiTaskState or, for the
+single-model tasks, a SingleTaskState (train/optim.py), which is updated in
+place.  Reference semantics preserved:
   * the target-task step leaves Swin's weights alone (two-optimizer coupling,
     reference train.py:305-340) unless joint training is enabled; without
     joint training the Swin pass runs without a graph;
   * Swin's BatchNorm running statistics DO update during the target task
     (reference multimodal_train calls shareSwin_model.train(), train.py:47);
-  * loss is mean cross-entropy (torch nn.CrossEntropyLoss default).
+  * loss is mean cross-entropy (torch nn.CrossEntropyLoss default); the
+    dialogue-level model's is the mean over the utterances its dia_mask
+    keeps.
 On a CUDA device the forward runs under bf16 autocast (fp32 parameters,
 BatchNorm statistics and AdamW moments); on the CPU everything is fp32.
 """
@@ -187,5 +191,105 @@ def make_unimodal_eval_step(model: MeldUttTransformer, *,
         with compute_context(_device(model), compute_dtype):
             logits = model(feats, mask)
         return logits, cross_entropy(logits, labels)
+
+    return step
+
+
+# ------------------------------------------------------- dialogue-level task --
+
+def masked_cross_entropy(logits, labels, mask):
+    """Mean cross-entropy over the valid utterances only, the reference's
+    masked_select then CE over (num_valid_utt, C) ((Appendix)CCAC2023 train
+    loop)."""
+    ce = F.cross_entropy(logits.float().flatten(0, -2),
+                         labels.long().flatten(), reduction="none")
+    m = mask.float().flatten()
+    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _dialogue_logits(model, batch, generator=None):
+    return model(batch["dia_input_ids"], batch["dia_input_mask"],
+                 batch["dia_sep_mask"], batch["audio_inputs"],
+                 batch["audio_mask"], batch["vision_inputs"],
+                 batch["vision_mask"], batch["dia_mask"], generator=generator)
+
+
+def make_dialogue_train_step(model, *, compute_dtype: str = "bfloat16"):
+    """Step of DialogueMultiModalTransformer (models/dialogue.py): returns
+    step(state, batch, generator) -> loss over a SingleTaskState."""
+
+    def step(state: SingleTaskState, batch, generator=None):
+        model.train()
+        with compute_context(_device(model), compute_dtype):
+            logits = _dialogue_logits(model, batch, generator)
+        loss = masked_cross_entropy(logits, batch["labels"], batch["dia_mask"])
+        loss.backward()
+        state.opt.step()
+        state.step += 1
+        return loss.detach()
+
+    return step
+
+
+def make_dialogue_eval_step(model, *, compute_dtype: str = "bfloat16"):
+    """Returns step(batch) -> (logits (B, D, C), masked mean loss)."""
+
+    @torch.no_grad()
+    def step(batch):
+        model.eval()
+        with compute_context(_device(model), compute_dtype):
+            logits = _dialogue_logits(model, batch)
+        return logits, masked_cross_entropy(logits, batch["labels"],
+                                            batch["dia_mask"])
+
+    return step
+
+
+# ------------------------------------- feature-modality task (T, T+A, T+V) --
+
+def _feature_kwargs(batch):
+    """The precomputed-feature streams a batch carries (M3ED-style: vision is
+    the raw extractor features, no faces or FER branch; reference
+    (Appendix)CCAC2023/utils/dataset.py:165-302)."""
+    return {k: batch[k] for k in ("audio_inputs", "audio_mask",
+                                  "vision_inputs", "vision_mask")
+            if k in batch}
+
+
+def _text_logits(model, batch, generator=None):
+    return model(batch["dia_input_ids"], batch["dia_input_mask"],
+                 batch["dia_sep_mask"], utt_in_dia_idx=batch["utt_in_dia_idx"],
+                 dia_idx=batch.get("dia_idx"), generator=generator,
+                 **_feature_kwargs(batch))
+
+
+def make_text_train_step(model, *, compute_dtype: str = "bfloat16"):
+    """Step of the feature-modality paths (choice_modality 'T', and 'T+A' /
+    'T+V' / 'T+A+V' on precomputed features: the unused towers are not
+    built, models/multimodal.py): returns step(state, batch, generator) ->
+    loss over a SingleTaskState."""
+
+    def step(state: SingleTaskState, batch, generator=None):
+        model.train()
+        with compute_context(_device(model), compute_dtype):
+            logits = _text_logits(model, batch, generator)
+        loss = cross_entropy(logits, batch["labels"])
+        loss.backward()
+        state.opt.step()
+        state.step += 1
+        return loss.detach()
+
+    return step
+
+
+def make_text_eval_step(model, *, compute_dtype: str = "bfloat16"):
+    """Returns step(batch) -> (logits, loss)."""
+
+    @torch.no_grad()
+    def step(batch):
+        model.eval()
+        with compute_context(_device(model), compute_dtype):
+            logits = _text_logits(model, batch)
+        return logits, cross_entropy(logits, batch["labels"])
 
     return step

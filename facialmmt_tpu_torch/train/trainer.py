@@ -1,5 +1,7 @@
-"""The epoch loops of the multi-task T+A+V run and of the V-only model
-(counterpart of facialmmt_tpu/train/trainer.py; reference train.py:245-435).
+"""The epoch loops of the multi-task T+A+V run, the V-only model and the
+appendix's text-feature and dialogue-level models (counterpart of
+facialmmt_tpu/train/trainer.py; reference train.py:245-435 and
+(Appendix)CCAC2023/train.py:100-194).
 
 Per epoch: one auxiliary FER pass over Aff-Wild2-style image batches, one
 target pass over MELD utterance batches, validation, best-val-F1 model
@@ -30,6 +32,11 @@ backbone and a non-empty `pretrained_text_model_path` the HF text tower
 (`graft_subtree`, checkpoint/torch_load.py's loaders).  Progress lines and
 the JSON-lines records of `--metrics_path` go through a MetricWriter
 (utils/observability.py).
+
+TextTrainer and DialogueTrainer (the appendix) train one model with one
+optimizer over data/m3ed.py's datasets (or MeldDialogueDataset), select the
+best epoch by macro-F1, stop early on validation loss and, in their eval_*_only
+calls, write the competition CSV and the 'pred true' dump.
 
 Not ported yet: multi-device placement.  Datasets are any objects with the
 protocol of data/meld.py; the V-only loop takes MeldVisionDataset's.
@@ -629,3 +636,296 @@ class Trainer:
             logits_all.append(logits.float().cpu().numpy()[:n_valid])
             labels_all.append(np.asarray(batch["labels"])[:n_valid])
         return np.concatenate(logits_all), np.concatenate(labels_all)
+
+
+# ------------------------------------------------------------- appendix --
+
+class _SingleModelTrainer(Trainer):
+    """The loop the appendix's two trainers share (counterpart of the JAX
+    package's TextTrainer and DialogueTrainer, reference
+    (Appendix)CCAC2023/train.py:100-194): one model and one optimizer
+    (trg_lr, weight decay) over target batches, validation, the best model
+    by validation F1 (macro by default), early stopping on validation loss
+    (its counters written before the epoch's resume file), resume=True, and
+    a direct eval that restores the best file, predicts the test split in
+    dataset order and writes the submission CSV and the 'pred true' dump.
+    A subclass gives the model (_new_model), its steps (_steps) and its
+    predictions (_predict)."""
+
+    def _effective_batch(self) -> int:
+        opt = self.cfg.optim
+        if self.cfg.swin_from_target and opt.trg_accumulation_steps > 1:
+            return max(opt.trg_batch_size, 1)
+        return max(opt.trg_batch_size * opt.trg_accumulation_steps, 1)
+
+    def _new_model(self) -> torch.nn.Module:
+        raise NotImplementedError
+
+    def _steps(self, model):
+        raise NotImplementedError
+
+    def _predict(self, eval_step, ds, bsz: int):
+        raise NotImplementedError
+
+    def _build_single(self, state_dict=None, pretrained: bool = False):
+        """The model on the device with fp32 parameters: `state_dict`
+        (strict), or random weights from runtime.seed with, when
+        `pretrained`, the HF text tower of pretrained_text_model_path grafted
+        in."""
+        with torch.device(self.device):
+            model = self._new_model()
+        model.to(self.device).float()   # buffers made from numpy
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+            return model
+        init_random_(model, torch.Generator(self.device).manual_seed(
+            self.cfg.runtime.seed))
+        text = self._pretrained_text_tower() if pretrained else None
+        if text is not None:
+            tower = text_prefix(self.cfg) + "."
+            graft_subtree(model, {k[len(tower):]: v for k, v in text.items()},
+                          tower, "text tower")
+        return model
+
+    def _batch_to_device(self, batch):
+        return {k: self._to_device(v) for k, v in batch.items()}
+
+    def _run(self, train_ds, valid_ds, test_ds, use_macro_f1: bool = True,
+             resume: bool = False, on_event=None) -> float:
+        """Train from scratch (or resume=True from the newest resume file in
+        runtime.save_model_path), return the test F1 of the best-validation
+        model.  `on_event(name, **info)` as in run_multimodal: 'start',
+        'trg_step' (epoch, index, loss) and 'valid' (epoch)."""
+        from facialmmt_tpu_torch.train.metrics import macro_f1, weighted_f1
+
+        notify = on_event or (lambda name, **info: None)
+        cfg, opt = self.cfg, self.cfg.optim
+        model = self._build_single(pretrained=True)
+        bsz = self._effective_batch()
+        loader = PrefetchLoader(train_ds.get_batch, len(train_ds), bsz,
+                                shuffle=True, seed=cfg.runtime.seed)
+        state = SingleTaskState.create(model, opt,
+                                       opt.num_epochs * len(loader))
+        self.state = state
+        train_step, eval_step = self._steps(model)
+        metric = macro_f1 if use_macro_f1 else weighted_f1
+        ckpt = CheckpointManager(cfg.runtime.save_model_path)
+        best_f1 = -1.0
+        early = {"best_val_loss": float("inf"), "patience_counter": 0}
+        start_epoch, resume_batch = 1, 0
+        if resume:
+            bf, start_epoch, prog, early = self._restore_latest(
+                ckpt, state, {"batch": 0})
+            if bf is not None:
+                best_f1 = bf
+            resume_batch = prog["batch"]
+        notify("start")
+        self.history = []
+        for epoch in range(start_epoch, opt.num_epochs + 1):
+            start = time.time()
+            timer = StepTimer()
+            sb = resume_batch if epoch == start_epoch else 0
+            for i, (batch, n_valid) in enumerate(
+                    loader.epoch(epoch, start_batch=sb), start=sb):
+                loss = train_step(state, self._batch_to_device(batch),
+                                  self.generator)
+                timer.update(float(loss), n_valid)
+                notify("trg_step", epoch=epoch, index=i, loss=float(loss))
+                self._maybe_preempt(ckpt, state, best_f1, epoch,
+                                    {"batch": i + 1}, early)
+                if i % cfg.runtime.trg_log_interval == 0 and i > 0:
+                    ms, avg = timer.interval_stats(cfg.runtime.trg_log_interval)
+                    self.writer.log_train("TRG", epoch, i, len(loader), ms,
+                                          avg)
+                    timer.reset()
+            logits, labels, val_loss = self._predict(eval_step, valid_ds, bsz)
+            val_f1 = metric(labels, logits.argmax(-1))
+            self.writer.log_eval(epoch, (time.time() - start) / 3600, val_f1)
+            self.history.append({"epoch": epoch, "val_f1": val_f1,
+                                 "val_loss": val_loss})
+            notify("valid", epoch=epoch)
+            if val_f1 > best_f1:
+                best_f1 = val_f1
+                ckpt.save_best(model.state_dict(), epoch)
+            # the counters move BEFORE the epoch's resume file (exact resume)
+            if opt.patience > 0:
+                if val_loss < early["best_val_loss"]:
+                    early["best_val_loss"] = val_loss
+                    early["patience_counter"] = 0
+                else:
+                    early["patience_counter"] += 1
+            ckpt.save_step(self._ckpt_payload(state, best_f1, epoch,
+                                              {"batch": 0}, early), epoch)
+            if opt.patience > 0 and early["patience_counter"] >= opt.patience:
+                print(f"Validation loss has not descended for "
+                      f"{opt.patience} epochs. Stopping training.")
+                break
+
+        self.best_epoch, best = ckpt.restore_best()
+        model.load_state_dict(best, strict=True)
+        logits, labels, _ = self._predict(eval_step, test_ds, bsz)
+        test_f1 = metric(labels, logits.argmax(-1))
+        self.writer.log_test(test_f1)
+        return test_f1
+
+    def _eval_only(self, test_ds, ckpt_dir: Optional[str] = None,
+                   submission_template: str = "", submission_out: str = "",
+                   pred_dump_path: str = "",
+                   use_macro_f1: bool = True) -> float:
+        """Restore the best file of `ckpt_dir` (default
+        runtime.save_model_path), predict the test split in dataset order,
+        fill `submission_template` (argmax -> emotion names) into
+        `submission_out` (default <save_model_path>/nustm_submission.csv)
+        and write the 'pred true' dump to `pred_dump_path`, each when given
+        (reference (Appendix)CCAC2023/train.py:156-194, utils/
+        eval_metrics.py:22-35).  A template that does not exist raises
+        before anything is loaded."""
+        from facialmmt_tpu_torch.train.metrics import macro_f1, weighted_f1
+        from facialmmt_tpu_torch.utils.submission import (write_pred_true_dump,
+                                                          write_submission_csv)
+
+        if submission_template and not os.path.exists(submission_template):
+            raise FileNotFoundError(
+                f"--submission_template not found: {submission_template}")
+        cfg = self.cfg
+        _, best = CheckpointManager(
+            ckpt_dir or cfg.runtime.save_model_path).restore_best()
+        model = self._build_single(best)
+        _, eval_step = self._steps(model)
+        logits, labels, _ = self._predict(eval_step, test_ds,
+                                          self._effective_batch())
+        preds = logits.argmax(-1)
+        if submission_template:
+            out = submission_out or os.path.join(cfg.runtime.save_model_path,
+                                                 "nustm_submission.csv")
+            write_submission_csv(logits, submission_template, out)
+            print(f"submission written: {out}")
+        else:
+            print("no submission template: no submission CSV written")
+        if pred_dump_path:
+            correct = write_pred_true_dump(preds, labels, pred_dump_path)
+            print(f"pred/true dump: {pred_dump_path} "
+                  f"({correct}/{len(preds)} correct)")
+        metric = macro_f1 if use_macro_f1 else weighted_f1
+        test_f1 = metric(labels, preds)
+        self.writer.log_test(test_f1)
+        return test_f1
+
+
+class TextTrainer(_SingleModelTrainer):
+    """The feature-modality experiments: choice_modality 'T' (the appendix's
+    text-only model, reference (Appendix)CCAC2023/utils/dataset.py:112-147)
+    and 'T+A' / 'T+V' / 'T+A+V' on precomputed features (vision is the
+    extractor's raw features: no faces, no FER branch; reference :165-302),
+    over data/m3ed.py's utterance datasets."""
+
+    def _new_model(self):
+        from facialmmt_tpu_torch.models.multimodal import \
+            MultiModalTransformerForClassification
+
+        cfg = self.cfg
+        modality = (cfg.choice_modality if cfg.choice_modality in
+                    ("T", "T+A", "T+V", "T+A+V") else "T")
+        return MultiModalTransformerForClassification(
+            cfg.replace(choice_modality=modality),
+            vision_in_dim=cfg.data.vision_feat_dim)
+
+    def _steps(self, model):
+        from facialmmt_tpu_torch.train.steps import (make_text_eval_step,
+                                                     make_text_train_step)
+
+        dtype = self.cfg.runtime.compute_dtype
+        return (make_text_train_step(model, compute_dtype=dtype),
+                make_text_eval_step(model, compute_dtype=dtype))
+
+    def _predict(self, eval_step, ds, bsz: int):
+        """(logits (N, C), labels (N,), mean loss) over `ds` in order."""
+        loader = PrefetchLoader(ds.get_batch, len(ds), bsz, shuffle=False)
+        logits_all, labels_all = [], []
+        loss_sum, n_sum = 0.0, 0
+        for batch, n_valid in loader.epoch(0):
+            logits, loss = eval_step(self._batch_to_device(batch))
+            logits_all.append(logits.float().cpu().numpy()[:n_valid])
+            labels_all.append(np.asarray(batch["labels"])[:n_valid])
+            loss_sum += float(loss) * n_valid
+            n_sum += n_valid
+        return (np.concatenate(logits_all), np.concatenate(labels_all),
+                loss_sum / max(n_sum, 1))
+
+    def run_text(self, train_ds, valid_ds, test_ds, use_macro_f1: bool = True,
+                 resume: bool = False, on_event=None) -> float:
+        """Train (see _SingleModelTrainer._run); returns the test F1."""
+        return self._run(train_ds, valid_ds, test_ds,
+                         use_macro_f1=use_macro_f1, resume=resume,
+                         on_event=on_event)
+
+    def eval_text_only(self, test_ds, ckpt_dir: Optional[str] = None,
+                       submission_template: str = "",
+                       submission_out: str = "", pred_dump_path: str = "",
+                       use_macro_f1: bool = True) -> float:
+        """doEval of the utterance-level models, with the submission CSV and
+        the dump as the reference writes them for the utt granularity too
+        (reference (Appendix)CCAC2023/train.py:166-196)."""
+        return self._eval_only(test_ds, ckpt_dir, submission_template,
+                               submission_out, pred_dump_path, use_macro_f1)
+
+
+class DialogueTrainer(_SingleModelTrainer):
+    """The dialogue-level experiments (--uttORdia dia, reference
+    (Appendix)CCAC2023/train.py:100-194) over M3edDialogueDataset or
+    MeldDialogueDataset.  One sample is one dialogue: the batch is
+    trg_batch_size dialogues, without accumulation."""
+
+    def _effective_batch(self) -> int:
+        return max(self.cfg.optim.trg_batch_size, 1)
+
+    def _new_model(self):
+        from facialmmt_tpu_torch.models.dialogue import \
+            DialogueMultiModalTransformer
+
+        return DialogueMultiModalTransformer(self.cfg)
+
+    def _steps(self, model):
+        from facialmmt_tpu_torch.train.steps import (make_dialogue_eval_step,
+                                                     make_dialogue_train_step)
+
+        dtype = self.cfg.runtime.compute_dtype
+        return (make_dialogue_train_step(model, compute_dtype=dtype),
+                make_dialogue_eval_step(model, compute_dtype=dtype))
+
+    def _predict(self, eval_step, ds, bsz: int):
+        """(logits (U, C), labels (U,), mean loss) over the valid utterances
+        of `ds`, selected by dia_mask in dataset order: the order the
+        submission CSV expects (reference (Appendix)CCAC2023/
+        train.py:162-186)."""
+        loader = PrefetchLoader(ds.get_batch, len(ds), bsz, shuffle=False)
+        logits_all, labels_all = [], []
+        loss_sum, n_sum = 0.0, 0
+        for batch, n_valid in loader.epoch(0):
+            logits, loss = eval_step(self._batch_to_device(batch))
+            logits = logits.float().cpu().numpy()[:n_valid]
+            mask = np.asarray(batch["dia_mask"])[:n_valid].astype(bool)
+            logits_all.append(logits[mask])
+            labels_all.append(np.asarray(batch["labels"])[:n_valid][mask])
+            loss_sum += float(loss) * n_valid
+            n_sum += n_valid
+        return (np.concatenate(logits_all), np.concatenate(labels_all),
+                loss_sum / max(n_sum, 1))
+
+    def run_dialogue(self, train_ds, valid_ds, test_ds,
+                     use_macro_f1: bool = True, resume: bool = False,
+                     on_event=None) -> float:
+        """Train (see _SingleModelTrainer._run); returns the test F1."""
+        return self._run(train_ds, valid_ds, test_ds,
+                         use_macro_f1=use_macro_f1, resume=resume,
+                         on_event=on_event)
+
+    def eval_dialogue_only(self, test_ds, ckpt_dir: Optional[str] = None,
+                           submission_template: str = "",
+                           submission_out: str = "",
+                           pred_dump_path: str = "",
+                           use_macro_f1: bool = True) -> float:
+        """doEval of the dialogue-level model (reference
+        (Appendix)CCAC2023/train.py:156-194)."""
+        return self._eval_only(test_ds, ckpt_dir, submission_template,
+                               submission_out, pred_dump_path, use_macro_f1)

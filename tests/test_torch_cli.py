@@ -248,12 +248,6 @@ def test_config_from_args_equals_jax(argv):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--choice_modality", "T"], "modality subsets"),
-    (["--choice_modality", "T+A"], "modality subsets"),
-    (["--choice_modality", "T+V"], "modality subsets"),
-    (["--modalityFuse", "concat"], "concat fusion"),
-    (["--uttORdia", "dia"], "dialogue-level"),
-    (["--m3ed_project_path", "/data/m3ed"], "M3ED"),
     (["--swin_remat", "1"], "activation checkpointing"),
     (["--text_remat", "1"], "activation checkpointing"),
     (["--dp", "4"], "one device"),
@@ -266,6 +260,23 @@ def test_unported_flags_raise_before_data(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         port_main.run(["--data_load_path", str(tmp_path / "none"),
                        "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--choice_modality", "T"],
+    ["--choice_modality", "T+A"],
+    ["--choice_modality", "T+V"],
+    ["--modalityFuse", "concat"],
+    ["--uttORdia", "dia"],
+    ["--m3ed_project_path", "/data/m3ed"],
+])
+def test_appendix_flags_are_ported(argv):
+    """The appendix's flags pass the port's check and map to the JAX
+    package's config (tests/test_torch_appendix_cli.py runs them)."""
+    args = port_main.build_argparser().parse_args(argv)
+    port_main.check_ported(args)
+    assert port_main.config_from_args(args) == port_config(
+        jax_main.config_from_args(jax_main.build_argparser().parse_args(argv)))
 
 
 @pytest.mark.parametrize("argv, match", [

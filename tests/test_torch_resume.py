@@ -180,20 +180,29 @@ def _leaves(tree, prefix=""):
     return out
 
 
+OPTIM = dict(num_epochs=2, aux_batch_size=6, trg_batch_size=2,
+             trg_accumulation_steps=2, aux_lr=1e-2, trg_lr=1e-2)
+
+
+@pytest.fixture(scope="module")
+def uninterrupted(tmp_path_factory):
+    """Run A, the uninterrupted two-epoch run that every preemption point is
+    held against: (save directory, trainer, test F1)."""
+    save = tmp_path_factory.mktemp("uninterrupted")
+    a = Trainer(_config(save, **OPTIM), device="cpu")
+    return save, a, a.run_multimodal(*_datasets(a.cfg))
+
+
 @pytest.mark.parametrize("at", ["aux_step", "trg_step"])
-def test_exact_resume_matches_uninterrupted_run(tmp_path, at):
+def test_exact_resume_matches_uninterrupted_run(tmp_path, at, uninterrupted):
     """Two epochs with dropout and sampled gumbel noise.  Run B is preempted
     after the first step of epoch 1's auxiliary or target pass and resumed
     by a fresh Trainer; its epoch-2 resume file (parameters, BatchNorm
     statistics, both AdamW states and schedules, both step counts, the
     generator), its generator at the end and its test F1 equal run A's, bit
     for bit."""
-    optim = dict(num_epochs=2, aux_batch_size=6, trg_batch_size=2,
-                 trg_accumulation_steps=2, aux_lr=1e-2, trg_lr=1e-2)
-    cfg_a, cfg_b = _config(tmp_path / "a", **optim), _config(tmp_path / "b",
-                                                             **optim)
-    a = Trainer(cfg_a, device="cpu")
-    f1_a = a.run_multimodal(*_datasets(cfg_a))
+    save_a, a, f1_a = uninterrupted
+    cfg_b = _config(tmp_path / "b", **OPTIM)
 
     guard = preemption.install_preemption_guard()
     fired = []
@@ -224,7 +233,7 @@ def test_exact_resume_matches_uninterrupted_run(tmp_path, at):
         (b.state.swin_step, b.state.mm_step) == (4, 4)
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
     assert a.best_epoch == b.best_epoch
-    ra = CheckpointManager(str(tmp_path / "a")).restore("step_2")
+    ra = CheckpointManager(str(save_a)).restore("step_2")
     rb = CheckpointManager(str(tmp_path / "b")).restore("step_2")
     la, lb = _leaves(ra), _leaves(rb)
     assert sorted(la) == sorted(lb)

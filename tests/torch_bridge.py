@@ -8,7 +8,15 @@ the JAX one, and builds the port's from it here.
 import dataclasses
 import typing
 
+import torch
+
 from facialmmt_tpu_torch import config as port_config_module
+
+# One intra-op thread for the port's tests: every pytest-xdist worker imports
+# this module when it collects the test_torch_* files, and the workers share
+# the machine's cores, where torch's default of one thread per core in each
+# worker oversubscribes them several times over.
+torch.set_num_threads(1)
 
 
 def _build(cls, values: dict):
