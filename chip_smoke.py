@@ -117,7 +117,24 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      the second eval bit for bit with a byte-identical CSV in test order,
      one eval batch of the T and dialogue models on the card against fp32
      on the CPU; step-time medians, eval utterances/s and the dialogue
-     step's peak memory as smoke readings.
+     step's peak memory as smoke readings;
+ 12. the serving front end: (1, 12), (8, 64) and (32, 256) EmotionServers
+     with phase 4's weights (the same seed) and deterministic gumbel behind
+     one AsyncBatchServer (a bucket router).  A light request (to (1, 12)),
+     a 20-face request (to (8, 64)) and a burst of 32 mixed ones (0-16
+     faces, 64-512 tokens; it reaches (32, 256)): finite rows summing to 1,
+     each held to the solo prediction on the bucket its pack rode within
+     SERVING_BOUND, kernels 1, 2 and 3 launched exactly 24, 12 and 12 times
+     per dispatched pack and every other kernel never; benchmark_latency per
+     bucket; a closed burst of 256 default requests on (32, 256) alone at
+     pipeline_depth 1 and 2 (utterances/s; the shares of packs whose
+     build_pack started, and whose dispatch returned, while the pack before
+     still computed: the first 0 at depth 1 and above 0 at depth 2);
+     benchmark_load on the router at 10 utt/s and at half the depth-2 rate,
+     5 s each; the HTTP endpoint on a free port with 8 concurrent /predict
+     posts, their replies held to the direct front's answers, /healthz and
+     /stats; `python -m facialmmt_tpu_torch.streaming_demo --ticks 10` in a
+     process of its own.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -125,6 +142,7 @@ device is visible or the package is missing.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import json
@@ -2759,6 +2777,315 @@ def phase_appendix(torch, dev, gpu_name, root, extra=()):
     return paths
 
 
+FRONT_BUCKETS = ((1, 12), (8, 64), (32, 256))
+FRONT_BURST = 256          # default requests of the closed burst
+FRONT_LOAD_S = 5.0         # seconds of each open-load run
+FRONT_POSTS = 8            # concurrent /predict posts
+
+
+class DispatchProbe:
+    """Wraps one server's build_pack and predict_device, and asks whether
+    the event recorded after the previous pack's dispatch has fired at two
+    points of the next pack: when its build_pack starts (`at_build`), and
+    when its predict_device returns (`at_return`).  True in `at_build`
+    means the host built that pack while the one before still computed.
+    It also keeps each dispatch's host time and the time between
+    consecutive packs' events."""
+
+    def __init__(self, torch, server):
+        self.server = server
+        self.prev = None
+        self.at_build, self.at_return = [], []
+        self.dispatch_ms, self.events = [], []
+        build_pack, predict_device = server.build_pack, server.predict_device
+
+        def probed_build_pack(requests):
+            if self.prev is not None:
+                self.at_build.append(not self.prev.query())
+            return build_pack(requests)
+
+        def probed_predict_device(batch, faces_raw):
+            t0 = time.perf_counter()
+            out = predict_device(batch, faces_raw)
+            self.dispatch_ms.append((time.perf_counter() - t0) * 1000)
+            if self.prev is not None:
+                self.at_return.append(not self.prev.query())
+            self.prev = torch.cuda.Event(enable_timing=True)
+            self.prev.record()
+            self.events.append(self.prev)
+            return out
+
+        server.build_pack = probed_build_pack
+        server.predict_device = probed_predict_device
+
+    def close(self):
+        del self.server.build_pack, self.server.predict_device
+        if self.events:
+            self.events[-1].synchronize()
+        self.gap_ms = [a.elapsed_time(b)
+                       for a, b in zip(self.events, self.events[1:])]
+
+
+def require_front_launches(kernels, cfg, packs, where):
+    """Kernels 1, 2 and 3 exactly once per text layer / Swin block of every
+    dispatched pack, every other kernel never."""
+    got = kernels.launch_counts()
+    want = dict.fromkeys(got, 0)
+    want["fused_attention"] = cfg.text.num_layers * packs
+    want["fused_attention_block"] = sum(cfg.swin.depths) * packs
+    want["fused_ln_mlp_residual"] = sum(cfg.swin.depths) * packs
+    if got != want:
+        raise AssertionError(f"{where}: launches {got}, expected {want} for "
+                             f"{packs} packs")
+    return got
+
+
+def as_wire(req):
+    """The request with its features in float32, as an HTTP body carries
+    them, so that the direct and the HTTP path get the same bits."""
+    return {k: (v.astype(np.float32) if k in ("audio", "vision") else v)
+            for k, v in req.items()}
+
+
+def http_body(req):
+    faces = req["faces"]
+    return {"audio": req["audio"].tolist(), "vision": req["vision"].tolist(),
+            "faces": base64.b64encode(faces.tobytes()).decode(),
+            "faces_shape": list(faces.shape),
+            "input_ids": req["input_ids"].tolist(),
+            "sep_mask": req["sep_mask"].tolist(),
+            "utt_in_dia_idx": int(req["utt_in_dia_idx"])}
+
+
+def held_logits(what, got, want):
+    """got, want: probability rows; max|d| of the centred log-probabilities
+    <= SERVING_BOUND * max|logit|.  Returns max|d| of the probabilities."""
+    z_got, z_want = (np.log(p) - np.log(p).mean(-1, keepdims=True)
+                     for p in (np.asarray(got, np.float64),
+                               np.asarray(want, np.float64)))
+    diff = float(np.abs(z_got - z_want).max())
+    scale = float(np.abs(z_want).max())
+    if not (np.isfinite(z_got).all() and diff <= SERVING_BOUND * scale):
+        raise AssertionError(f"{what}: logits max|d| {diff} > "
+                             f"{SERVING_BOUND} * {scale}")
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max())
+
+
+def check_rows(what, rows, n, num_labels):
+    rows = np.stack(rows)
+    if not (rows.shape == (n, num_labels) and np.isfinite(rows).all()
+            and np.allclose(rows.sum(-1), 1.0, atol=1e-3)):
+        raise AssertionError(f"{what}: bad probabilities {rows}")
+    return rows
+
+
+def closed_burst(torch, cfg, server, requests, depth, gpu_name, what=""):
+    """Every request submitted at once to an AsyncBatchServer over `server`
+    alone at `depth`, under a DispatchProbe.  Prints and returns
+    (utterances/s, the share of packs built while the previous pack still
+    computed, the share of dispatches that returned while it still
+    computed)."""
+    from facialmmt_tpu_torch import serving
+    from facialmmt_tpu_torch.ops import kernels
+
+    probe = DispatchProbe(torch, server)
+    front = serving.AsyncBatchServer(server, pipeline_depth=depth)
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        futures = [front.submit(r) for r in requests]
+        outs = [f.result(timeout=300) for f in futures]
+        wall = time.perf_counter() - t0
+        require_front_launches(kernels, cfg, len(front.pack_sizes),
+                               f"the closed burst at depth {depth}")
+    finally:
+        front.close()
+        probe.close()
+    check_rows(f"closed burst, depth {depth}", outs, len(requests),
+               cfg.num_labels)
+    rate = len(requests) / wall
+    built, returned = (float(np.mean(x)) for x in (probe.at_build,
+                                                   probe.at_return))
+    print(f"front: closed burst of {len(requests)} default requests on "
+          f"{(server.max_batch, server.face_capacity)} alone{what}, "
+          f"pipeline_depth {depth}: {rate:.1f} utt/s ({wall:.3f} s, packs "
+          f"{front.pack_sizes}); the previous pack still computing when the "
+          f"next build_pack started: {sum(probe.at_build)} of "
+          f"{len(probe.at_build)} ({built:.2f}), when the next dispatch "
+          f"returned: {sum(probe.at_return)} of {len(probe.at_return)} "
+          f"({returned:.2f}); dispatch host ms median "
+          f"{statistics.median(probe.dispatch_ms):.2f}, event to event ms "
+          f"median {statistics.median(probe.gap_ms):.2f} on {gpu_name}")
+    return rate, built, returned
+
+
+def phase_front_end(torch, dev, gpu_name, cfg=None, demo_args=()):
+    """Phase 12: the serving front end.  `cfg` (default FacialMMTConfig()
+    with deterministic gumbel) and the demo's extra arguments are for a
+    rehearsal at small size on the CPU, with the FRONT_* sizes set there."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from facialmmt_tpu_torch import serving
+    from facialmmt_tpu_torch.config import FacialMMTConfig, RuntimeConfig
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.serve_http import serve
+
+    t_phase = time.perf_counter()
+    cfg = cfg or FacialMMTConfig().replace(
+        runtime=RuntimeConfig(deterministic_gumbel=True))
+    labels = cfg.num_labels
+    t0 = time.perf_counter()
+    servers = [serving.EmotionServer(cfg, max_batch=mb, face_capacity=cap,
+                                     device=dev) for mb, cap in FRONT_BUCKETS]
+    torch.cuda.synchronize()
+    by_bucket = {(s.max_batch, s.face_capacity): s for s in servers}
+    big = servers[-1]
+    print(f"front: buckets {list(FRONT_BUCKETS)}, one bf16 pipeline each "
+          f"(phase 4's weights: the same seed; deterministic gumbel), built "
+          f"and warmed in {time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # routing: a light request, a 20-face request, a burst of 32 mixed ones
+    rng = np.random.default_rng(12)
+    light = synthetic_requests(rng, cfg, [2], 64)[0]
+    heavy = synthetic_requests(rng, cfg, [20], 512)[0]
+    mixed = [synthetic_requests(rng, cfg, [int(rng.integers(0, 17))],
+                                int(rng.integers(64, 513)))[0]
+             for _ in range(32)]
+    front = serving.AsyncBatchServer(servers)
+    kernels.reset_launch_counts()
+    try:
+        outs = [front.submit(light).result(timeout=300),
+                front.submit(heavy).result(timeout=300)]
+        futures = [front.submit(r) for r in mixed]
+        outs += [f.result(timeout=300) for f in futures]
+        torch.cuda.synchronize()
+        launches = require_front_launches(kernels, cfg, len(front.pack_sizes),
+                                          "the front end's routing")
+    finally:
+        front.close()
+    reqs = [light, heavy] + mixed
+    check_rows("routing", outs, len(reqs), labels)
+    choices = front.bucket_choices
+    if (choices[:2] != list(FRONT_BUCKETS[:2])
+            or FRONT_BUCKETS[-1] not in choices[2:]):
+        raise AssertionError(f"routing: bucket choices {choices}")
+    # FIFO packs: request i rode the bucket of the pack holding it
+    rode = [b for b, n in zip(choices, front.pack_sizes) for _ in range(n)]
+    worst = max(held_logits(f"routing, request {i} on {b}", got,
+                            by_bucket[b].predict([r])[0])
+                for i, (r, got, b) in enumerate(zip(reqs, outs, rode)))
+    print(f"front: routing: {len(reqs)} requests in {len(choices)} packs "
+          f"{list(zip(front.pack_sizes, choices))}; every answer held to the "
+          f"solo prediction on its bucket (probabilities max|d| "
+          f"{worst:.3g}); launches "
+          f"{ {k: n for k, n in launches.items() if n} }, every other "
+          f"kernel 0")
+
+    for s in servers:
+        lat = s.benchmark_latency(10)
+        print(f"front: bucket {(s.max_batch, s.face_capacity)} "
+              f"benchmark_latency(10) p50 {lat['p50_ms']:.2f} ms, p99 "
+              f"{lat['p99_ms']:.2f} ms on {gpu_name}")
+
+    # a closed burst on the largest bucket alone, depth 1 then 2
+    wanted = [serving.default_load_request(cfg) for _ in range(FRONT_BURST)]
+    rates, built = {}, {}
+    for depth in (1, 2):
+        rates[depth], built[depth], _ = closed_burst(
+            torch, cfg, big, wanted, depth, gpu_name)
+
+    # open load on the router
+    for rate in (10.0, rates[2] / 2):
+        stats = serving.benchmark_load(servers, rate, duration_s=FRONT_LOAD_S,
+                                       seed=12)
+        if not (stats["n_requests"] > 0 and np.isfinite(stats["p99_ms"])):
+            raise AssertionError(f"open load at {rate}: {stats}")
+        print(f"front: benchmark_load on the router at {rate:.1f} utt/s "
+              f"for {FRONT_LOAD_S:.0f} s: achieved "
+              f"{stats['achieved_utt_per_s']:.2f} utt/s, p50 "
+              f"{stats['p50_ms']:.2f} ms, p99 "
+              f"{stats['p99_ms']:.2f} ms, mean fill "
+              f"{stats['mean_batch_fill']:.2f}, packs per bucket "
+              f"{stats['bucket_counts']}, {stats['n_requests']} requests on "
+              f"{gpu_name}")
+
+    # HTTP: concurrent posts against the same requests through the front
+    posts = [as_wire(r) for r in synthetic_requests(
+        rng, cfg, [int(rng.integers(0, 17)) for _ in range(FRONT_POSTS)],
+        200)]
+    front = serving.AsyncBatchServer(servers)
+    httpd, _ = serve(front, port=0, block=False)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health != {"ok": True, "buckets": [list(b) for b in FRONT_BUCKETS]}:
+            raise AssertionError(f"/healthz {health}")
+
+        def post(req):
+            body = json.dumps(http_body(req)).encode()
+            call = urllib.request.Request(
+                url + "/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(call, timeout=300) as r:
+                return json.loads(r.read())
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(FRONT_POSTS) as pool:
+            replies = list(pool.map(post, posts))
+        http_s = time.perf_counter() - t0
+        direct = [f.result(timeout=300) for f in
+                  [front.submit(r) for r in posts]]
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        front.close()
+    got = check_rows("HTTP", [np.asarray(r["probs"]) for r in replies],
+                     FRONT_POSTS, labels)
+    worst = max(held_logits(f"HTTP reply {i} against the direct front", g, d)
+                for i, (g, d) in enumerate(zip(got, direct)))
+    same = sum(bool((g == d).all()) for g, d in zip(got, direct))
+    if [r["label"] for r in replies] != [int(np.argmax(d)) for d in direct]:
+        raise AssertionError("HTTP labels differ from the direct front's")
+    print(f"front: HTTP: {FRONT_POSTS} concurrent /predict posts in "
+          f"{http_s * 1000:.1f} ms; replies against the direct front's "
+          f"answers: {same} of {FRONT_POSTS} bit for bit, max|d| "
+          f"{worst:.3g}, labels equal; /healthz {health['buckets']}; /stats "
+          f"{stats}")
+
+    # the streaming demo in its own process
+    t0 = time.perf_counter()
+    demo = subprocess.run(
+        [sys.executable, "-m", "facialmmt_tpu_torch.streaming_demo",
+         "--ticks", "10", *demo_args], cwd=ROOT, capture_output=True,
+        text=True, timeout=600, env={**os.environ, "PYTHONPATH": ROOT})
+    ticks = [line for line in demo.stdout.splitlines()
+             if line.startswith("tick ")]
+    p50 = [line for line in demo.stdout.splitlines() if "latency p50" in line]
+    if demo.returncode != 0 or len(ticks) != 10 or not p50:
+        raise AssertionError(f"streaming demo: rc {demo.returncode}\n"
+                             f"{demo.stdout[-2000:]}\n{demo.stderr[-2000:]}")
+    print(f"front: python -m facialmmt_tpu_torch.streaming_demo --ticks 10: "
+          f"exit 0 in {time.perf_counter() - t0:.1f} s, {p50[0].strip()} on "
+          f"{gpu_name}")
+    print(f"front: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    # depth 1 waits for a pack's rows before it builds the next pack; depth
+    # 2 must build while the pack before computes.  A dispatch cannot return
+    # before the pack before it ends: a (32, 256) pack queues about 2,700
+    # device operations, more than the launch queue holds, so the host
+    # blocks on it until the card has drained the previous pack (PERF.md)
+    if built[1] != 0 or not built[2] > 0:
+        raise AssertionError(f"closed burst: packs built while the previous "
+                             f"one computed: {built[1]:.2f} at depth 1 "
+                             f"(expected 0), {built[2]:.2f} at depth 2 "
+                             f"(expected > 0)")
+    return {"serving_front": launches}
+
+
 def main(json_out: str = "") -> int:
     """`json_out`: where to write the per-shape kernel times and the launch
     counts per path, if anywhere."""
@@ -2817,6 +3144,8 @@ def main(json_out: str = "") -> int:
                                      run["step_times"]))
         torch.cuda.empty_cache()
         paths.update(phase_appendix(torch, dev, gpu_name, cli_root))
+    torch.cuda.empty_cache()
+    paths.update(phase_front_end(torch, dev, gpu_name))
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)

@@ -31,6 +31,8 @@ import math
 import numpy as np
 import torch
 
+from facialmmt_tpu_torch.ops.kernels import to_device_async
+
 
 def _keys_cubic(x):
     f = np.float32
@@ -72,16 +74,20 @@ def resize_batch(images, size: int):
     n, h, w, c = x.shape
     if h == size and w == size:
         return x
-    wh = torch.from_numpy(resize_weights(h, size)).to(x.device)
-    ww = torch.from_numpy(resize_weights(w, size)).to(x.device)
+    wh = to_device_async(torch.from_numpy(resize_weights(h, size)),
+                         x.device)
+    ww = to_device_async(torch.from_numpy(resize_weights(w, size)),
+                         x.device)
     x = torch.einsum("oh,nhwc->nowc", wh, x)
     return torch.einsum("pw,nowc->nopc", ww, x)
 
 
 def normalize_images(images, mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5)):
     """[0, 255] floats -> ((x / 255) - mean) / std."""
-    m = torch.tensor(mean, dtype=images.dtype, device=images.device)
-    s = torch.tensor(std, dtype=images.dtype, device=images.device)
+    m = to_device_async(torch.tensor(mean, dtype=images.dtype),
+                        images.device)
+    s = to_device_async(torch.tensor(std, dtype=images.dtype),
+                        images.device)
     return (images / 255.0 - m) / s
 
 
@@ -97,7 +103,8 @@ _LUMA = (0.299, 0.587, 0.114)
 
 def grayscale(images):
     """ITU-R 601 luma replicated to 3 channels.  images float in [0, 255]."""
-    luma = torch.tensor(_LUMA, dtype=images.dtype, device=images.device)
+    luma = to_device_async(torch.tensor(_LUMA, dtype=images.dtype),
+                           images.device)
     return (images * luma).sum(-1, keepdim=True).expand(images.shape)
 
 

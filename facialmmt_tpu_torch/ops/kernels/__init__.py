@@ -157,6 +157,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def to_device_async(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device` without the host waiting.  A blocking
+    host-to-device copy synchronizes the stream, so the caller would wait for
+    all the work queued before it (a serving pack's dispatch for the pack
+    before it), and a copy from pageable memory is synchronous with respect
+    to the host in any case: on the card the tensor is staged in page-locked
+    memory first.  The caching host allocator hands the pinned block out
+    again only once the copy from it has completed."""
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a C entry point reported a CUDA error (its launch never ran)."""
     if err != 0:

@@ -1,5 +1,5 @@
-"""Fixed-shape batched serving (counterpart of facialmmt_tpu/serving.py's
-EmotionServer).
+"""Fixed-shape batched serving (counterpart of facialmmt_tpu/serving.py):
+EmotionServer, the AsyncBatchServer front end and benchmark_load.
 
 Variable-size requests are padded on the host into one static pack:
   * up to `max_batch` utterances per call;
@@ -10,21 +10,30 @@ each call copies the pack over, runs the eval transform and the pipeline, and
 returns softmax probability rows.  The eval-time gumbel draw is sampled from
 a torch.Generator on the device, seeded from runtime.seed, unless
 runtime.deterministic_gumbel is set.
+
+AsyncBatchServer packs concurrent requests into those static shapes on one
+packer thread, optionally routing each pack to the smallest of several
+servers (buckets) that fits it; benchmark_load drives it with Poisson
+arrivals.
 """
 
 from __future__ import annotations
 
+import collections
+import queue as queue_mod
+import threading
 import time
-from typing import Dict
+from concurrent.futures import Future
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from facialmmt_tpu_torch.config import FacialMMTConfig
 from facialmmt_tpu_torch.data.image_pipeline import meld_face_eval_transform
-from facialmmt_tpu_torch.data.meld import FaceCapacityError  # noqa: F401
+from facialmmt_tpu_torch.data.meld import FaceCapacityError
 from facialmmt_tpu_torch.models.pipeline import build_pipeline
-from facialmmt_tpu_torch.ops.kernels import resolve_device
+from facialmmt_tpu_torch.ops.kernels import resolve_device, to_device_async
 
 FACE_SHAPE = (160, 160, 3)
 
@@ -77,13 +86,18 @@ class EmotionServer:
     def predict_device(self, batch: Dict[str, np.ndarray],
                        faces_raw: np.ndarray) -> torch.Tensor:
         """Run one pack; returns the (max_batch, num_labels) probability rows
-        on the device without waiting for them."""
-        dev = self.device
-        full = {k: torch.from_numpy(np.asarray(v)).to(dev, non_blocking=True)
-                for k, v in batch.items()}
+        on the device without waiting for them: the copies and kernels are
+        queued on the current stream behind the pack before, so the caller
+        can build the next pack while this one computes (AsyncBatchServer's
+        pipeline depends on this).  The host blocks only where the card's
+        launch queue is full, which a full-width pack's device operations
+        outnumber."""
+        full = {k: to_device_async(torch.from_numpy(np.asarray(v)),
+                                   self.device) for k, v in batch.items()}
         full["audio_inputs"] = full["audio_inputs"].float()
         full["vision_feats"] = full["vision_feats"].float()
-        faces = torch.from_numpy(np.asarray(faces_raw)).to(dev)
+        faces = to_device_async(torch.from_numpy(np.asarray(faces_raw)),
+                                self.device)
         full["faces"] = meld_face_eval_transform(
             faces.float(), self.cfg.data.swin_img_size).to(self.dtype)
         logits = self.model(full, generator=self.generator)
@@ -166,3 +180,292 @@ class EmotionServer:
         return {"p50_ms": float(np.percentile(arr, 50)),
                 "p99_ms": float(np.percentile(arr, 99)),
                 "mean_ms": float(arr.mean())}
+
+
+def _start_readback(probs):
+    """(rows, done) for a dispatched pack.  A CUDA tensor's copy to the host
+    is queued right behind the pack, into page-locked memory, with an event
+    after it: the packer waits for that event alone.  A `.cpu()` issued when
+    the pack is resolved would be queued behind every pack dispatched since
+    on the same stream and wait for them too, which serializes the pipeline.
+    Anything else (a CPU tensor, an array-like whose `__array__` waits) is
+    returned as it is, with no event."""
+    if isinstance(probs, torch.Tensor) and probs.is_cuda:
+        rows = probs.to("cpu", non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return rows, done
+    return probs, None
+
+
+class AsyncBatchServer:
+    """Concurrent front end for EmotionServer: a request queue and a packer
+    thread (counterpart of facialmmt_tpu/serving.py's AsyncBatchServer).
+
+    The packer drains up to max_batch queued requests (within the packed-face
+    capacity) into ONE fixed-shape inference, waiting at most
+    `batch_deadline_ms` from the first pending request before it dispatches
+    a partial pack.
+
+    `server` may also be a SEQUENCE of EmotionServers with the same weights
+    (a bucket ROUTER): each pack dispatches on the smallest bucket it fits,
+    so light load rides the small bucket's latency and saturated load the
+    big bucket's throughput.  Under the 'backlog' boundary policy a pack
+    grows past a bucket boundary only when the waiting backlog can fill the
+    larger bucket (see `_run`); 'greedy' always fills toward the largest.
+    `pack_sizes` and `bucket_choices` record each pack's fill and its
+    (max_batch, face_capacity).
+
+    submit() returns a concurrent.futures.Future resolving to the request's
+    probability vector.  One packer thread owns every device call, so device
+    calls are serialized, and up to `pipeline_depth` packs are in flight
+    before the packer waits for the oldest one's rows.
+    """
+
+    def __init__(self, server, batch_deadline_ms: float = 5.0,
+                 pipeline_depth: int = 2, boundary_policy: str = "backlog"):
+        servers = (list(server) if isinstance(server, (list, tuple))
+                   else [server])
+        # smallest-first: the router picks the FIRST bucket that fits a pack
+        self.servers = sorted(
+            servers, key=lambda s: (s.max_batch, s.face_capacity))
+        # the largest bucket bounds the packer's drain loop
+        self.server = self.servers[-1]
+        self.deadline = batch_deadline_ms / 1000.0
+        # with depth 2 the NEXT pack's host padding and staging overlap the
+        # CURRENT pack's device compute
+        self.pipeline_depth = max(1, pipeline_depth)
+        if boundary_policy not in ("backlog", "greedy"):
+            raise ValueError(f"boundary_policy {boundary_policy!r}: expected "
+                             f"'backlog' or 'greedy'")
+        self.boundary_policy = boundary_policy
+        self._q: queue_mod.Queue = queue_mod.Queue()
+        self._holdover = collections.deque()  # didn't fit the last pack
+        self._stop = threading.Event()
+        self.pack_sizes: list = []
+        self.bucket_choices: list = []
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def submit(self, request: Dict[str, Any]) -> Future:
+        fut: Future = Future()
+        if self._stop.is_set():
+            fut.set_exception(RuntimeError("AsyncBatchServer is closed"))
+            return fut
+        self._q.put((request, fut))
+        # close() may have drained between the check above and the put: a
+        # submit racing past its final sweep must not return a future nobody
+        # will resolve
+        if self._stop.is_set():
+            self._fail_queued()
+        return fut
+
+    def _fail_queued(self):
+        while True:
+            try:
+                _, fut = self._q.get_nowait()
+            except queue_mod.Empty:
+                return
+            if not fut.done():
+                fut.set_exception(RuntimeError("AsyncBatchServer is closed"))
+
+    def close(self):
+        """Stop the packer.  In-flight packs resolve normally; requests still
+        queued (or submitted after close) fail with RuntimeError rather than
+        stranding their futures until the caller's timeout."""
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        self._fail_queued()
+
+    def _faces_of(self, request) -> int:
+        faces = request.get("faces")
+        if faces is None:
+            return 0
+        return self.server.face_take(faces)
+
+    def _bucket_for(self, n: int, faces: int):
+        """Smallest bucket fitting a pack of `n` requests / `faces` face
+        slots; None when even the largest does not fit."""
+        return next((s for s in self.servers
+                     if n <= s.max_batch and faces <= s.face_capacity), None)
+
+    def _next_item(self, timeout):
+        if self._holdover:
+            return self._holdover.popleft()
+        try:
+            return self._q.get(timeout=timeout)
+        except queue_mod.Empty:
+            return None
+
+    def _resolve(self, pack, readback):
+        rows, done = readback
+        try:
+            if done is not None:
+                done.synchronize()  # this pack's rows are on the host
+            probs = (rows.numpy() if isinstance(rows, torch.Tensor)
+                     else np.asarray(rows))
+        except Exception as e:  # surface to every waiting caller
+            for _, fut in pack:
+                fut.set_exception(e)
+            return
+        for j, (_, fut) in enumerate(pack):
+            fut.set_result(probs[j])
+
+    def _run(self):
+        inflight = collections.deque()  # (pack, readback)
+        while not self._stop.is_set():
+            first = self._next_item(timeout=0.05)
+            if first is None:
+                while inflight:  # idle: drain the pipeline
+                    self._resolve(*inflight.popleft())
+                continue
+            pack, faces = [first], self._faces_of(first[0])
+            t0 = time.perf_counter()
+            while len(pack) < self.server.max_batch:
+                left = self.deadline - (time.perf_counter() - t0)
+                if left <= 0:
+                    break
+                item = self._next_item(timeout=left)
+                if item is None:
+                    break
+                need = self._faces_of(item[0])
+                if faces + need > self.server.face_capacity:
+                    self._holdover.append(item)  # leads the next pack
+                    break
+                b_cur = self._bucket_for(len(pack), faces)
+                b_new = self._bucket_for(len(pack) + 1, faces + need)
+                if (self.boundary_policy == "backlog"
+                        and b_cur is not None and b_new is not b_cur):
+                    # bucket boundary: the larger bucket only earns its step
+                    # time dispatched (nearly) full, so escalate only when
+                    # the backlog can fill it; otherwise dispatch the smaller
+                    # bucket now and let this item lead the next pack.  Fill
+                    # is counted in request slots only.
+                    backlog = self._q.qsize() + len(self._holdover)
+                    if backlog < b_new.max_batch - len(pack) - 1:
+                        self._holdover.append(item)
+                        break
+                pack.append(item)
+                faces += need
+            self.pack_sizes.append(len(pack))
+            chosen = self._bucket_for(len(pack), faces)
+            if chosen is None:
+                # only a SINGLE request whose faces exceed every bucket's
+                # buffer gets here (the drain loop bounds multi-request packs
+                # by the largest bucket): fail that request and keep serving,
+                # since a raise would kill the packer thread
+                for _, fut in pack:
+                    fut.set_exception(FaceCapacityError(
+                        faces, self.server.face_capacity, "serving"))
+                continue
+            self.bucket_choices.append((chosen.max_batch,
+                                        chosen.face_capacity))
+            try:
+                batch, faces_raw = chosen.build_pack([r for r, _ in pack])
+                readback = _start_readback(
+                    chosen.predict_device(batch, faces_raw))
+            except Exception as e:  # surface to every waiting caller
+                for _, fut in pack:
+                    fut.set_exception(e)
+                continue
+            inflight.append((pack, readback))
+            # keep the pipe full only under back-pressure: with nothing
+            # queued, resolve now so light-load latency matches a serial
+            # packer
+            while (len(inflight) >= self.pipeline_depth or
+                   (inflight and self._q.empty() and not self._holdover)):
+                self._resolve(*inflight.popleft())
+        while inflight:
+            self._resolve(*inflight.popleft())
+        # fail, don't strand, anything still queued at close()
+        leftovers = list(self._holdover)
+        self._holdover.clear()
+        while True:
+            try:
+                leftovers.append(self._q.get_nowait())
+            except queue_mod.Empty:
+                break
+        for _, fut in leftovers:
+            fut.set_exception(RuntimeError("AsyncBatchServer closed with "
+                                           "the request still queued"))
+
+
+def default_load_request(cfg: FacialMMTConfig) -> Dict[str, np.ndarray]:
+    """benchmark_load's request: 16 tokens, full-length audio and vision
+    features and 8 face crops, all zeros."""
+    d = cfg.data
+    return {
+        "input_ids": np.ones(16, np.int32),
+        "audio": np.zeros((d.audio_utt_max_len, d.audio_feat_dim),
+                          np.float32),
+        "vision": np.zeros((d.vision_utt_max_len, d.vision_feat_dim),
+                           np.float32),
+        "faces": np.zeros((8,) + FACE_SHAPE, np.uint8),
+    }
+
+
+def benchmark_load(server, rate_utt_per_s: float, duration_s: float = 10.0,
+                   seed: int = 0, batch_deadline_ms: float = 5.0,
+                   make_request=None,
+                   boundary_policy: str = "backlog") -> Dict[str, Any]:
+    """Drive an AsyncBatchServer over `server` (one EmotionServer or a
+    sequence: a router) with Poisson arrivals at `rate_utt_per_s` for
+    `duration_s`, and report the achieved throughput, end-to-end request
+    latency (queue wait + packing deadline + device step) and batch fill;
+    behind a router also the packs per bucket."""
+    front = AsyncBatchServer(server, batch_deadline_ms=batch_deadline_ms,
+                             boundary_policy=boundary_policy)
+    rng = np.random.default_rng(seed)
+    if make_request is None:
+        def make_request(i):
+            return default_load_request(front.server.cfg)
+
+    lat_lock = threading.Lock()
+    latencies: list = []
+    futures: list = []
+
+    def on_done(t_submit):
+        def cb(fut):
+            if fut.exception() is None:
+                with lat_lock:
+                    latencies.append(time.perf_counter() - t_submit)
+        return cb
+
+    t_start = time.perf_counter()
+    i = 0
+    next_t = 0.0
+    while True:
+        now = time.perf_counter() - t_start
+        if now >= duration_s:
+            break
+        if now < next_t:
+            time.sleep(min(next_t - now, 0.01))
+            continue
+        t_submit = time.perf_counter()
+        fut = front.submit(make_request(i))
+        fut.add_done_callback(on_done(t_submit))
+        futures.append(fut)
+        i += 1
+        next_t += rng.exponential(1.0 / rate_utt_per_s)
+    for fut in futures:
+        fut.result(timeout=60.0)
+    wall = time.perf_counter() - t_start
+    front.close()
+    arr = np.asarray(latencies) * 1000
+    stats = {
+        "offered_rate": rate_utt_per_s,
+        "achieved_utt_per_s": len(latencies) / wall,
+        "p50_ms": float(np.percentile(arr, 50)),
+        "p99_ms": float(np.percentile(arr, 99)),
+        "mean_batch_fill": float(np.mean(front.pack_sizes)),
+        "n_requests": len(latencies),
+    }
+    if len(front.servers) > 1:
+        stats["bucket_counts"] = bucket_counts(front.bucket_choices)
+    return stats
+
+
+def bucket_counts(choices) -> Dict[str, int]:
+    """{"max_batch,face_capacity": packs} over a front's bucket_choices."""
+    return {f"{mb},{cap}": n for (mb, cap), n in sorted(
+        collections.Counter(choices).items())}
