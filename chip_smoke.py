@@ -134,7 +134,26 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      5 s each; the HTTP endpoint on a free port with 8 concurrent /predict
      posts, their replies held to the direct front's answers, /healthz and
      /stats; `python -m facialmmt_tpu_torch.streaming_demo --ticks 10` in a
-     process of its own.
+     process of its own;
+ 13. remat and multi-device runs (phase_remat_mesh; experiments/
+     torch_remat_mesh.py runs it alone): (a) one auxiliary batch (150
+     images, drop-path on) through the Swin FER model with and without
+     SwinConfig.remat, on the default route and on ('xla', 'xla',
+     'window'): loss, gradients, BatchNorm statistics and generator bit for
+     bit, kernels 2 / 3 launched 24 / 24 under remat (12 / 12 without) and
+     4-6 unchanged; peak memory and step time of each; (b) the target
+     step's forward and backward (4 utterances, every dropout on) with and
+     without TextEncoderConfig.remat: the gradients and generator state of
+     the step without it; (c) two rank processes sharing the card over gloo
+     (NCCL takes one rank a card): one auxiliary and one target step of a
+     Trainer at dp=2 (ZeRO-1 on) against the one-process steps (losses
+     within 1e-2, the generator state equal, the first moments of eight
+     groups of leaves within MESH_GRAD_BOUND of their group's largest, which
+     the same steps with the data ranks' gradient sum skipped must exceed),
+     and an EmotionServer at tp=2 whose text attention is kernel 1 on half
+     the heads, 24 launches a pack, its logits within SERVING_BOUND of a
+     one-rank server's; (d) a rank process that runs the same steps without
+     a plan and then at dp=1 on a one-rank NCCL group: bit for bit.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -3086,6 +3105,580 @@ def phase_front_end(torch, dev, gpu_name, cfg=None, demo_args=()):
     return {"serving_front": launches}
 
 
+
+# --------------------------------------------------------------- phase 13 --
+
+REMAT_ROUTES = (("auto", "auto", "auto"), ("xla", "xla", "window"))
+MESH_TIMEOUT = 600        # seconds for the rank processes of phase 13
+# a dp=2 step's first moments against one process's, per leaf, as a share
+# of the largest in its group: the two runs split the same sums otherwise,
+# and bf16 rounding amplified through the head's ReLU gates and batch
+# statistics puts them up to 0.094 apart (the Swin's last block; the text,
+# audio, crossmodal and classifier groups 0.003-0.006), while the same
+# steps without the gradient sum over the data ranks, which phase 13 runs
+# as its control, sit 0.84-1.69 apart in every group (NVIDIA H100 80GB
+# HBM3, 700 W; fp32 on the CPU: 1e-7 - 2e-6 against 0.61-2.30)
+MESH_GRAD_BOUND = 0.25
+
+
+def require_counts(launches, want, where):
+    """Every kernel of `want` launched exactly that many times."""
+    wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    if wrong:
+        raise AssertionError(f"{where}: launches {wrong}, expected "
+                             f"{ {k: want[k] for k in wrong} }")
+
+
+def sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def phase_remat_mesh(torch, dev, gpu_name, cfg=None):
+    """Phase 13: remat (a, b), two ranks on the one card (c) and a one-rank
+    NCCL group (d).  Returns the launch counts of its paths."""
+    from facialmmt_tpu_torch.config import FacialMMTConfig
+
+    cfg = cfg or FacialMMTConfig()
+    paths = {"remat_aux": remat_aux(torch, dev, gpu_name, cfg)}
+    torch.cuda.empty_cache()
+    paths["remat_text_target"] = remat_text(torch, dev, gpu_name, cfg)
+    torch.cuda.empty_cache()
+    paths.update(mesh_runs(torch, dev, gpu_name, cfg))
+    return paths
+
+
+def remat_aux(torch, dev, gpu_name, cfg):
+    """(a) One auxiliary batch (150 images, drop-path on) through the Swin
+    FER model with and without SwinConfig.remat, on the default route and
+    on ('xla', 'xla', 'window'): loss, every gradient, the BatchNorm
+    statistics and the generator after it equal bit for bit on the default
+    route (within 1e-3 of max elsewhere); kernels 2 and 3 launch twice a
+    block under remat, the backward kernels as often as without.  Peak
+    memory of that forward + backward and the median of three full steps
+    (forward, backward, clip + AdamW) per case."""
+    from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
+    from facialmmt_tpu_torch.data.meld import SyntheticFerDataset
+    from facialmmt_tpu_torch.models.pipeline import init_random_
+    from facialmmt_tpu_torch.models.swin_fer import \
+        SwinForAffwildClassification
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.optim import make_optimizer
+    from facialmmt_tpu_torch.train.steps import compute_context, cross_entropy
+
+    with torch.device(dev):
+        model = SwinForAffwildClassification(cfg)
+    model.to(dev)
+    init_random_(model, torch.Generator(dev).manual_seed(cfg.runtime.seed))
+    model.train()
+    opt = make_optimizer(model.parameters(), cfg.optim, cfg.optim.aux_lr, 10)
+    images_np, labels_np = SyntheticFerDataset(
+        AUX_IMAGES, 112, cfg.num_labels, seed=21).get_batch(range(AUX_IMAGES))
+    images = affwild2_train_augment(
+        torch.Generator(dev).manual_seed(3),
+        torch.from_numpy(images_np).to(dev).float(),
+        img_size=cfg.data.swin_img_size)
+    labels = torch.from_numpy(labels_np).to(dev)
+    start = snapshot(model)
+    blocks = sum(cfg.swin.depths)
+    dtype = cfg.runtime.compute_dtype
+
+    def loss_of(gen):
+        with compute_context(dev, dtype):
+            return cross_entropy(model(images, generator=gen), labels)
+
+    def run(route, remat):
+        model.load_state_dict(start)
+        model.swin.cfg = dataclasses.replace(
+            cfg.swin, attention_impl=route[0], mlp_impl=route[1],
+            remat=remat)
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(dev).manual_seed(5)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        loss = loss_of(gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        out = {"peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "resident": resident, "launches": kernels.launch_counts(),
+               "loss": loss.detach(), "gen": gen.get_state(),
+               "grads": {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()},
+               "state": snapshot(model)}
+        model.zero_grad(set_to_none=True)
+        times = []
+        for _ in range(3):
+            def step():
+                loss_of(gen).backward()
+                opt.step()
+            times.append(timed_ms(torch, step)[1])
+        out["ms"] = statistics.median(times)
+        return out
+
+    paths = None
+    for route in REMAT_ROUTES:
+        if route[2] not in ("auto", model.swin.merge_layout):
+            raise AssertionError(f"the module merges in layout "
+                                 f"{model.swin.merge_layout}, not {route[2]}")
+        plain, remat = run(route, False), run(route, True)
+        worst = 0.0
+        for name in plain["grads"]:
+            a, b = plain["grads"][name], remat["grads"][name]
+            worst = max(worst, float((a - b).abs().max())
+                        / max(float(a.abs().max()), 1e-30))
+        same = (torch.equal(plain["loss"], remat["loss"])
+                and worst == 0.0
+                and all(torch.equal(plain["state"][k], remat["state"][k])
+                        for k in plain["state"])
+                and torch.equal(plain["gen"], remat["gen"]))
+        if route == REMAT_ROUTES[0]:
+            if not same:
+                raise AssertionError(f"remat on {route}: not bit for bit "
+                                     f"(worst gradient {worst:.3g})")
+            doubled = ("fused_attention_block", "fused_ln_mlp_residual")
+            require_counts(plain["launches"], dict.fromkeys(doubled, blocks),
+                           "the aux step without remat")
+            require_counts(remat["launches"], {
+                k: (2 * n if k in doubled else n)
+                for k, n in plain["launches"].items()}, "the remat aux step")
+            paths = remat["launches"]
+        elif not (worst <= 1e-3 and torch.equal(plain["gen"], remat["gen"])):
+            raise AssertionError(f"remat on {route}: worst gradient "
+                                 f"{worst:.3g}")
+        print(f"remat: aux step ({AUX_IMAGES} images, route {route}) with "
+              f"SwinConfig.remat vs without: "
+              f"{'bit for bit' if same else f'worst gradient {worst:.3g}'} "
+              f"(loss, {len(plain['grads'])} gradients, BatchNorm "
+              f"statistics, generator); peak memory {plain['peak']:.2f} -> "
+              f"{remat['peak']:.2f} GiB ({plain['resident']:.2f} GiB "
+              f"resident), step {plain['ms']:.1f} -> {remat['ms']:.1f} ms; "
+              f"launches {remat['launches']} on {gpu_name}")
+    del model, opt
+    return paths
+
+
+def remat_text(torch, dev, gpu_name, cfg):
+    """(b) One target step's forward and backward of the pipeline (4
+    utterances, 64-face bucket, every dropout on, sampled gumbel) with and
+    without TextEncoderConfig.remat: the same loss, gradients and generator
+    state after it.  The step without remat runs twice (before and after):
+    where those two agree bit for bit, remat must too; peak memory and the
+    median of three forward + backward times."""
+    from facialmmt_tpu_torch.data.meld import SyntheticMeldDataset
+    from facialmmt_tpu_torch.models.multimodal import text_prefix
+    from facialmmt_tpu_torch.models.pipeline import build_pipeline
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.steps import compute_context, cross_entropy
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    tcfg = cfg.replace(optim=dataclasses.replace(
+        cfg.optim, trg_batch_size=4, trg_accumulation_steps=1))
+    trainer = Trainer(tcfg, device=dev)
+    model = build_pipeline(tcfg, dev).float().train()
+    ds = SyntheticMeldDataset(tcfg, 4, 2, [8, 7, 9, 8], seed=12,
+                              split="train")
+    batch = trainer._batch_with_escalation(
+        lambda cap: ds.get_batch(range(4), face_capacity=cap),
+        trainer._face_buckets(4))
+    device_batch = trainer._prepare_faces(batch, train=True)
+    tower = getattr(model.multimodal, text_prefix(tcfg))
+    if tower.cfg.hidden_dropout_prob <= 0:
+        raise AssertionError("the text tower's dropout is off")
+    start = snapshot(model)
+    dtype = tcfg.runtime.compute_dtype
+
+    def loss_of(gen):
+        with compute_context(dev, dtype):
+            logits = model(device_batch, generator=gen,
+                           stop_swin_gradient=True)
+        return cross_entropy(logits, device_batch["labels"])
+
+    def run(remat):
+        model.load_state_dict(start)
+        tower.cfg = dataclasses.replace(tower.cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(dev).manual_seed(9)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = loss_of(gen)
+        loss.backward()
+        torch.cuda.synchronize()
+        out = {"peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": kernels.launch_counts(), "loss": loss.detach(),
+               "gen": gen.get_state(),
+               "grads": {n: p.grad.detach().clone() for n, p in
+                         model.multimodal.named_parameters()
+                         if p.grad is not None}}
+        model.zero_grad(set_to_none=True)
+        times = []
+        for _ in range(3):
+            times.append(timed_ms(torch, lambda: loss_of(gen).backward())[1])
+            model.zero_grad(set_to_none=True)
+        out["ms"] = statistics.median(times)
+        return out
+
+    plain, remat, again = run(False), run(True), run(False)
+
+    def worst(a, b):
+        return max(float((a["grads"][k] - b["grads"][k]).abs().max())
+                   / max(float(a["grads"][k].abs().max()), 1e-30)
+                   for k in a["grads"])
+
+    spread, diff = worst(plain, again), worst(plain, remat)
+    gens = torch.equal(plain["gen"], remat["gen"]) and torch.equal(
+        plain["gen"], again["gen"])
+    if not (gens and plain["grads"].keys() == remat["grads"].keys()
+            and diff <= spread and (spread > 0 or torch.equal(
+                plain["loss"], remat["loss"]))):
+        raise AssertionError(f"text remat: worst gradient {diff:.3g} vs "
+                             f"the plain step's own spread {spread:.3g}, "
+                             f"generators equal {gens}")
+    print(f"remat: target step (4 utterances, dropout on) with "
+          f"TextEncoderConfig.remat vs without: "
+          f"{'bit for bit' if diff == 0 else f'worst gradient {diff:.3g}'} "
+          f"over {len(plain['grads'])} gradients (two steps without remat: "
+          f"{spread:.3g}), generator state equal; forward + backward "
+          f"{plain['ms']:.1f} -> {remat['ms']:.1f} ms, peak memory "
+          f"{plain['peak']:.2f} -> {remat['peak']:.2f} GiB on {gpu_name}")
+    del model, trainer
+    return remat["launches"]
+
+
+def mesh_groups(cfg):
+    """The groups of leaves whose AdamW first moments phase 13 compares:
+    the first and last Swin block, its head, the first and last text layer,
+    an audio layer, a crossmodal layer and the classifier."""
+    last_block = (f"swin.swin.layers.{len(cfg.swin.depths) - 1}.blocks."
+                  f"{cfg.swin.depths[-1] - 1}.")
+    return {"swin first block": ("swin.swin.layers.0.blocks.0.",),
+            "swin last block": (last_block,),
+            "swin head": ("swin.swin.output_layer.", "swin.linear.",
+                          "swin.classifier."),
+            "text layer 0": ("mm.roberta.encoder.layer.0.",),
+            "last text layer": (f"mm.roberta.encoder.layer."
+                                f"{cfg.text.num_layers - 1}.",),
+            "audio layer 0": ("mm.audio_utt_transformer.layer.0.",),
+            "crossmodal layer 0": ("mm.CrossModalTrans_TA.layers.0.",),
+            "classifier": ("mm.classifier.",)}
+
+
+def mesh_group(cfg, key):
+    """The group of a "<branch>.<name>" key, or None."""
+    return next((g for g, prefixes in mesh_groups(cfg).items()
+                 if key.startswith(prefixes)), None)
+
+
+def mesh_steps(torch, cfg, case, work):
+    """One auxiliary and one target step of a Trainer's own model and
+    steps (the run_multimodal step) on the case's batches, under cfg's
+    layout; the losses, launches, generator state, the Swin head's running
+    statistics and the chosen leaves' whole first moments."""
+    from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
+    from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    t = Trainer(cfg.replace(optim=dataclasses.replace(
+        cfg.optim, aux_batch_size=AUX_IMAGES, trg_batch_size=4,
+        trg_accumulation_steps=1)), device=case["device"])
+    model = t._build_model()
+    state, _, _ = t._init_multitask_state(model, range(4), AUX_IMAGES)
+    aux_step, trg_step, _, _ = t._make_steps(model)
+    kernels.reset_launch_counts()
+    images = affwild2_train_augment(
+        t.generator, t._to_device(case["images"]).float(),
+        img_size=cfg.data.swin_img_size)
+    aux_loss = float(aux_step(state, images, t._to_device(case["labels"]),
+                              t.generator))
+    trg_loss = float(trg_step(state, t._prepare_faces(case["batch"], True),
+                              t.generator))
+    sync(torch)
+    out = {"aux_loss": aux_loss, "trg_loss": trg_loss,
+           "launches": kernels.launch_counts(),
+           "generator": t.generator.get_state(),
+           "plan": None if t.plan is None else (t.plan.dp, t.plan.tp),
+           "bn": {k: v.float().cpu() for k, v in model.swin_model.swin
+                  .output_layer[3].state_dict().items()
+                  if k.startswith("running")}, "m": {}}
+    for branch, opt, module in (("swin", state.swin_opt, model.swin_model),
+                                ("mm", state.mm_opt, model.multimodal)):
+        for i, (name, _) in enumerate(module.named_parameters()):
+            if mesh_group(cfg, f"{branch}.{name}"):
+                out["m"][f"{branch}.{name}"] = opt.moments(i)[0].float().cpu()
+    if t.plan is not None:      # a step boundary's preemption agreement
+        t._maybe_preempt(CheckpointManager(os.path.join(work, "ckpt")), state,
+                         -1.0, 1, {"aux_batch": 1, "trg_batch": 1},
+                         {"best_val_loss": float("inf"),
+                          "patience_counter": 0})
+    return out
+
+
+def mesh_server(torch, cfg, case, plan):
+    """An EmotionServer under `plan` answering the case's pack: its rows,
+    the head counts of the text tower's attention calls, the launches."""
+    from facialmmt_tpu_torch.models import text_encoder
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.serving import EmotionServer
+
+    server = EmotionServer(cfg, max_batch=8, face_capacity=FACES,
+                           device=case["device"], mesh_plan=plan)
+    heads, real = [], text_encoder.fused_attention
+
+    def seen(q, k, v, bias):
+        heads.append(q.shape[1])
+        return real(q, k, v, bias)
+
+    text_encoder.fused_attention = seen
+    kernels.reset_launch_counts()
+    try:
+        rows = np.stack(server.predict(case["requests"]))
+        sync(torch)
+    finally:
+        text_encoder.fused_attention = real
+    return {"rows": rows, "heads": heads, "launches": kernels.launch_counts()}
+
+
+def gloo_cuda_gather():
+    """Give the port's gathers (parallel/comm.py::all_gather_cat) a form
+    gloo takes on CUDA tensors: it has all_reduce and broadcast for them but
+    no all_gather, so the two ranks sharing the card gather by summing a
+    zero-filled buffer that holds each rank's part at its place."""
+    import torch
+    import torch.distributed as dist
+
+    from facialmmt_tpu_torch.parallel import comm, mesh
+
+    real = comm.all_gather_cat
+
+    def gather(t, group, dim=0):
+        n = comm.group_size(group)
+        if n == 1 or not t.is_cuda:
+            return real(t, group, dim)
+        wire = t.contiguous()
+        wire = wire if wire.dtype != torch.bool else wire.to(torch.uint8)
+        shape = list(wire.shape)
+        k = shape[dim]
+        shape[dim] *= n
+        full = wire.new_zeros(shape)
+        full.narrow(dim, dist.get_rank(group) * k, k).copy_(wire)
+        dist.all_reduce(full, group=group)
+        return full.to(t.dtype)
+
+    comm.all_gather_cat = mesh.all_gather_cat = gather
+
+
+def unsummed_steps(torch, cfg, case, work):
+    """mesh_steps with the data ranks' gradient sum skipped: the control
+    that MESH_GRAD_BOUND has to catch."""
+    from facialmmt_tpu_torch.train.optim import ClippedAdamW
+
+    real = ClippedAdamW._sum_over_data
+    ClippedAdamW._sum_over_data = lambda self, grads: None
+    try:
+        return mesh_steps(torch, cfg, case, work)
+    finally:
+        ClippedAdamW._sum_over_data = real
+
+
+def moment_gaps(cfg, ref, got):
+    """{group: the largest max|d| of a leaf's first moment in `got`
+    against `ref`, as a share of the largest |m| in its group}."""
+    group_max = {}
+    for k, m in ref["m"].items():
+        g = mesh_group(cfg, k)
+        group_max[g] = max(group_max.get(g, 0.0), float(m.abs().max()))
+    gaps = dict.fromkeys(group_max, 0.0)
+    for k, m in ref["m"].items():
+        g = mesh_group(cfg, k)
+        gaps[g] = max(gaps[g], float((got["m"][k] - m).abs().max())
+                      / group_max[g])
+    return gaps
+
+
+def mesh_rank(kind, rank, world, work):
+    """A rank process of phase 13 (chip_smoke.py --mesh-rank KIND RANK WORLD
+    DIR): 'gloo2', two ranks sharing cuda:0 over gloo (NCCL takes one rank
+    a card): the steps at dp=2 and a server at tp=2; 'nccl1', the steps
+    without a plan, then at dp=1 on a one-rank NCCL group."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from facialmmt_tpu_torch.config import ParallelConfig
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.parallel.mesh import build_mesh, init_distributed
+
+    rank, world = int(rank), int(world)
+    case = torch.load(os.path.join(work, "case.pt"), weights_only=False)
+    cfg = case["cfg"]
+    dev = torch.device(case["device"])
+    if dev.type == "cuda":
+        kernels.library()
+    init = "file://" + os.path.join(work, f"init_{kind}")
+    out = {}
+    if kind == "nccl1":
+        out["none"] = mesh_steps(torch, cfg, case, work)
+        init_distributed(dev, backend="nccl" if dev.type == "cuda" else "gloo",
+                         init_method=init, rank=0, world_size=1)
+        out["plan"] = mesh_steps(torch, cfg.replace(
+            parallel=ParallelConfig(dp=1, tp=1)), case, work)
+    else:
+        init_distributed(dev, backend="gloo", init_method=init, rank=rank,
+                         world_size=world)
+        if dev.type == "cuda":
+            gloo_cuda_gather()
+        dp2 = cfg.replace(parallel=ParallelConfig(dp=2, tp=1))
+        out["dp2"] = mesh_steps(torch, dp2, case, work)
+        out["dp2_unsummed"] = unsummed_steps(torch, dp2, case, work)
+        out["tp2_server"] = mesh_server(torch, cfg, case,
+                                        build_mesh(1, 2, dev))
+    torch.save(out, os.path.join(work, f"out_{kind}_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_runs(torch, dev, gpu_name, cfg):
+    """(c) and (d): the rank processes on the same batches, held against
+    the step without a plan (d's first half) and a one-rank server."""
+    from facialmmt_tpu_torch.data.meld import (SyntheticFerDataset,
+                                               SyntheticMeldDataset)
+    from facialmmt_tpu_torch.serving import EmotionServer
+
+    work = tempfile.mkdtemp(prefix="mesh_")
+    images, labels = SyntheticFerDataset(
+        AUX_IMAGES, 112, cfg.num_labels, seed=21).get_batch(range(AUX_IMAGES))
+    batch = SyntheticMeldDataset(cfg, 4, 2, [8, 7, 9, 8], seed=12,
+                                 split="train").get_batch(range(4), FACES)
+    requests = synthetic_requests(np.random.default_rng(13), cfg, [8] * 8,
+                                  512)
+    torch.save({"cfg": cfg, "images": images, "labels": labels,
+                "batch": batch, "requests": requests, "device": str(dev)},
+               os.path.join(work, "case.pt"))
+    t0 = time.perf_counter()
+    procs = {(kind, r): subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", kind,
+         str(r), str(n), work], cwd=ROOT)
+        for kind, n in (("gloo2", 2), ("nccl1", 1)) for r in range(n)}
+    try:
+        one = EmotionServer(cfg, max_batch=8, face_capacity=FACES, device=dev)
+        want_rows = np.stack(one.predict(requests))
+        del one
+        codes = {k: p.wait(timeout=MESH_TIMEOUT) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+    if any(codes.values()):
+        raise AssertionError(f"phase 13 rank processes exited {codes}")
+    out = {k: torch.load(os.path.join(work, f"out_{k[0]}_{k[1]}.pt"),
+                         weights_only=False) for k in procs}
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+
+    # (d) the one-rank NCCL group changes no bit
+    ref, nccl = out["nccl1", 0]["none"], out["nccl1", 0]["plan"]
+    if ref["plan"] is not None or nccl["plan"] != (1, 1):
+        raise AssertionError(f"plans {ref['plan']}, {nccl['plan']}")
+    same = ((ref["aux_loss"], ref["trg_loss"])
+            == (nccl["aux_loss"], nccl["trg_loss"])
+            and torch.equal(ref["generator"], nccl["generator"])
+            and all(torch.equal(ref["m"][k], nccl["m"][k]) for k in ref["m"])
+            and all(torch.equal(ref["bn"][k], nccl["bn"][k])
+                    for k in ref["bn"])
+            and ref["launches"] == nccl["launches"])
+    if not same:
+        raise AssertionError("dp=1 on a one-rank NCCL group is not bit for "
+                             "bit the step without a plan")
+    require_launched(nccl["launches"], SERVING_KERNELS[1:] + BACKWARD_KERNELS,
+                     "the dp=1 NCCL steps")
+    print(f"mesh: one auxiliary and one target step at dp=1 on a one-rank "
+          f"NCCL group: bit for bit the steps without a plan (losses, "
+          f"{len(ref['m'])} first moments, BatchNorm statistics, generator, "
+          f"launches)")
+
+    # (c) dp=2 over gloo, two ranks on the one card: a leaf's first moment
+    # is held to MESH_GRAD_BOUND of the largest in its group (mesh_groups);
+    # the same steps without the gradient sum must break it in every group
+    worst = {g: max(moment_gaps(cfg, ref, out["gloo2", r]["dp2"])[g]
+                    for r in range(2)) for g in mesh_groups(cfg)}
+    control = {g: max(moment_gaps(cfg, ref, out["gloo2", r]["dp2_unsummed"])
+                      [g] for r in range(2)) for g in mesh_groups(cfg)}
+    print("mesh: dp=2 first moments against one process, worst max|d| of "
+          "their group's largest (bound " + str(MESH_GRAD_BOUND) + "): "
+          + ", ".join(f"{g} {w:.4g}" for g, w in worst.items())
+          + "; the control, the data ranks' gradient sum skipped: "
+          + ", ".join(f"{g} {w:.4g}" for g, w in control.items()))
+    if min(control.values()) <= MESH_GRAD_BOUND:
+        raise AssertionError(f"the control (no gradient sum over the data "
+                             f"ranks) stays within MESH_GRAD_BOUND in a "
+                             f"group: {control}")
+    if max(worst.values()) > MESH_GRAD_BOUND:
+        raise AssertionError(f"dp=2 first moments {worst} exceed "
+                             f"{MESH_GRAD_BOUND} of their group's largest")
+    for r in range(2):
+        got = out["gloo2", r]["dp2"]
+        if got["plan"] != (2, 1):
+            raise AssertionError(f"rank {r}: plan {got['plan']}")
+        for key in ("aux_loss", "trg_loss"):
+            if abs(got[key] - ref[key]) > 1e-2 * abs(ref[key]):
+                raise AssertionError(f"dp=2 rank {r} {key} {got[key]} vs "
+                                     f"{ref[key]}")
+        if not torch.equal(got["generator"], ref["generator"]):
+            raise AssertionError(f"dp=2 rank {r}: the generator is not "
+                                 f"the one-process run's")
+        for k, v in ref["bn"].items():
+            d = float((got["bn"][k] - v).abs().max())
+            if d > GRAD_BOUND * float(v.abs().max()):
+                raise AssertionError(f"dp=2 rank {r} BatchNorm {k}: {d}")
+        require_launched(got["launches"],
+                         SERVING_KERNELS[1:] + BACKWARD_KERNELS,
+                         f"the dp=2 steps of rank {r}")
+    print(f"mesh: one auxiliary ({AUX_IMAGES} images, {AUX_IMAGES // 2} a "
+          f"rank) and one target step (4 utterances, 64 faces, 32 a rank) "
+          f"at dp=2, two ranks on one card over gloo, ZeRO-1 on: losses "
+          f"{out['gloo2', 0]['dp2']['aux_loss']:.5f} / "
+          f"{out['gloo2', 0]['dp2']['trg_loss']:.5f} vs one process "
+          f"{ref['aux_loss']:.5f} / {ref['trg_loss']:.5f}, the generator "
+          f"state equal, {len(ref['m'])} first moments within "
+          f"{MESH_GRAD_BOUND} of their group's largest (worst "
+          f"{max(worst.values()):.4g}, the control's least group "
+          f"{min(control.values()):.4g}); the Swin head's running "
+          f"statistics within {GRAD_BOUND}")
+
+    # (c) the tp=2 server: kernel 1 on half the heads
+    z_want = np.log(want_rows) - np.log(want_rows).mean(-1, keepdims=True)
+    heads = cfg.text.num_heads // 2
+    for r in range(2):
+        got = out["gloo2", r]["tp2_server"]
+        if got["heads"] != [heads] * cfg.text.num_layers:
+            raise AssertionError(f"tp=2 server rank {r}: attention heads "
+                                 f"{got['heads']}")
+        require_counts(got["launches"], {
+            "fused_attention": cfg.text.num_layers,
+            "fused_attention_block": sum(cfg.swin.depths),
+            "fused_ln_mlp_residual": sum(cfg.swin.depths)},
+            f"the tp=2 server's pack on rank {r}")
+        z = np.log(got["rows"]) - np.log(got["rows"]).mean(-1, keepdims=True)
+        diff = float(np.abs(z - z_want).max())
+        scale = float(np.abs(z_want).max())
+        if not (np.isfinite(z).all() and diff <= SERVING_BOUND * scale):
+            raise AssertionError(f"tp=2 server rank {r}: logits max|d| "
+                                 f"{diff} > {SERVING_BOUND} * {scale}")
+    print(f"mesh: EmotionServer at tp=2 (two ranks, gloo): the text tower's "
+          f"attention is kernel 1 on {heads} of {cfg.text.num_heads} heads, "
+          f"{cfg.text.num_layers} launches a pack on each rank; one pack's "
+          f"logits vs the one-rank server max|d| {diff:.3g} <= "
+          f"{SERVING_BOUND} * {scale:.3g}; phase 13's rank processes took "
+          f"{seconds:.1f} s on {gpu_name}")
+    return {"mesh_dp2_steps": out["gloo2", 0]["dp2"]["launches"],
+            "mesh_tp2_server": out["gloo2", 0]["tp2_server"]["launches"],
+            "nccl_dp1_steps": nccl["launches"]}
+
+
 def main(json_out: str = "") -> int:
     """`json_out`: where to write the per-shape kernel times and the launch
     counts per path, if anywhere."""
@@ -3146,6 +3739,8 @@ def main(json_out: str = "") -> int:
         paths.update(phase_appendix(torch, dev, gpu_name, cli_root))
     torch.cuda.empty_cache()
     paths.update(phase_front_end(torch, dev, gpu_name))
+    torch.cuda.empty_cache()
+    paths.update(phase_remat_mesh(torch, dev, gpu_name))
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)
@@ -3170,4 +3765,6 @@ def main(json_out: str = "") -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(*sys.argv[2:6]))
     sys.exit(main(*sys.argv[1:2]))

@@ -65,9 +65,11 @@ class SwinConfig:
     drop_path_rate: float = 0.3
     patch_norm: bool = True
     ape: bool = False
-    # activation checkpointing of each block in the backward pass; 'auto'
-    # resolves by the packed image count (resolve_remat).  Not wired into the
-    # port's Swin yet: its block halves already save only their inputs.
+    # activation checkpointing of each block in the backward pass
+    # (torch.utils.checkpoint, ops/swin.py); 'auto' resolves by the packed
+    # image count: above 512 images (resolve_remat).  The fused block halves
+    # already save only their inputs, so on the default route it saves less
+    # than on ('xla', 'xla').
     remat: "bool | str" = "auto"
     # 'xla' | 'pallas' | 'pair' | 'auto': the attention half of every block.
     # 'auto' (default) is the fused block kernel with its backward kernels
@@ -143,8 +145,9 @@ class TextEncoderConfig:
     layer_norm_eps: float = 1e-5        # roberta 1e-5; bert 1e-12
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
-    # activation checkpointing of each layer; 'auto' resolves by the token
-    # count (resolve_remat).  Not wired into the port's text tower yet.
+    # activation checkpointing of each layer (torch.utils.checkpoint,
+    # models/text_encoder.py); 'auto' resolves by the token count: above
+    # 4096 tokens (resolve_remat)
     remat: "bool | str" = "auto"
 
     @staticmethod
@@ -228,11 +231,14 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Multi-device layout: data-parallel and tensor-parallel ways.  The port
-    runs on one device so far; the fields are kept for the multi-device slice."""
+    """Multi-device layout over torch.distributed (parallel/mesh.py): dp
+    data-parallel ranks times tp tensor-parallel ranks.  dp = -1 takes every
+    rank of the process group divided by tp (the command line's default),
+    shrunk to the largest count that divides the batch (train/trainer.py)."""
 
-    dp: int = 1         # data-parallel ways; -1 = all devices (CLI default)
-    tp: int = 1         # tensor-parallel ways (the text tower)
+    dp: int = 1         # data-parallel ways; -1 = all ranks / tp
+    tp: int = 1         # tensor-parallel ways (text tower, fusion towers,
+                        # crossmodal stacks)
     data_axis: str = "data"
     model_axis: str = "model"
     zero1: bool = True  # shard optimizer moments over the data-parallel ranks

@@ -18,7 +18,11 @@ plus `--device`.
         --doEval 1 --submission_template nustm_submission_empty.csv
 
 Runs on the card (`--device cuda`, the default; without one it raises) unless
-`--device cpu` is given.  Ported: MELD T+A+V, T+A, T+V (the FER pipeline)
+`--device cpu` is given.  Several ranks: `torchrun --nproc_per_node N -m
+facialmmt_tpu_torch.main ... --dp D --tp T` (parallel/mesh.py; --dp -1 takes
+every rank / T; rank 0 alone prints and writes files).  `--swin_remat` /
+`--text_remat` 1 checkpoint every Swin block / text layer, 'auto' above 512
+images / 4096 tokens.  Ported: MELD T+A+V, T+A, T+V (the FER pipeline)
 and V, evaluation from the reference's released files and training from the
 pretrained Swin backbone and a local HF text tower; the appendix: T on the
 M3ED text, M3ED T+A / T+V / T+A+V at the utterance or dialogue level,
@@ -45,10 +49,6 @@ import numpy as np
 DEFAULT_TEMPLATE = "nustm_submission_empty.csv"
 # (flag, value that is ported, what would run it): anything else raises
 UNPORTED = (
-    ("swin_remat", ("auto", "0"), "activation checkpointing (ROADMAP Queue 1 "
-                                  "item 3)"),
-    ("text_remat", ("auto", "0"), "activation checkpointing (ROADMAP Queue 1 "
-                                  "item 3)"),
     ("profile_dir", "", "profiler capture and NaN debugging (ROADMAP Queue 1 "
                         "item 5)"),
     ("debug_nans", 0, "profiler capture and NaN debugging (ROADMAP Queue 1 "
@@ -202,16 +202,23 @@ def check_ported(args) -> None:
     """Raise for a command line whose work the port cannot do yet:
     NotImplementedError naming the ROADMAP item for an unported branch,
     ValueError for a value of a JAX implementation switch, which has no
-    counterpart here."""
+    counterpart here.  --dp / --tp asking for more than one rank need
+    torchrun's environment (NotImplementedError naming torchrun without
+    it), and --tp must divide its WORLD_SIZE (ValueError)."""
     for flag, ported, what in UNPORTED:
         value = getattr(args, flag)
         if value not in (ported if isinstance(ported, tuple) else (ported,)):
             raise NotImplementedError(
                 f"--{flag} {value}: {what} is not ported")
-    if args.dp not in (-1, 1) or args.tp != 1:
+    world = os.environ.get("WORLD_SIZE")
+    if (args.dp not in (-1, 1) or args.tp != 1) and world is None:
         raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: the port runs on one device "
-            f"(multi-device placement is ROADMAP Queue 1 item 4)")
+            f"--dp {args.dp} --tp {args.tp}: a multi-device run is launched "
+            f"with torchrun (torchrun --nproc_per_node N -m "
+            f"facialmmt_tpu_torch.main ...), which sets WORLD_SIZE")
+    if world is not None and (args.tp < 1 or int(world) % args.tp):
+        raise ValueError(f"--tp {args.tp} does not divide the {world} ranks "
+                         f"(WORLD_SIZE)")
     for flag in ("fused_text_attention", "fused_fusion_attention"):
         if getattr(args, flag) not in ("", "auto"):
             raise ValueError(
@@ -428,6 +435,9 @@ def run(argv=None) -> float:
     from facialmmt_tpu_torch.utils.observability import MetricWriter
 
     device = resolve_device(args.device)   # raises without a card
+    stdout = sys.stdout
+    if int(os.environ.get("RANK", "0")) != 0:
+        sys.stdout = open(os.devnull, "w")  # rank 0 alone prints
     if not cfg.do_eval:
         # SIGTERM -> resume checkpoint -> Preempted (utils/preemption.py);
         # --resume 1 continues the interrupted epoch
@@ -445,6 +455,9 @@ def run(argv=None) -> float:
         return _run_multimodal(args, cfg, device, writer)
     finally:
         writer.close()
+        if sys.stdout is not stdout:
+            sys.stdout.close()
+            sys.stdout = stdout
 
 
 def _appendix_eval_kwargs(args):
@@ -584,8 +597,13 @@ def _run_multimodal(args, cfg, device, writer) -> float:
 if __name__ == "__main__":
     from facialmmt_tpu_torch.utils.preemption import Preempted
 
+    import torch.distributed as dist
+
     try:
         run()
     except Preempted:
         # the conventional SIGTERM exit code; the resume checkpoint is on disk
         sys.exit(143)
+    finally:
+        if dist.is_initialized():           # a torchrun rank
+            dist.destroy_process_group()

@@ -36,6 +36,7 @@ from facialmmt_tpu_torch.ops.encoder import UttTransEncoder
 from facialmmt_tpu_torch.ops.layers import (AdditiveAttention, TorchLinear,
                                             dropout)
 from facialmmt_tpu_torch.ops.span_extract import extract_utt_spans
+from facialmmt_tpu_torch.parallel import context
 
 
 def text_prefix(cfg: FacialMMTConfig) -> str:
@@ -102,7 +103,8 @@ class MultiModalTransformerForClassification(nn.Module):
                 vision_mask=None, utt_in_dia_idx=None, dia_idx=None,
                 generator=None):
         """dia_* (num_dia, L) unique dialogues; dia_idx (B,) gathers them per
-        utterance (None = one dialogue per utterance); vision_inputs
+        utterance (None = one dialogue per utterance; under a data shard the
+        dialogue slots of every rank are gathered first); vision_inputs
         (B, F, vision_in_dim), already filtered behind the FER pipeline; the
         streams the configuration does not use are ignored; `generator`
         feeds the dropouts in train mode.  -> logits (B, num_labels)."""
@@ -111,6 +113,12 @@ class MultiModalTransformerForClassification(nn.Module):
         enc = getattr(self, self.text_prefix)(dia_input_ids, dia_input_mask, g)
         text_lin = self.text_linear(enc)
         if dia_idx is not None:
+            shard = context.current()
+            if shard is not None:     # dia_idx holds global slot indices
+                from facialmmt_tpu_torch.parallel.comm import gather_rows
+
+                text_lin = gather_rows(text_lin, shard.group)
+                dia_sep_mask = gather_rows(dia_sep_mask, shard.group)
             dia_idx = dia_idx.long()
             text_lin = text_lin[dia_idx]
             dia_sep_mask = dia_sep_mask[dia_idx]

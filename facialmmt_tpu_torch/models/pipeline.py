@@ -7,6 +7,13 @@ selects dropout, stochastic depth and BatchNorm batch statistics.
 
 Faces arrive packed contiguously in a static-capacity buffer `faces`
 (N, H, W, 3) with `face_utt_id` / `face_pos` slot maps (-1 = pad slot).
+
+Under a data shard (parallel/context.py) every leading axis holds this
+rank's rows: its utterances, dialogue slots and faces, each shard of the
+global batch taken apart, as JAX shards them; a rank's faces need not
+belong to its utterances.  Swin runs over the rank's faces, the FER
+distributions and slot maps of all ranks are gathered (the gather's backward
+sums over the data ranks), and the scatter keeps the rank's utterances.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from facialmmt_tpu_torch.models.multimodal import \
 from facialmmt_tpu_torch.models.swin_fer import SwinForAffwildClassification
 from facialmmt_tpu_torch.ops.frame_filter import (frame_importance_filter,
                                                   scatter_face_probs)
+from facialmmt_tpu_torch.parallel import context
 
 
 class FacialMMTPipeline(nn.Module):
@@ -71,8 +79,18 @@ class FacialMMTPipeline(nn.Module):
             with torch.no_grad() if stop_swin_gradient else nullcontext():
                 probs_flat = self.fer_probs(batch["faces"],
                                             generator=generator, noise=noise)
-        probs = scatter_face_probs(probs_flat.float(), batch["face_utt_id"],
-                                   batch["face_pos"], b, f)
+        utt_id, pos = batch["face_utt_id"], batch["face_pos"]
+        shard = context.current()
+        if shard is None:
+            probs = scatter_face_probs(probs_flat.float(), utt_id, pos, b, f)
+        else:
+            from facialmmt_tpu_torch.parallel.comm import gather_rows
+
+            probs = scatter_face_probs(
+                gather_rows(probs_flat.float(), shard.group),
+                gather_rows(utt_id, shard.group),
+                gather_rows(pos, shard.group), b * shard.parts, f
+            ).narrow(0, shard.index * b, b)
         n_faces = batch["n_faces"]
         face_mask = (torch.arange(f, device=n_faces.device)[None, :]
                      < n_faces[:, None])

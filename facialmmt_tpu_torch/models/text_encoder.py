@@ -9,7 +9,15 @@ facialmmt_tpu/models/text_encoder.py; reference src/models.py:72-104).
     the plain version on the CPU, and in train mode with attention-probability
     dropout active (the mask cannot be applied inside the kernel; the JAX
     package takes its plain path there too);
-  * hidden dropout after the embeddings and after both dense outputs.
+  * hidden dropout after the embeddings and after both dense outputs;
+  * each layer under torch.utils.checkpoint when resolve_remat(cfg.remat,
+    B * S, 4096) holds (JAX: nn.remat on each layer above 4096 tokens), its
+    dropout masks replayed in the recompute (ops/layers.py::checkpointed);
+  * tensor-parallel layers (parallel/mesh.py::shard_model_ sets `tp`):
+    query, key, value and intermediate.dense column-parallel,
+    attention.output.dense and output.dense row-parallel, the attention on
+    num_heads / tp local heads (kernel 1 at eval); embeddings, LayerNorms
+    and residuals whole.
 Parameter names follow the HF state_dict (torch_export.export_hf_text_encoder).
 """
 
@@ -18,11 +26,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from facialmmt_tpu_torch.config import TextEncoderConfig
+from facialmmt_tpu_torch.config import TextEncoderConfig, resolve_remat
 from facialmmt_tpu_torch.ops.kernels.attention import fused_attention
 from facialmmt_tpu_torch.ops.encoder import multihead_attention
-from facialmmt_tpu_torch.ops.layers import (LayerNormTF, TorchLinear, dropout,
-                                            gelu_erf)
+from facialmmt_tpu_torch.ops.layers import (LayerNormTF, TorchLinear,
+                                            checkpointed, column_input,
+                                            dropout, gelu_erf, row_linear)
+from facialmmt_tpu_torch.parallel import context
 
 BIG_NEG = -1e30
 
@@ -54,30 +64,35 @@ class TextEncoderLayer(nn.Module):
         self.attention.output = _Dense(h, h, cfg.layer_norm_eps)
         self.intermediate = _Dense(h, cfg.intermediate_size)
         self.output = _Dense(cfg.intermediate_size, h, cfg.layer_norm_eps)
+        self.tp = None
 
     def forward(self, x, bias, generator=None):
         b, s, h = x.shape
-        nh = self.num_heads
-        hd = h // nh
+        tp = self.tp
+        nh = self.num_heads // (tp.size if tp else 1)
+        hd = h // self.num_heads
+        hl = nh * hd                      # this rank's width of q, k, v
         sa = self.attention.self
         train = self.training
+        xc = column_input(x, tp)
         if train and self.attn_dropout > 0.0:
-            ctx = multihead_attention(sa.query(x), sa.key(x), sa.value(x), nh,
-                                      bias, attn_dropout=self.attn_dropout,
-                                      generator=generator)
+            ctx = multihead_attention(sa.query(xc), sa.key(xc), sa.value(xc),
+                                      nh, bias, attn_dropout=self.attn_dropout,
+                                      generator=generator,
+                                      head_split=tp and tp.head_split(1))
         else:
             def heads(t):
                 return t.reshape(b, s, nh, hd).transpose(1, 2).contiguous()
 
-            ctx = fused_attention(heads(sa.query(x) * hd ** -0.5),
-                                  heads(sa.key(x)), heads(sa.value(x)), bias)
-            ctx = ctx.transpose(1, 2).reshape(b, s, h)
+            ctx = fused_attention(heads(sa.query(xc) * hd ** -0.5),
+                                  heads(sa.key(xc)), heads(sa.value(xc)), bias)
+            ctx = ctx.transpose(1, 2).reshape(b, s, hl)
         ao = self.attention.output
-        x = ao.LayerNorm(dropout(ao.dense(ctx), self.hidden_dropout, train,
-                                 generator) + x)
-        inter = gelu_erf(self.intermediate.dense(x))
-        out = dropout(self.output.dense(inter), self.hidden_dropout, train,
-                      generator)
+        x = ao.LayerNorm(dropout(row_linear(ctx, ao.dense, tp),
+                                 self.hidden_dropout, train, generator) + x)
+        inter = gelu_erf(self.intermediate.dense(column_input(x, tp)))
+        out = dropout(row_linear(inter, self.output.dense, tp),
+                      self.hidden_dropout, train, generator)
         return self.output.LayerNorm(out + x)
 
 
@@ -115,6 +130,11 @@ class TextEncoder(nn.Module):
         x = dropout(emb.LayerNorm(x), cfg.hidden_dropout_prob, self.training,
                     generator).to(dtype)
         bias = ((1.0 - attention_mask.float()) * BIG_NEG).contiguous()
+        shard = context.current()
+        tokens = input_ids.numel() * (shard.parts if shard else 1)
+        remat = (torch.is_grad_enabled()
+                 and resolve_remat(cfg.remat, tokens, 4096))
         for layer in self.encoder.layer:
-            x = layer(x, bias, generator)
+            x = (checkpointed(layer, x, bias, generator=generator) if remat
+                 else layer(x, bias, generator))
         return x

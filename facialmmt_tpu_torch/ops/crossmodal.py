@@ -25,8 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from facialmmt_tpu_torch.ops.encoder import multihead_attention
-from facialmmt_tpu_torch.ops.layers import (LayerNormTF, XavierLinear, dropout,
-                                            gelu_erf)
+from facialmmt_tpu_torch.ops.layers import (LayerNormTF, XavierLinear,
+                                            column_input, dropout, gelu_erf,
+                                            row_linear)
 
 
 def sinusoidal_table(num_rows: int, embedding_dim: int) -> np.ndarray:
@@ -58,7 +59,11 @@ def banded_future_mask(tq: int, tk: int, device) -> torch.Tensor:
 
 
 class PackedMultiheadAttention(nn.Module):
-    """fairseq-style MHA with one packed (3E, E) qkv projection."""
+    """fairseq-style MHA with one packed (3E, E) qkv projection.
+
+    Tensor-parallel (`tp` set by parallel/mesh.py::shard_model_): the packed
+    weight holds rows [r E/tp, (r+1) E/tp) of EACH of its q, k and v blocks,
+    stacked (3E/tp, E), the same for the bias; out_proj is row-parallel."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  attn_dropout: float = 0.0):
@@ -70,11 +75,14 @@ class PackedMultiheadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = XavierLinear(embed_dim, embed_dim)
+        self.tp = None
 
     def forward(self, query, key, value, attn_bias=None, generator=None):
-        """query (B, Tq, E), key/value (B, Tk, E), attn_bias (Tq, Tk) or None."""
-        e = self.embed_dim
+        """query (B, Tq, E), key/value (B, Tk, E), attn_bias (Tq, Tk) or
+        None; under tp the inputs have been through column_input."""
+        tp = self.tp
         w = self.in_proj_weight
+        e = w.shape[0] // 3
         bias = self.in_proj_bias
         cd = w.dtype
         q = F.linear(query.to(cd), w[:e], bias[:e])
@@ -82,14 +90,17 @@ class PackedMultiheadAttention(nn.Module):
         v = F.linear(value.to(cd), w[2 * e:], bias[2 * e:])
         # no key-padding mask; the banded mask keeps the plain path
         ctx = multihead_attention(
-            q, k, v, self.num_heads, attn_mask=attn_bias,
+            q, k, v, self.num_heads // (tp.size if tp else 1),
+            attn_mask=attn_bias,
             attn_dropout=self.attn_dropout if self.training else 0.0,
-            generator=generator)
-        return self.out_proj(ctx)
+            generator=generator, head_split=tp and tp.head_split(1))
+        return row_linear(ctx, self.out_proj, tp)
 
 
 class CrossModalLayer(nn.Module):
-    """Pre-LN block (reference modules/CrossmodalTransformer.py:98-171)."""
+    """Pre-LN block (reference modules/CrossmodalTransformer.py:98-171).
+    Tensor-parallel when `tp` is set: the attention as above, fc1
+    column-parallel, fc2 row-parallel."""
 
     def __init__(self, embed_dim: int, num_heads: int, attn_mask: bool = False,
                  attn_dropout: float = 0.0, gelu_dropout: float = 0.0,
@@ -104,23 +115,30 @@ class CrossModalLayer(nn.Module):
         self.fc2 = XavierLinear(4 * embed_dim, embed_dim)
         self.layer_norms = nn.ModuleList([LayerNormTF(embed_dim, 1e-5),
                                           LayerNormTF(embed_dim, 1e-5)])
+        self.num_heads = num_heads
+        self.tp = None
 
     def forward(self, x, x_k=None, x_v=None, generator=None):
         ln0, ln1 = self.layer_norms
         train = self.training
+        tp = self.tp
         xq = ln0(x)
         bias = None
         if self.attn_mask:
             tk = xq.shape[1] if x_k is None else x_k.shape[1]
             bias = banded_future_mask(xq.shape[1], tk, x.device)
+        xq = column_input(xq, tp)
         if x_k is None and x_v is None:
             h = self.self_attn(xq, xq, xq, bias, generator)
         else:
-            h = self.self_attn(xq, ln0(x_k), ln0(x_v), bias, generator)
+            h = self.self_attn(xq, column_input(ln0(x_k), tp),
+                               column_input(ln0(x_v), tp), bias, generator)
         x = x + dropout(h, self.res_dropout, train, generator)
-        h = dropout(gelu_erf(self.fc1(ln1(x))), self.gelu_dropout, train,
-                    generator)
-        return x + dropout(self.fc2(h), self.res_dropout, train, generator)
+        h = dropout(gelu_erf(self.fc1(column_input(ln1(x), tp))),
+                    self.gelu_dropout, train, generator,
+                    tp and tp.head_split(2))
+        return x + dropout(row_linear(h, self.fc2, tp), self.res_dropout,
+                           train, generator)
 
 
 class CrossModalTransformerEncoder(nn.Module):

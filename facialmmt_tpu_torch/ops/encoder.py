@@ -14,8 +14,9 @@ from torch import nn
 
 from facialmmt_tpu_torch.config import EncoderConfig
 from facialmmt_tpu_torch.ops.kernels.attention import fused_attention
-from facialmmt_tpu_torch.ops.layers import (LayerNormTF, TorchLinear, dropout,
-                                            gelu_erf)
+from facialmmt_tpu_torch.ops.layers import (LayerNormTF, TorchLinear,
+                                            column_input, dropout, gelu_erf,
+                                            row_linear)
 
 ADDITIVE_MASK_VALUE = -10000.0  # reference convention (src/models.py:157)
 # Key length from which the fusion stacks take the attention kernel, as the
@@ -26,12 +27,16 @@ FUSED_MIN_KEYS = 256
 
 def multihead_attention(q, k, v, num_heads: int, key_bias=None,
                         attn_mask=None, attn_dropout: float = 0.0,
-                        generator: torch.Generator | None = None):
+                        generator: torch.Generator | None = None,
+                        head_split=None):
     """q (B, Sq, E) unscaled, k/v (B, Sk, E) -> (B, Sq, E).  key_bias (B, Sk)
     is an additive padding bias, attn_mask an additive (Sq, Sk) mask.  Kernel
     1 on a CUDA tensor when Sk >= FUSED_MIN_KEYS, there is no attn_mask and
     no attention-probability dropout is active (attn_dropout is the ACTIVE
-    rate: 0 in eval); plain fp32-softmax attention otherwise."""
+    rate: 0 in eval); plain fp32-softmax attention otherwise.  A
+    tensor-parallel layer passes its local heads (E and num_heads divided by
+    tp) and `head_split`, so the dropout mask is its heads' part of the
+    whole layer's (ops/layers.py::dropout)."""
     b, sq, e = q.shape
     sk = k.shape[1]
     hd = e // num_heads
@@ -51,7 +56,7 @@ def multihead_attention(q, k, v, num_heads: int, key_bias=None,
         if attn_mask is not None:
             scores = scores + attn_mask.float()
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        probs = dropout(probs, attn_dropout, True, generator)
+        probs = dropout(probs, attn_dropout, True, generator, head_split)
         ctx = torch.matmul(probs, vh)
     return ctx.transpose(1, 2).reshape(b, sq, e)
 
@@ -72,7 +77,14 @@ class _DenseNorm(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """attention -> dense + LN(res) -> GELU FFN -> dense + LN(res)."""
+    """attention -> dense + LN(res) -> GELU FFN -> dense + LN(res).
+
+    Tensor-parallel when parallel/mesh.py::shard_model_ sets `tp`: query,
+    key, value and intermediate.dense hold this rank's output rows
+    (column-parallel, num_heads / tp local heads), dense_norm.dense and
+    output.dense its input columns (row-parallel, summed over the model
+    group); the LayerNorms and biases of the row-parallel products are
+    whole."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -87,21 +99,24 @@ class EncoderLayer(nn.Module):
         self.intermediate = nn.Module()
         self.intermediate.dense = TorchLinear(h, cfg.intermediate_size)
         self.output = _DenseNorm(cfg.intermediate_size, h, cfg.layer_norm_eps)
+        self.tp = None
 
     def forward(self, x, bias, generator=None):
         sa = self.transformer_self_attention
         train = self.training
+        tp = self.tp
+        xc = column_input(x, tp)
         ctx = multihead_attention(
-            sa.selfatt.query(x), sa.selfatt.key(x), sa.selfatt.value(x),
-            self.num_heads, bias,
+            sa.selfatt.query(xc), sa.selfatt.key(xc), sa.selfatt.value(xc),
+            self.num_heads // (tp.size if tp else 1), bias,
             attn_dropout=self.attn_dropout if train else 0.0,
-            generator=generator)
-        attn_out = dropout(sa.dense_norm.dense(ctx), self.hidden_dropout,
-                           train, generator)
+            generator=generator, head_split=tp and tp.head_split(1))
+        attn_out = dropout(row_linear(ctx, sa.dense_norm.dense, tp),
+                           self.hidden_dropout, train, generator)
         x = sa.dense_norm.LayerNorm(attn_out + x)
-        inter = gelu_erf(self.intermediate.dense(x))
-        out = dropout(self.output.dense(inter), self.hidden_dropout, train,
-                      generator)
+        inter = gelu_erf(self.intermediate.dense(column_input(x, tp)))
+        out = dropout(row_linear(inter, self.output.dense, tp),
+                      self.hidden_dropout, train, generator)
         return self.output.LayerNorm(out + x)
 
 

@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from facialmmt_tpu_torch.parallel import context
+
 
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel draws g = -log(-log(U)), U ~ U(tiny, 1), fp32."""
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
+    u = context.rand(shape, generator, device)
     u = u.clamp_(min=tiny)
     return -torch.log(-torch.log(u))
 

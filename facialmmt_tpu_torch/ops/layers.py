@@ -6,17 +6,80 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from facialmmt_tpu_torch.parallel import context
+
 NEG_INF = -1e30  # large-negative instead of -inf: fully masked rows stay finite
 
 
 def dropout(x, p: float, training: bool,
-            generator: torch.Generator | None = None):
+            generator: torch.Generator | None = None, split=None):
     """Inverted dropout whose mask is drawn from an explicit generator (the
-    default generator of x's device when None); identity in eval or p = 0."""
+    default generator of x's device when None); identity in eval or p = 0.
+    The mask is drawn by parallel/context.py::rand: at the global shape
+    under a data shard, and with `split` = (dim, parts, index) at `parts`
+    times x's size on `dim` (a tensor-parallel rank's heads or hidden
+    units), keeping this rank's part."""
     if not training or p == 0.0:
         return x
-    mask = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    mask = context.rand(x.shape, generator, x.device, split=split) >= p
     return x * mask.to(x.dtype) / (1.0 - p)
+
+
+def checkpointed(fn, *args, generator: torch.Generator | None = None):
+    """fn(*args, generator) under torch.utils.checkpoint (non-reentrant):
+    its activations are recomputed in the backward instead of kept.
+    torch.utils.checkpoint restores only the default generators before the
+    recompute, so the draws `fn` takes from an explicit `generator` are
+    replayed here: the recompute starts from the generator's state at the
+    forward, under the forward's data shard, and the generator is put back
+    where the step left it afterwards.  The recompute thus uses the
+    forward's dropout masks and the generator ends the step where a step
+    without checkpointing leaves it."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = None if generator is None else generator.get_state()
+    shard = context.current()
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*a, generator)
+        now = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            with context.restore(shard):
+                return fn(*a, generator)
+        finally:
+            if generator is not None:
+                generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def column_input(x, tp):
+    """The input of a column-parallel product of a tensor-parallel layer
+    (`tp`: its parallel/comm.py::ModelShard, None when the layer is whole):
+    the identity, whose backward sums the gradient over the model group."""
+    if tp is None:
+        return x
+    from facialmmt_tpu_torch.parallel.comm import copy_to_model
+
+    return copy_to_model(x, tp.group)
+
+
+def row_linear(x, linear: nn.Linear, tp):
+    """linear(x) where `linear` is row-parallel under `tp`: this rank's
+    partial product, summed over the model group, then the (replicated)
+    bias."""
+    if tp is None:
+        return linear(x)
+    from facialmmt_tpu_torch.parallel.comm import reduce_from_model
+
+    y = reduce_from_model(F.linear(x.to(linear.weight.dtype), linear.weight),
+                          tp.group)
+    return y if linear.bias is None else y + linear.bias.to(y.dtype)
 
 
 class TorchLinear(nn.Linear):

@@ -39,6 +39,14 @@ running statistics in place.  drop_rate / attn_drop_rate > 0 run (from the
 same generator) only with both halves on 'xla': the kernels carry drop-path
 only.
 
+Remat: when resolve_remat(cfg.remat, images, 512) holds and a graph is being
+built, each block runs under torch.utils.checkpoint
+(ops/layers.py::checkpointed; JAX: nn.remat on each block above 512 packed
+images): the drop-path multipliers are drawn before it and passed in, and
+the recompute in the backward runs the block's forward kernels a second
+time.  Under a data shard (parallel/context.py) the head's BatchNorm takes
+the statistics of the global batch (sums over the data ranks).
+
 Parameter and buffer names follow the reference state_dict
 (torch_export.export_swin_backbone), including the persistent
 `relative_position_index` and, on shifted blocks, `attn_mask` buffers.
@@ -51,12 +59,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from facialmmt_tpu_torch.config import SwinConfig
+from facialmmt_tpu_torch.config import SwinConfig, resolve_remat
 from facialmmt_tpu_torch.ops.kernels.block_mlp import fused_ln_mlp_residual
 from facialmmt_tpu_torch.ops.kernels.fused_block import fused_attention_block
 from facialmmt_tpu_torch.ops.kernels.window_attention import (
     fused_window_attention, paired_window_attention)
-from facialmmt_tpu_torch.ops.layers import dropout, gelu_erf
+from facialmmt_tpu_torch.ops.layers import checkpointed, dropout, gelu_erf
+from facialmmt_tpu_torch.parallel import context
 
 ATTENTION_IMPLS = ("xla", "pallas", "pair", "auto")
 MLP_IMPLS = ("xla", "pallas", "auto")
@@ -110,7 +119,7 @@ def sample_drop_path_keep(b: int, rate: float, generator, device):
     """(b,) fp32 stochastic-depth multipliers, timm DropPath semantics: 0 with
     probability `rate`, else 1 / (1 - rate)."""
     keep_prob = 1.0 - rate
-    mask = torch.rand(b, generator=generator, device=device) < keep_prob
+    mask = context.rand((b,), generator, device) < keep_prob
     return mask.float() / keep_prob
 
 
@@ -475,6 +484,9 @@ class SwinTransformer(nn.Module):
                 "0.0; the kernels carry drop-path only)")
         x = dropout(self.patch_embed(x), cfg.drop_rate, self.training,
                     generator)
+        shard = context.current()
+        remat = torch.is_grad_enabled() and resolve_remat(
+            cfg.remat, x.shape[0] * (shard.parts if shard else 1), 512)
         res = cfg.patches_resolution
         blk = 0
         in_window_layout = False
@@ -496,8 +508,10 @@ class SwinTransformer(nn.Module):
                                               x.device) for _ in range(2))
                 else:
                     keep_attn = keep_mlp = None
-                x = block(x, keep_attn, keep_mlp, attn_impl, cfg.mlp_impl,
-                          generator)
+                x = (checkpointed(block, x, keep_attn, keep_mlp, attn_impl,
+                                  cfg.mlp_impl, generator=generator)
+                     if remat else block(x, keep_attn, keep_mlp, attn_impl,
+                                         cfg.mlp_impl, generator))
                 blk += 1
             in_window_layout = (layer.downsample is not None
                                 and self.merge_layout == "window")
@@ -516,8 +530,16 @@ class SwinTransformer(nn.Module):
         else:
             # batch statistics; the running variance takes the BIASED batch
             # variance, as flax's BatchNorm does (torch's takes the unbiased)
-            mean = x.mean(0)
-            var = (x - mean).square().mean(0)
+            if shard is None:
+                mean = x.mean(0)
+                var = (x - mean).square().mean(0)
+            else:                       # of the global batch
+                from facialmmt_tpu_torch.parallel.comm import all_reduce_sum
+
+                n = x.shape[0] * shard.parts
+                mean = all_reduce_sum(x.sum(0), shard.group) / n
+                var = all_reduce_sum((x - mean).square().sum(0),
+                                     shard.group) / n
             with torch.no_grad():
                 bn.running_mean.mul_(BN_MOMENTUM).add_(
                     mean.to(bn.running_mean.dtype), alpha=1 - BN_MOMENTUM)

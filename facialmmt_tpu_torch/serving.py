@@ -11,6 +11,14 @@ returns softmax probability rows.  The eval-time gumbel draw is sampled from
 a torch.Generator on the device, seeded from runtime.seed, unless
 runtime.deterministic_gumbel is set.
 
+With a `mesh_plan` (parallel/mesh.py) the server is SPMD: every rank
+constructs it and calls `predict` with the same requests, builds the same
+pack and keeps its rows of each leading axis (utterances and faces split
+apart, as in JAX); tensor-parallel layers run on their model group, the
+FER distributions and text features are gathered inside the pipeline, and
+the probability rows of all ranks are gathered, so every rank returns the
+full answers.
+
 AsyncBatchServer packs concurrent requests into those static shapes on one
 packer thread, optionally routing each pack to the smallest of several
 servers (buckets) that fits it; benchmark_load drives it with Poisson
@@ -20,6 +28,7 @@ arrivals.
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue as queue_mod
 import threading
 import time
@@ -42,21 +51,33 @@ class EmotionServer:
     def __init__(self, cfg: FacialMMTConfig, state_dict=None,
                  max_batch: int = 8, face_capacity: int = 64,
                  dtype: torch.dtype = torch.bfloat16,
-                 transfer_dtype=np.float16, device="cuda"):
+                 transfer_dtype=np.float16, device="cuda", mesh_plan=None):
         """`state_dict`: the pipeline's weights under the reference names
         (checkpoint/from_jax.py builds one from JAX variables); None draws
         random weights from runtime.seed.  `transfer_dtype` is the host wire
         format of the padded audio/vision features, restored to fp32 on the
         device.  `device` defaults to the card; without a CUDA device the
-        constructor raises (pass "cpu" to serve on the CPU).  The server warms
-        up with one all-padding pack."""
+        constructor raises (pass "cpu" to serve on the CPU).  `mesh_plan`
+        (parallel/mesh.py::build_mesh): serve SPMD over its dp x tp ranks
+        (module docstring; `device` is this rank's); max_batch and
+        face_capacity must divide dp.  The server warms up with one
+        all-padding pack."""
         self.cfg = cfg
         self.max_batch = max_batch
         self.face_capacity = face_capacity
         self.dtype = dtype
         self.transfer_dtype = transfer_dtype
         self.device = resolve_device(device)
+        self.mesh_plan = mesh_plan
         model = build_pipeline(cfg, self.device, state_dict)
+        if mesh_plan is not None:
+            from facialmmt_tpu_torch.parallel.mesh import shard_model_
+
+            dp = mesh_plan.dp
+            assert max_batch % dp == 0 and face_capacity % dp == 0, (
+                f"max_batch ({max_batch}) and face_capacity "
+                f"({face_capacity}) must divide dp ({dp})")
+            shard_model_(model, mesh_plan)
         self.model = model.to(dtype).eval()
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.runtime.seed)
@@ -91,7 +112,14 @@ class EmotionServer:
         can build the next pack while this one computes (AsyncBatchServer's
         pipeline depends on this).  The host blocks only where the card's
         launch queue is full, which a full-width pack's device operations
-        outnumber."""
+        outnumber.  Under a mesh plan with dp > 1 only this rank's rows go
+        to the device, and the rows of every rank come back."""
+        plan = self.mesh_plan
+        split = plan is not None and plan.dp > 1
+        if split:
+            from facialmmt_tpu_torch.parallel.mesh import shard_batch
+
+            batch, faces_raw = shard_batch(plan, (batch, faces_raw))
         full = {k: to_device_async(torch.from_numpy(np.asarray(v)),
                                    self.device) for k, v in batch.items()}
         full["audio_inputs"] = full["audio_inputs"].float()
@@ -100,8 +128,14 @@ class EmotionServer:
                                 self.device)
         full["faces"] = meld_face_eval_transform(
             faces.float(), self.cfg.data.swin_img_size).to(self.dtype)
-        logits = self.model(full, generator=self.generator)
-        return torch.softmax(logits.float(), dim=-1)
+        with plan.data_shard() if split else contextlib.nullcontext():
+            logits = self.model(full, generator=self.generator)
+        probs = torch.softmax(logits.float(), dim=-1)
+        if not split:
+            return probs
+        from facialmmt_tpu_torch.parallel.comm import all_gather_cat
+
+        return all_gather_cat(probs, plan.data_group)
 
     def predict_raw(self, batch: Dict[str, np.ndarray],
                     faces_raw: np.ndarray) -> np.ndarray:

@@ -38,12 +38,30 @@ optimizer over data/m3ed.py's datasets (or MeldDialogueDataset), select the
 best epoch by macro-F1, stop early on validation loss and, in their eval_*_only
 calls, write the competition CSV and the 'pred true' dump.
 
-Not ported yet: multi-device placement.  Datasets are any objects with the
-protocol of data/meld.py; the V-only loop takes MeldVisionDataset's.
+Multi-device runs (cfg.parallel; parallel/mesh.py): when dp or tp asks
+for more than one rank, the trainer joins torchrun's process group and
+builds the (data, model) mesh (_build_plan: dp = -1 takes every rank / tp,
+and dp shrinks, as in JAX, to the largest count that divides the effective
+batch; a rank left outside prints so and its run_* returns None).  Every
+rank builds the same model from the same seed, splits its tensor-parallel
+layers (shard_model_) and the same global batches; the steps split them
+over the data ranks (train/steps.py), the optimizer sums the gradients and
+holds ZeRO-1 moments (train/optim.py), and eval gathers the logits, so
+every rank computes the same F1.  All random draws come from the one
+generator every rank holds, at the global batch's shape (parallel/
+context.py), so the ranks' generators stay equal and a dp run draws what
+one process draws.  Only rank 0 prints, writes metrics and writes
+checkpoints, between barriers; files hold whole tensors in the
+single-device layout, so a run resumes at any layout.  A preemption request
+is agreed over the ranks at each step boundary before anyone saves.
+
+Datasets are any objects with the protocol of data/meld.py; the V-only loop
+takes MeldVisionDataset's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, Mapping, Optional
@@ -63,6 +81,9 @@ from facialmmt_tpu_torch.models.pipeline import (FacialMMTPipeline,
                                                  build_pipeline, init_random_)
 from facialmmt_tpu_torch.models.unimodal import MeldUttTransformer
 from facialmmt_tpu_torch.ops.kernels import resolve_device
+from facialmmt_tpu_torch.parallel.mesh import (full_state_dict,
+                                               load_full_state_dict,
+                                               shard_model_)
 from facialmmt_tpu_torch.train.metrics import eval_meld
 from facialmmt_tpu_torch.train.optim import MultiTaskState, SingleTaskState
 from facialmmt_tpu_torch.train.steps import (make_aux_train_step,
@@ -80,18 +101,20 @@ from facialmmt_tpu_torch.utils.preemption import (Preempted,
 _GEOMETRY = ("relative_position_index", "attn_mask", "num_batches_tracked")
 
 
-def graft_subtree(model: torch.nn.Module, src: Mapping[str, torch.Tensor],
+def graft_subtree(model, src: Mapping[str, torch.Tensor],
                   prefix: str, what: str) -> None:
     """Copy the pretrained tensors `src` (names relative to `prefix`) into
-    the parameters and running statistics of `model` under `prefix`, after
-    checking that both hold the same names with the same shapes: a
-    wrong-dims checkpoint fails here, with the first six mismatches listed,
-    before anything is copied.  The model keeps its dtypes (counterpart of
-    the JAX package's graft_subtree)."""
+    the parameters and running statistics of `model` (a module, or a
+    state_dict of whole tensors) under `prefix`, after checking that both
+    hold the same names with the same shapes: a wrong-dims checkpoint fails
+    here, with the first six mismatches listed, before anything is copied.
+    The model keeps its dtypes (counterpart of the JAX package's
+    graft_subtree)."""
     def own(name):
         return not name.endswith(_GEOMETRY)
 
-    dst = {k[len(prefix):]: v for k, v in model.state_dict().items()
+    sd = model if isinstance(model, Mapping) else model.state_dict()
+    dst = {k[len(prefix):]: v for k, v in sd.items()
            if k.startswith(prefix) and own(k)}
     src = {k: v for k, v in src.items() if own(k)}
     problems = []
@@ -133,10 +156,20 @@ class StepTimer:
         return elapsed * 1000 / max(log_interval, 1), avg_loss
 
 
-def _log_pass(task: str, epoch: int, hours: float):
-    print("-" * 50)
-    print(f"**{task}** | Epoch {epoch:2d} | Time {hours:5.4f} hour")
-    print("-" * 50)
+class _QuietWriter(MetricWriter):
+    """The writer of a rank other than 0: records nothing, prints nothing."""
+
+    def write(self, tag: str, step: int, **metrics: Any):
+        return None
+
+    def log_train(self, *a, **k):
+        pass
+
+    def log_eval(self, *a, **k):
+        pass
+
+    def log_test(self, *a, **k):
+        pass
 
 
 class Trainer:
@@ -144,15 +177,105 @@ class Trainer:
                  writer: Optional[MetricWriter] = None):
         """`device` defaults to the card; without a CUDA device the
         constructor raises (pass "cpu" to train on the CPU).  `writer`
-        receives the progress records; by default they are printed only."""
+        receives the progress records; by default they are printed only.
+        cfg.parallel asking for more than one rank joins torchrun's process
+        group (parallel/mesh.py::init_distributed) and builds the mesh."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.writer = writer or MetricWriter()
+        self.plan = self._build_plan(self._effective_batch())
+        if self.plan is not None and not self.plan.is_main:
+            self.writer = _QuietWriter()
         self.generator = torch.Generator(self.device).manual_seed(
             cfg.runtime.seed)
         self.history: list = []       # per epoch: val_f1, val_loss
         self.best_epoch = 0
         self.state: Optional[MultiTaskState] = None
+
+    # ------------------------------------------------------------- layout --
+
+    def _effective_batch(self) -> int:
+        """The batch axis the data ranks must divide: the microbatch under
+        joint training with accumulation, else the accumulated batch."""
+        opt = self.cfg.optim
+        if self.cfg.swin_from_target and opt.trg_accumulation_steps > 1:
+            return max(opt.trg_batch_size, 1)
+        return max(opt.trg_batch_size * opt.trg_accumulation_steps, 1)
+
+    def _build_plan(self, batch: int):
+        """The mesh of cfg.parallel (counterpart of the JAX trainer's
+        _build_plan), or None for a one-process run."""
+        import torch.distributed as dist
+
+        from facialmmt_tpu_torch.parallel.mesh import (build_mesh,
+                                                       init_distributed)
+
+        dp, tp = self.cfg.parallel.dp, self.cfg.parallel.tp
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", "1")))
+        if dp in (-1, 1) and tp == 1 and world == 1 \
+                and not dist.is_initialized():
+            return None
+        self.device = init_distributed(self.device)
+        world = dist.get_world_size()
+        if world % tp:
+            raise ValueError(f"--tp {tp} does not divide the {world} ranks")
+        # batches split on their leading axis, so dp must divide the
+        # effective batch; shrink to the largest count that does
+        want = world // tp if dp == -1 else dp
+        asked = want
+        while want > 1 and (batch % want or (world // tp) % want):
+            want -= 1
+        if want < asked and dist.get_rank() == 0:
+            print(f"parallel plan: dp shrunk {asked} -> {want} "
+                  f"(effective batch {batch} must divide dp; "
+                  f"{world} ranks, tp={tp}) — "
+                  f"{(asked - want) * tp} rank(s) idle")
+        plan = build_mesh(want, tp, self.device)
+        if not plan.member:
+            print(f"rank {plan.rank}: outside the {want} x {tp} mesh, "
+                  f"leaving the run")
+        return plan
+
+    def _idle(self) -> bool:
+        """A rank outside the mesh takes no part in the run."""
+        return self.plan is not None and not self.plan.member
+
+    def _say(self, *args) -> None:
+        if self.plan is None or self.plan.is_main:
+            print(*args)
+
+    def _shard(self, model):
+        """Split the model's tensor-parallel layers (a no-op at tp = 1)."""
+        if self.plan is not None:
+            shard_model_(model, self.plan)
+        return model
+
+    def _layout(self) -> dict:
+        """The optimizer's layout arguments (train/optim.py)."""
+        return dict(plan=self.plan, zero1=self.cfg.parallel.zero1)
+
+    def _write(self, save, *args):
+        """save(*args) on rank 0 only, between barriers; the path."""
+        if self.plan is None:
+            return save(*args)
+        self.plan.barrier()
+        path = save(*args) if self.plan.is_main else None
+        self.plan.barrier()
+        return path
+
+    def _eval_meld(self, logits, labels, test: bool) -> float:
+        """eval_meld, whose per-class line only rank 0 prints."""
+        if self.plan is None or self.plan.is_main:
+            return eval_meld(logits, labels, test=test)
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            return eval_meld(logits, labels, test=test)
+
+    def _log_pass(self, task: str, epoch: int, hours: float):
+        self._say("-" * 50)
+        self._say(f"**{task}** | Epoch {epoch:2d} | Time {hours:5.4f} hour")
+        self._say("-" * 50)
 
     # ----------------------------------------------------------- multimodal --
 
@@ -182,8 +305,10 @@ class Trainer:
 
     def _build_model(self, state_dict=None) -> FacialMMTPipeline:
         """The pipeline on the device with fp32 parameters: `state_dict` or
-        random weights from runtime.seed (models/pipeline.py)."""
-        return build_pipeline(self.cfg, self.device, state_dict).float()
+        random weights from runtime.seed (models/pipeline.py), split over
+        the model ranks."""
+        return self._shard(build_pipeline(self.cfg, self.device,
+                                          state_dict).float())
 
     def _pretrained_text_tower(self) -> Optional[Dict[str, torch.Tensor]]:
         """The HF text tower for training from scratch, as state_dict
@@ -214,14 +339,19 @@ class Trainer:
         `pretrained_swin`, the backbone's state_dict
         (checkpoint/torch_load.py::load_pretrained_swin_backbone), into
         swin_model.swin; the HF text tower into the multimodal model."""
-        if pretrained_swin is not None:
-            graft_subtree(model, pretrained_swin, "swin_model.swin.",
-                          "pretrained Swin backbone")
         text = self._pretrained_text_tower()
+        if pretrained_swin is None and text is None:
+            return
+        whole = full_state_dict(model, self.plan)
+        if pretrained_swin is not None:
+            graft_subtree(whole, pretrained_swin, "swin_model.swin.",
+                          "pretrained Swin backbone")
         if text is not None:
             tower = text_prefix(self.cfg) + "."
-            graft_subtree(model, {k[len(tower):]: v for k, v in text.items()},
+            graft_subtree(whole, {k[len(tower):]: v for k, v in text.items()},
                           "multimodal." + tower, "text tower")
+        if self.plan is not None:
+            load_full_state_dict(model, whole, self.plan)
 
     def _init_multitask_state(self, model, train_ds, aux_len: int):
         cfg, opt = self.cfg, self.cfg.optim
@@ -235,7 +365,8 @@ class Trainer:
         aux_total = opt.num_epochs * aux_steps
         if cfg.swin_from_target:  # joint training also steps Swin per trg step
             aux_total += mm_total
-        state = MultiTaskState.create(model, opt, aux_total, mm_total)
+        state = MultiTaskState.create(model, opt, aux_total, mm_total,
+                                      **self._layout())
         return state, steps_per_epoch, trg_bsz
 
     def _face_capacity(self, batch_size: int) -> int:
@@ -260,8 +391,7 @@ class Trainer:
             buckets.append(ceiling)
         return buckets
 
-    @staticmethod
-    def _batch_with_escalation(fetch, buckets):
+    def _batch_with_escalation(self, fetch, buckets):
         """fetch(capacity) under each bucket until one fits."""
         for i, cap in enumerate(buckets):
             try:
@@ -269,8 +399,9 @@ class Trainer:
             except FaceCapacityError as e:
                 if i == len(buckets) - 1:
                     raise  # ceiling bucket: a real data/config inconsistency
-                print(f"face capacity {cap} overflowed (need {e.required}); "
-                      f"escalating to bucket {buckets[i + 1]}")
+                self._say(f"face capacity {cap} overflowed (need "
+                          f"{e.required}); escalating to bucket "
+                          f"{buckets[i + 1]}")
                 continue
             return batch
 
@@ -279,16 +410,18 @@ class Trainer:
         dtype = cfg.runtime.compute_dtype
         accum = max(opt.trg_accumulation_steps, 1)
         use_micro = cfg.swin_from_target and accum > 1
-        aux_step = make_aux_train_step(model, compute_dtype=dtype)
+        plan = self.plan
+        aux_step = make_aux_train_step(model, compute_dtype=dtype, plan=plan)
         if use_micro:
             trg_step = make_multimodal_train_step_accum(
-                model, swin_from_target=True, compute_dtype=dtype)
+                model, swin_from_target=True, compute_dtype=dtype, plan=plan)
         else:
             trg_step = make_multimodal_train_step(
                 model, swin_from_target=cfg.swin_from_target,
-                compute_dtype=dtype)
+                compute_dtype=dtype, plan=plan)
         eval_step = make_multimodal_eval_step(
-            model, face_chunk=cfg.runtime.eval_face_chunk, compute_dtype=dtype)
+            model, face_chunk=cfg.runtime.eval_face_chunk, compute_dtype=dtype,
+            plan=plan)
         return aux_step, trg_step, eval_step, use_micro
 
     def _target_loader(self, train_ds, trg_bsz: int, use_micro: bool):
@@ -331,8 +464,10 @@ class Trainer:
         at an epoch boundary).  The generator behind augmentation, dropout,
         drop-path and the gumbel noise rides along, so a resumed run
         continues the same random stream, and the early-stopping counters, so
-        it stops at the epoch an uninterrupted run would."""
-        return {"model": state.model.state_dict(),
+        it stops at the epoch an uninterrupted run would.  Under a plan the
+        tensors are made whole (every rank calls this) and the generator's
+        state is every rank's: all of them draw the same stream."""
+        return {"model": full_state_dict(state.model, self.plan),
                 "optim": state.state_dict(),
                 "best_f1": float(best_f1), "epoch": int(epoch),
                 "progress": {k: int(v) for k, v in progress.items()},
@@ -350,7 +485,7 @@ class Trainer:
         if latest is None:
             return (None, 1, dict(progress_zero),
                     {"best_val_loss": float("inf"), "patience_counter": 0})
-        state.model.load_state_dict(latest["model"], strict=True)
+        load_full_state_dict(state.model, latest["model"], self.plan)
         state.load_state_dict(latest["optim"])
         self.generator.set_state(latest["generator"])
         es = latest["early_stop"]
@@ -365,14 +500,23 @@ class Trainer:
         """Poll the preemption guard at a batch boundary.  On a request, save
         the mid-epoch state as the resume checkpoint of the epochs before
         (crash-safe: the previous file under that name stays until the new
-        one is complete) and raise Preempted."""
-        if not preemption_requested():
+        one is complete) and raise Preempted.  Under a plan the ranks agree
+        first (a SIGTERM reaches them at different steps): any rank's
+        request stops every rank at this boundary."""
+        requested = preemption_requested()
+        if self.plan is not None:
+            from facialmmt_tpu_torch.parallel.comm import all_reduce_
+
+            flag = torch.tensor([float(requested)], device=self.device)
+            requested = bool(all_reduce_(flag, self.plan.group).item() > 0)
+        if not requested:
             return
-        path = ckpt.save_step(
-            self._ckpt_payload(state, best_f1, epoch - 1, progress,
-                               early_stop), epoch - 1)
-        print(f"Preemption requested: resume checkpoint saved to {path}; "
-              f"run again with resume=True to continue epoch {epoch}.")
+        self._write(ckpt.save_step, self._ckpt_payload(
+            state, best_f1, epoch - 1, progress, early_stop), epoch - 1)
+        path = os.path.join(ckpt.directory, f"step_{epoch - 1}")
+        self._say(f"Preemption requested: resume checkpoint saved to "
+                  f"{path}; run again with resume=True to continue epoch "
+                  f"{epoch}.")
         raise Preempted(epoch, path)
 
     # ----------------------------------------------------------- multimodal --
@@ -393,6 +537,8 @@ class Trainer:
         ('aux_pass', 'trg_pass', 'valid': epoch) and once before the first
         ('start'), for measurement and inspection; self.state holds the
         model by then."""
+        if self._idle():
+            return None
         notify = on_event or (lambda name, **info: None)
         cfg, opt = self.cfg, self.cfg.optim
         model = self._build_model(state_dict)
@@ -446,7 +592,7 @@ class Trainer:
                     self.writer.log_train("SRC", epoch, i, len(aux_loader),
                                           ms, avg)
                     timer.reset()
-            _log_pass("SRC", epoch, (time.time() - start) / 3600)
+            self._log_pass("SRC", epoch, (time.time() - start) / 3600)
             notify("aux_pass", epoch=epoch)
 
             # ---- target multimodal pass (reference train.py:364-374) ----
@@ -470,14 +616,15 @@ class Trainer:
             notify("trg_pass", epoch=epoch)
             logits, labels, val_loss = self._eval_multimodal(
                 eval_step, valid_ds, return_loss=True)
-            val_f1 = eval_meld(logits, labels, test=False)
+            val_f1 = self._eval_meld(logits, labels, test=False)
             self.writer.log_eval(epoch, (time.time() - start) / 3600, val_f1)
             self.history.append({"epoch": epoch, "val_f1": val_f1,
                                  "val_loss": val_loss})
             notify("valid", epoch=epoch)
             if val_f1 > best_f1:
                 best_f1 = val_f1
-                ckpt.save_best(model.state_dict(), epoch)
+                self._write(ckpt.save_best,
+                            full_state_dict(model, self.plan), epoch)
             # the early-stopping counters move BEFORE the epoch's resume
             # checkpoint, so a resumed run carries them
             if opt.patience > 0:  # appendix early stopping on val loss
@@ -486,31 +633,33 @@ class Trainer:
                     early["patience_counter"] = 0
                 else:
                     early["patience_counter"] += 1
-            ckpt.save_step(self._ckpt_payload(
+            self._write(ckpt.save_step, self._ckpt_payload(
                 state, best_f1, epoch, {"aux_batch": 0, "trg_batch": 0},
                 early), epoch)
             if opt.patience > 0 and early["patience_counter"] >= opt.patience:
-                print(f"Validation loss has not descended for "
-                      f"{opt.patience} epochs. Stopping training.")
+                self._say(f"Validation loss has not descended for "
+                          f"{opt.patience} epochs. Stopping training.")
                 break
 
         self.best_epoch, best = ckpt.restore_best()
-        model.load_state_dict(best, strict=True)
+        load_full_state_dict(model, best, self.plan)
         logits, labels = self._eval_multimodal(eval_step, test_ds)
-        test_f1 = eval_meld(logits, labels, test=True)
+        test_f1 = self._eval_meld(logits, labels, test=True)
         self.writer.log_test(test_f1)
         return test_f1
 
     def eval_multimodal_only(self, state_dict, test_ds,
                              batch_size: int = 16) -> float:
         """Direct-eval path from a state_dict (reference train.py:424-434)."""
+        if self._idle():
+            return None
         cfg = self.cfg
         model = self._build_model(state_dict)
         eval_step = make_multimodal_eval_step(
             model, face_chunk=cfg.runtime.eval_face_chunk,
-            compute_dtype=cfg.runtime.compute_dtype)
+            compute_dtype=cfg.runtime.compute_dtype, plan=self.plan)
         logits, labels = self._eval_multimodal(eval_step, test_ds, batch_size)
-        test_f1 = eval_meld(logits, labels, test=True)
+        test_f1 = self._eval_meld(logits, labels, test=True)
         self.writer.log_test(test_f1)
         return test_f1
 
@@ -544,10 +693,11 @@ class Trainer:
         with torch.device(self.device):
             model = MeldUttTransformer(self.cfg)
         if state_dict is None:
-            return init_random_(model, torch.Generator(self.device)
-                                .manual_seed(self.cfg.runtime.seed))
-        model.load_state_dict(state_dict, strict=True)
-        return model
+            init_random_(model, torch.Generator(self.device)
+                         .manual_seed(self.cfg.runtime.seed))
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        return self._shard(model)
 
     def run_unimodal(self, train_ds, valid_ds, test_ds,
                      resume: bool = False) -> float:
@@ -555,6 +705,8 @@ class Trainer:
         returns the test weighted F1 of the best-validation model.
         Checkpoints, preemption and resume=True as in run_multimodal, with
         the batch count of the interrupted epoch as its progress."""
+        if self._idle():
+            return None
         cfg, opt = self.cfg, self.cfg.optim
         model = self._build_unimodal()
         bsz = opt.trg_batch_size * opt.trg_accumulation_steps
@@ -562,11 +714,14 @@ class Trainer:
                                 shuffle=True, seed=cfg.runtime.seed)
         steps_per_epoch = len(loader)
         state = SingleTaskState.create(model, opt,
-                                       opt.num_epochs * steps_per_epoch)
+                                       opt.num_epochs * steps_per_epoch,
+                                       **self._layout())
         self.state = state
         dtype = cfg.runtime.compute_dtype
-        train_step = make_unimodal_train_step(model, compute_dtype=dtype)
-        eval_step = make_unimodal_eval_step(model, compute_dtype=dtype)
+        train_step = make_unimodal_train_step(model, compute_dtype=dtype,
+                                              plan=self.plan)
+        eval_step = make_unimodal_eval_step(model, compute_dtype=dtype,
+                                            plan=self.plan)
 
         ckpt = CheckpointManager(cfg.runtime.save_model_path)
         # the reference starts best at 0 with a strict '>' (train.py:352) and
@@ -599,29 +754,33 @@ class Trainer:
                                           ms, avg)
                     timer.reset()
             logits, labels = self._eval_unimodal(eval_step, valid_ds)
-            val_f1 = eval_meld(logits, labels, test=False)
+            val_f1 = self._eval_meld(logits, labels, test=False)
             self.writer.log_eval(epoch, (time.time() - start) / 3600, val_f1)
             if val_f1 > best_f1:
                 best_f1 = val_f1
-                ckpt.save_best(model.state_dict(), epoch)
-            ckpt.save_step(self._ckpt_payload(
+                self._write(ckpt.save_best,
+                            full_state_dict(model, self.plan), epoch)
+            self._write(ckpt.save_step, self._ckpt_payload(
                 state, best_f1, epoch, {"batch": 0}, no_early_stop), epoch)
 
         self.best_epoch, best = ckpt.restore_best()
-        model.load_state_dict(best, strict=True)
+        load_full_state_dict(model, best, self.plan)
         logits, labels = self._eval_unimodal(eval_step, test_ds)
-        test_f1 = eval_meld(logits, labels, test=True)
+        test_f1 = self._eval_meld(logits, labels, test=True)
         self.writer.log_test(test_f1)
         return test_f1
 
     def eval_unimodal_only(self, state_dict, test_ds) -> float:
         """Direct-eval path from a released unimodal state_dict (reference
         train.py:431-434)."""
+        if self._idle():
+            return None
         model = self._build_unimodal(state_dict)
         eval_step = make_unimodal_eval_step(
-            model, compute_dtype=self.cfg.runtime.compute_dtype)
+            model, compute_dtype=self.cfg.runtime.compute_dtype,
+            plan=self.plan)
         logits, labels = self._eval_unimodal(eval_step, test_ds)
-        test_f1 = eval_meld(logits, labels, test=True)
+        test_f1 = self._eval_meld(logits, labels, test=True)
         self.writer.log_test(test_f1)
         return test_f1
 
@@ -652,12 +811,6 @@ class _SingleModelTrainer(Trainer):
     A subclass gives the model (_new_model), its steps (_steps) and its
     predictions (_predict)."""
 
-    def _effective_batch(self) -> int:
-        opt = self.cfg.optim
-        if self.cfg.swin_from_target and opt.trg_accumulation_steps > 1:
-            return max(opt.trg_batch_size, 1)
-        return max(opt.trg_batch_size * opt.trg_accumulation_steps, 1)
-
     def _new_model(self) -> torch.nn.Module:
         raise NotImplementedError
 
@@ -677,7 +830,7 @@ class _SingleModelTrainer(Trainer):
         model.to(self.device).float()   # buffers made from numpy
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-            return model
+            return self._shard(model)
         init_random_(model, torch.Generator(self.device).manual_seed(
             self.cfg.runtime.seed))
         text = self._pretrained_text_tower() if pretrained else None
@@ -685,7 +838,7 @@ class _SingleModelTrainer(Trainer):
             tower = text_prefix(self.cfg) + "."
             graft_subtree(model, {k[len(tower):]: v for k, v in text.items()},
                           tower, "text tower")
-        return model
+        return self._shard(model)
 
     def _batch_to_device(self, batch):
         return {k: self._to_device(v) for k, v in batch.items()}
@@ -698,6 +851,8 @@ class _SingleModelTrainer(Trainer):
         'trg_step' (epoch, index, loss) and 'valid' (epoch)."""
         from facialmmt_tpu_torch.train.metrics import macro_f1, weighted_f1
 
+        if self._idle():
+            return None
         notify = on_event or (lambda name, **info: None)
         cfg, opt = self.cfg, self.cfg.optim
         model = self._build_single(pretrained=True)
@@ -705,7 +860,8 @@ class _SingleModelTrainer(Trainer):
         loader = PrefetchLoader(train_ds.get_batch, len(train_ds), bsz,
                                 shuffle=True, seed=cfg.runtime.seed)
         state = SingleTaskState.create(model, opt,
-                                       opt.num_epochs * len(loader))
+                                       opt.num_epochs * len(loader),
+                                       **self._layout())
         self.state = state
         train_step, eval_step = self._steps(model)
         metric = macro_f1 if use_macro_f1 else weighted_f1
@@ -746,7 +902,8 @@ class _SingleModelTrainer(Trainer):
             notify("valid", epoch=epoch)
             if val_f1 > best_f1:
                 best_f1 = val_f1
-                ckpt.save_best(model.state_dict(), epoch)
+                self._write(ckpt.save_best,
+                            full_state_dict(model, self.plan), epoch)
             # the counters move BEFORE the epoch's resume file (exact resume)
             if opt.patience > 0:
                 if val_loss < early["best_val_loss"]:
@@ -754,15 +911,15 @@ class _SingleModelTrainer(Trainer):
                     early["patience_counter"] = 0
                 else:
                     early["patience_counter"] += 1
-            ckpt.save_step(self._ckpt_payload(state, best_f1, epoch,
-                                              {"batch": 0}, early), epoch)
+            self._write(ckpt.save_step, self._ckpt_payload(
+                state, best_f1, epoch, {"batch": 0}, early), epoch)
             if opt.patience > 0 and early["patience_counter"] >= opt.patience:
-                print(f"Validation loss has not descended for "
-                      f"{opt.patience} epochs. Stopping training.")
+                self._say(f"Validation loss has not descended for "
+                          f"{opt.patience} epochs. Stopping training.")
                 break
 
         self.best_epoch, best = ckpt.restore_best()
-        model.load_state_dict(best, strict=True)
+        load_full_state_dict(model, best, self.plan)
         logits, labels, _ = self._predict(eval_step, test_ds, bsz)
         test_f1 = metric(labels, logits.argmax(-1))
         self.writer.log_test(test_f1)
@@ -787,6 +944,8 @@ class _SingleModelTrainer(Trainer):
         if submission_template and not os.path.exists(submission_template):
             raise FileNotFoundError(
                 f"--submission_template not found: {submission_template}")
+        if self._idle():
+            return None
         cfg = self.cfg
         _, best = CheckpointManager(
             ckpt_dir or cfg.runtime.save_model_path).restore_best()
@@ -795,13 +954,15 @@ class _SingleModelTrainer(Trainer):
         logits, labels, _ = self._predict(eval_step, test_ds,
                                           self._effective_batch())
         preds = logits.argmax(-1)
+        if self.plan is not None and not self.plan.is_main:
+            submission_template = pred_dump_path = ""   # rank 0 writes them
         if submission_template:
             out = submission_out or os.path.join(cfg.runtime.save_model_path,
                                                  "nustm_submission.csv")
             write_submission_csv(logits, submission_template, out)
             print(f"submission written: {out}")
         else:
-            print("no submission template: no submission CSV written")
+            self._say("no submission template: no submission CSV written")
         if pred_dump_path:
             correct = write_pred_true_dump(preds, labels, pred_dump_path)
             print(f"pred/true dump: {pred_dump_path} "
@@ -835,8 +996,10 @@ class TextTrainer(_SingleModelTrainer):
                                                      make_text_train_step)
 
         dtype = self.cfg.runtime.compute_dtype
-        return (make_text_train_step(model, compute_dtype=dtype),
-                make_text_eval_step(model, compute_dtype=dtype))
+        return (make_text_train_step(model, compute_dtype=dtype,
+                                     plan=self.plan),
+                make_text_eval_step(model, compute_dtype=dtype,
+                                    plan=self.plan))
 
     def _predict(self, eval_step, ds, bsz: int):
         """(logits (N, C), labels (N,), mean loss) over `ds` in order."""
@@ -890,8 +1053,10 @@ class DialogueTrainer(_SingleModelTrainer):
                                                      make_dialogue_train_step)
 
         dtype = self.cfg.runtime.compute_dtype
-        return (make_dialogue_train_step(model, compute_dtype=dtype),
-                make_dialogue_eval_step(model, compute_dtype=dtype))
+        return (make_dialogue_train_step(model, compute_dtype=dtype,
+                                         plan=self.plan),
+                make_dialogue_eval_step(model, compute_dtype=dtype,
+                                        plan=self.plan))
 
     def _predict(self, eval_step, ds, bsz: int):
         """(logits (U, C), labels (U,), mean loss) over the valid utterances

@@ -247,17 +247,21 @@ def test_config_from_args_equals_jax(argv):
     assert got == want
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--swin_remat", "1"], "activation checkpointing"),
-    (["--text_remat", "1"], "activation checkpointing"),
-    (["--dp", "4"], "one device"),
-    (["--tp", "2"], "one device"),
-    (["--profile_dir", "/tmp/trace"], "profiler"),
-    (["--debug_nans", "1"], "NaN"),
+@pytest.mark.parametrize("argv, world, error, match", [
+    (["--dp", "2"], None, NotImplementedError, "torchrun"),
+    (["--tp", "3"], "4", ValueError, "does not divide"),
+    (["--profile_dir", "/tmp/trace"], None, NotImplementedError, "profiler"),
+    (["--debug_nans", "1"], None, NotImplementedError, "NaN"),
 ])
-def test_unported_flags_raise_before_data(argv, match, tmp_path):
-    """Raised by run() before anything is read: the data path is empty."""
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_raise_before_data(argv, world, error, match,
+                                          tmp_path, monkeypatch):
+    """Raised by run() before anything is read: the data path is empty.
+    --dp / --tp beyond one rank need torchrun's environment (WORLD_SIZE),
+    and --tp must divide its world."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    if world is not None:
+        monkeypatch.setenv("WORLD_SIZE", world)
+    with pytest.raises(error, match=match):
         port_main.run(["--data_load_path", str(tmp_path / "none"),
                        "--device", "cpu", *argv])
 
@@ -451,6 +455,30 @@ def test_cli_train_tav_grafts_and_resumes(meld_root, tmp_path, small_swin,
     seen.clear()
     f1_resumed = port_main.run(argv + ["--resume", "1"])
     assert "sd" not in seen and f1_resumed == f1
+
+
+@pytest.mark.parametrize("flag", ["--swin_remat", "--text_remat"])
+def test_remat_flags_train_an_epoch(meld_root, tmp_path, small_swin,
+                                    no_guard, monkeypatch, flag):
+    """--swin_remat 1 / --text_remat 1 (formerly refused) train one T+A+V
+    epoch from the fixtures with every Swin block / text layer
+    checkpointed."""
+    from facialmmt_tpu_torch.ops import layers
+
+    calls = []
+    real = layers.checkpointed
+    monkeypatch.setattr(
+        "facialmmt_tpu_torch.ops.swin.checkpointed"
+        if flag == "--swin_remat" else
+        "facialmmt_tpu_torch.models.text_encoder.checkpointed",
+        lambda *a, **k: calls.append(1) or real(*a, **k))
+    f1 = port_main.run(_train_argv(
+        meld_root, tmp_path / "saved", "--choice_modality", "T+A+V",
+        "--data_folder", str(meld_root / "aux" / "cropped_aligned"),
+        "--anno_folder", str(meld_root / "aux" / "annos"),
+        "--data_list_train", str(tmp_path / "aux_list.txt"), flag, "1"))
+    assert 0.0 <= f1 <= 1.0 and calls
+    assert "step_1" in os.listdir(tmp_path / "saved")
 
 
 def test_cli_module_preempted_then_resumed(meld_root, tmp_path, no_guard):

@@ -854,3 +854,95 @@ def test_tiny_trainer_on_the_card(cuda_device, tmp_path):
     # the window-attention and merge kernels are on other routes only
     assert all(n == 0 for k, n in counts.items()
                if k not in default_route), counts
+
+
+@pytest.mark.gpu
+def test_swin_remat_is_bit_for_bit_on_the_card(cuda_device):
+    """Swin with every block checkpointed (SwinConfig.remat=True) on the
+    default route: the same loss, gradients, BatchNorm statistics and
+    generator state as without, bit for bit, stochastic depth on; the
+    recompute launches kernels 2 and 3 once more per block, the backward
+    kernels as often as without."""
+    from facialmmt_tpu_torch.config import FacialMMTConfig
+    from facialmmt_tpu_torch.models.swin_fer import \
+        SwinForAffwildClassification
+    from facialmmt_tpu_torch.train.steps import compute_context, cross_entropy
+
+    cfg = FacialMMTConfig.tiny()
+    cfg = cfg.replace(swin=dataclasses.replace(cfg.swin, embed_dim=32,
+                                               drop_path_rate=0.3))
+    torch.manual_seed(0)
+    model = SwinForAffwildClassification(cfg).to(cuda_device).train()
+    images = torch.randn(24, 32, 32, 3, device=cuda_device)
+    labels = torch.arange(24, device=cuda_device) % 7
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    seen = []
+    for remat in (False, True):
+        model.load_state_dict(start)
+        model.swin.cfg = dataclasses.replace(model.swin.cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(cuda_device).manual_seed(5)
+        kernels.reset_launch_counts()
+        with compute_context(cuda_device):
+            loss = cross_entropy(model(images, generator=gen), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        seen.append((loss.detach(), {n: p.grad.clone() for n, p in
+                                     model.named_parameters()},
+                     {k: v.clone() for k, v in model.state_dict().items()},
+                     gen.get_state(), kernels.launch_counts()))
+    (l0, g0, s0, r0, c0), (l1, g1, s1, r1, c1) = seen
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+    assert torch.equal(r0, r1)
+    blocks = sum(cfg.swin.depths)
+    doubled = ("fused_attention_block", "fused_ln_mlp_residual")
+    assert all((c0[k], c1[k]) == (blocks, 2 * blocks) for k in doubled), \
+        (c0, c1)
+    assert all(c1[k] == c0[k] for k in c0 if k not in doubled), (c0, c1)
+
+
+@pytest.mark.gpu
+def test_text_tower_local_heads_take_kernel_1(cuda_device, tmp_path):
+    """Two ranks on the one card (gloo) run the text tower at tp=2, eval:
+    each rank's attention is kernel 1 on num_heads / 2 heads, once per
+    layer, and both return the one-process tower's output within 2e-2 x
+    max (bf16 autocast on both sides)."""
+    import os
+    import subprocess
+    import sys
+
+    from facialmmt_tpu_torch.config import TextEncoderConfig
+    from facialmmt_tpu_torch.models.text_encoder import TextEncoder
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = dataclasses.replace(TextEncoderConfig(), hidden_size=256,
+                              num_heads=4, intermediate_size=512,
+                              num_layers=2)
+    torch.manual_seed(0)
+    enc = TextEncoder(cfg).eval()
+    ids = torch.randint(3, 1000, (2, 300))
+    mask = torch.ones_like(ids)
+    mask[1, 200:] = 0
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        want = enc.to(cuda_device)(ids.to(cuda_device),
+                                   mask.to(cuda_device)).float().cpu()
+    torch.save({"scenarios": {2: ["text_tp2"]}, "device": "cuda:0",
+                "text_cfg": dataclasses.asdict(cfg),
+                "text_sd": {k: v.cpu().numpy() for k, v in
+                            enc.state_dict().items()},
+                "ids": ids.numpy(), "mask": mask.numpy()},
+               tmp_path / "case.pt")
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [subprocess.Popen([sys.executable,
+                               os.path.join(repo, "tests", "torch_dist_worker.py"),
+                               str(r), "2", str(tmp_path)], cwd=repo, env=env)
+             for r in range(2)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"out_2_{r}.pt",
+                         weights_only=False)["text_tp2"]
+        assert got["heads"] == [cfg.num_heads // 2] * cfg.num_layers
+        assert got["launches"] == cfg.num_layers
+        assert _rel(torch.tensor(got["out"]), want) <= BOUND
