@@ -153,7 +153,28 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      and an EmotionServer at tp=2 whose text attention is kernel 1 on half
      the heads, 24 launches a pack, its logits within SERVING_BOUND of a
      one-rank server's; (d) a rank process that runs the same steps without
-     a plan and then at dp=1 on a one-rank NCCL group: bit for bit.
+     a plan and then at dp=1 on a one-rank NCCL group: bit for bit;
+ 14. the tooling (phase_tooling; experiments/torch_tooling.py runs it
+     alone): (a) `python -m facialmmt_tpu_torch.tools doctor` in its own
+     process, exit 0, the card at capability 9.0, nvcc and the kernel
+     library loaded; (b) `print-flops` against utils/flops.py, and the
+     mfu of phase 4's (8, 64) pack (its model FLOPs at the pack's static
+     shapes over its benchmark_latency p50, a smoke reading); (c)
+     run_multimodal on phase 7's data with runtime.profile_dir: one trace,
+     ProfilerStep#0-1 the two target steps (train steps 3-4, as JAX's
+     schedule picks them) and #2 the validation until the run closes the
+     capture; each step's calls of kernels 1-6, tied to their device
+     kernels through spans around the library's C entry points
+     (entry_spans), exactly TARGET_STEP_LAUNCHES; the ten device operations
+     that took the most time and the device's idle share over the two
+     steps; (d) one auxiliary and one target step with and without
+     enable_nan_debugging, losses and every gradient bit for bit, then a
+     NaN in one face (FloatingPointError naming the module) and a NaN put
+     into the gradient at the Swin head (naming kernel 3's backward
+     Function, which launches kernel 4); (e) phase 9's released pair
+     through convert-checkpoint and export-checkpoint --kind pipeline, bit
+     for bit, behind an EmotionServer with the same answers, kernels 1-3
+     24 / 12 / 12 times a pack.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -164,6 +185,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -1032,6 +1054,7 @@ def phase_serving(torch, dev, rng, gpu_name):
     print(f"serving: benchmark_latency(10) p50 {lat['p50_ms']:.2f} ms, p99 "
           f"{lat['p99_ms']:.2f} ms, mean {lat['mean_ms']:.2f} ms on {gpu_name}")
     paths = {"serving": launches}
+    p50_ms = lat["p50_ms"]
 
     # the same weights behind the two other Swin routes: the same packs
     blocks = sum(cfg.swin.depths) * len(packs)
@@ -1072,7 +1095,7 @@ def phase_serving(torch, dev, rng, gpu_name):
               f"{lat['p99_ms']:.2f} ms on {gpu_name}")
         paths[key] = launches
         del routed
-    return paths, server
+    return paths, server, p50_ms
 
 
 def swin_route(cfg, route):
@@ -1414,6 +1437,29 @@ def torch_equal(a, b):
     return bool((a == b).all())
 
 
+def training_config(base, save_dir):
+    """`base` with phase 7's run: one epoch, auxiliary batches of
+    AUX_IMAGES, target batches of 4 utterances, checkpoints to save_dir."""
+    return base.replace(optim=dataclasses.replace(
+        base.optim, num_epochs=1, aux_batch_size=AUX_IMAGES, trg_batch_size=1,
+        trg_accumulation_steps=4), runtime=dataclasses.replace(
+            base.runtime, save_model_path=save_dir))
+
+
+def training_datasets(cfg, aux_size=112):
+    """Phase 7's in-memory data: 2 auxiliary batches, 8 training and 8
+    evaluation utterances of 6-10 faces."""
+    from facialmmt_tpu_torch.data.meld import (SyntheticFerDataset,
+                                               SyntheticMeldDataset)
+
+    aux_ds = SyntheticFerDataset(2 * AUX_IMAGES, aux_size, cfg.num_labels,
+                                 seed=11)
+    faces = [8, 7, 9, 8, 6, 10, 8, 8]
+    train_ds = SyntheticMeldDataset(cfg, 8, 2, faces, seed=12, split="train")
+    eval_ds = SyntheticMeldDataset(cfg, 8, 2, faces, seed=13, split="eval")
+    return aux_ds, train_ds, eval_ds
+
+
 def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
     """`base`: the model configuration, FacialMMTConfig() unless a rehearsal
     at a small size passes another.  The run's checkpoints go to `save_dir`;
@@ -1422,21 +1468,11 @@ def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
     are deleted."""
     from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
     from facialmmt_tpu_torch.config import FacialMMTConfig
-    from facialmmt_tpu_torch.data.meld import (SyntheticFerDataset,
-                                               SyntheticMeldDataset)
     from facialmmt_tpu_torch.ops import kernels
     from facialmmt_tpu_torch.train.trainer import Trainer
 
-    base = base or FacialMMTConfig()
-    cfg = base.replace(optim=dataclasses.replace(
-        base.optim, num_epochs=1, aux_batch_size=AUX_IMAGES, trg_batch_size=1,
-        trg_accumulation_steps=4), runtime=dataclasses.replace(
-            base.runtime, save_model_path=save_dir))
-    aux_ds = SyntheticFerDataset(2 * AUX_IMAGES, aux_size, cfg.num_labels,
-                                 seed=11)
-    faces = [8, 7, 9, 8, 6, 10, 8, 8]
-    train_ds = SyntheticMeldDataset(cfg, 8, 2, faces, seed=12, split="train")
-    eval_ds = SyntheticMeldDataset(cfg, 8, 2, faces, seed=13, split="eval")
+    cfg = training_config(base or FacialMMTConfig(), save_dir)
+    aux_ds, train_ds, eval_ds = training_datasets(cfg, aux_size)
 
     trainer = Trainer(cfg)            # the default device: the card
     if trainer.device.type != dev.type:
@@ -3679,6 +3715,459 @@ def mesh_runs(torch, dev, gpu_name, cfg):
             "nccl_dp1_steps": nccl["launches"]}
 
 
+# ------------------------------------------------------- phase 14: tooling --
+
+# the C entry points of kernels 1-6 (ops/kernels/__init__.py::_SIGNATURES)
+ENTRY_OF = {"fused_attention": "fmmt_fused_attention",
+            "fused_attention_block": "fmmt_fused_attention_block",
+            "fused_ln_mlp_residual": "fmmt_fused_ln_mlp_residual",
+            "fused_ln_mlp_residual_bwd": "fmmt_fused_ln_mlp_residual_bwd",
+            "fused_attention_block_bwd": "fmmt_fused_attention_block_bwd",
+            "fused_attention_block_bwd_spill":
+                "fmmt_fused_attention_block_bwd_spill"}
+# launches in one default target step (PERF.md section 6): the Swin forward
+# without a graph, the text tower in train mode on plain attention
+TARGET_STEP_LAUNCHES = {"fused_attention": 0, "fused_attention_block": 12,
+                        "fused_ln_mlp_residual": 12,
+                        "fused_ln_mlp_residual_bwd": 0,
+                        "fused_attention_block_bwd": 0,
+                        "fused_attention_block_bwd_spill": 0}
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def phase_tooling(torch, dev, gpu_name, cli_root, pack_p50_ms, cfg=None,
+                  extra=()):
+    """Phase 14: the tools module, --profile_dir and --debug_nans on the
+    card.  (a) `python -m facialmmt_tpu_torch.tools doctor` in its own
+    process; (b) print-flops against utils/flops.py in process, and the mfu
+    of phase 4's pack; (c) run_multimodal on phase 7's data with
+    runtime.profile_dir: the trace's ProfilerStep spans and, by the C entry
+    point that launched them, its device kernels; (d) one auxiliary and one
+    target step with and without enable_nan_debugging, bit for bit, then a
+    NaN face and a NaN gradient; (e) phase 9's released pair through
+    convert-checkpoint and export-checkpoint --kind pipeline, bit for bit,
+    and behind an EmotionServer.  Returns the launch counts of its paths."""
+    from facialmmt_tpu_torch.config import FacialMMTConfig
+
+    cfg = cfg or FacialMMTConfig()
+    t0 = time.perf_counter()
+    tooling_doctor(torch)
+    tooling_flops(gpu_name, pack_p50_ms)
+    paths = {}
+    with tempfile.TemporaryDirectory() as work:
+        paths["tooling_profile"] = tooling_profile(torch, dev, gpu_name, work,
+                                                   cfg)
+    torch.cuda.empty_cache()
+    paths["tooling_debug_nans"] = tooling_debug_nans(torch, dev, gpu_name,
+                                                     cfg)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        paths["tooling_roundtrip"] = tooling_roundtrip(
+            torch, dev, gpu_name, cli_root, work, extra)
+    print(f"tooling: phase 14 in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def tooling_doctor(torch):
+    """`tools doctor` in its own process: exit 0, the card at capability
+    9.0, nvcc, the kernel library found (phase 2 built it) and loaded."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "facialmmt_tpu_torch.tools", "doctor"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    need = (torch.cuda.get_device_name(0), "capability 9.0", "nvcc",
+            "kernel library", "kernels            : loaded")
+    if proc.returncode != 0 or not all(n in proc.stdout for n in need):
+        raise AssertionError(f"tools doctor: exit {proc.returncode}, "
+                             f"wanted {need}\n{proc.stdout}\n"
+                             f"{proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        print("tooling: doctor: " + line.strip())
+
+
+def tooling_flops(gpu_name, pack_p50_ms):
+    """print-flops' lines equal those of ops/swin.py::swin_flops and
+    utils/flops.py::eval_step_macs called here; then the model FLOPs of
+    phase 4's (8, 64) pack over its benchmark_latency p50 as a share of
+    the card's bf16 peak (a smoke reading, no gate)."""
+    from facialmmt_tpu_torch import tools
+    from facialmmt_tpu_torch.config import FacialMMTConfig
+    from facialmmt_tpu_torch.ops.swin import swin_flops
+    from facialmmt_tpu_torch.utils.flops import (H100_BF16_PEAK_FLOPS,
+                                                 eval_step_macs)
+
+    cfg = FacialMMTConfig()
+    batch, per = 8, 8
+    f = swin_flops(cfg.swin)
+    m = eval_step_macs(cfg, batch, 1, per * batch)
+    want = [f"swin-tiny forward: {f / 1e9:.2f} GMACs/image "
+            f"({f * batch / 1e12:.2f} TMACs at batch {batch})",
+            f"full T+A+V eval batch ({batch} utts, {per} faces/utt): "
+            f"{m / 1e9:.1f} GMACs = {2 * m / 1e12:.2f} TFLOPs"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tools.main(["print-flops", "--batch", str(batch), "--faces_per_utt",
+                    str(per)])
+    if out.getvalue().splitlines() != want:
+        raise AssertionError(f"print-flops printed {out.getvalue()!r}, "
+                             f"utils/flops.py gives {want}")
+    for line in want:
+        print(f"tooling: print-flops: {line}")
+    # the pack's static shapes: 8 dialogue rows of 512 tokens, 64 face slots
+    pack = eval_step_macs(cfg, 8, 8, FACES)
+    rate = 2 * pack / (pack_p50_ms / 1e3)
+    print(f"tooling: mfu (smoke reading): phase 4's (8, {FACES}) pack, "
+          f"2 x {pack / 1e9:.1f} GMACs at its static shapes over its "
+          f"benchmark_latency p50 {pack_p50_ms:.2f} ms = "
+          f"{rate / 1e12:.2f} TFLOP/s, mfu {100 * rate / H100_BF16_PEAK_FLOPS:.2f} "
+          f"% of {H100_BF16_PEAK_FLOPS / 1e12:.1f} TFLOP/s on {gpu_name}")
+
+
+@contextlib.contextmanager
+def entry_spans(torch):
+    """Every launching C entry point of the kernel library inside a
+    torch.profiler span of its name, so that a trace ties each device kernel
+    to the entry point (and so the kernel of this script) that launched
+    it.  The wrappers look the entry points up on the library at every
+    launch."""
+    from facialmmt_tpu_torch.ops import kernels
+
+    lib = kernels.library()
+    saved = {name: getattr(lib, name) for name in ENTRY_OF.values()}
+
+    def spanned(name, fn):
+        def call(*args):
+            with torch.profiler.record_function(name):
+                return fn(*args)
+        return call
+
+    for name, fn in saved.items():
+        setattr(lib, name, spanned(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+
+
+def read_step_trace(path):
+    """The trace of a StepProfiler capture: its ProfilerStep spans in
+    order, per span the entry-point spans of kernels 1-6 and the device
+    kernels they launched (by the launch's correlation id), and the device
+    events (kernels, copies, sets) whose launch lies in each span."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    # the host's spans (the card's copies of them are 'gpu_user_annotation')
+    host = [e for e in events if e.get("cat") == "user_annotation"]
+    steps = sorted((e for e in host if e["name"].startswith("ProfilerStep#")),
+                   key=lambda e: e["ts"])
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    entries = [e for e in host if e["name"] in ENTRY_OF.values()]
+    device = [e for e in events if e.get("cat") in DEVICE_CATEGORIES
+              and e.get("args", {}).get("correlation") in launch_ts]
+
+    def inside(ts, span):
+        return span["ts"] <= ts <= span["ts"] + span["dur"]
+
+    out = []
+    for step in steps:
+        mine = [d for d in device
+                if inside(launch_ts[d["args"]["correlation"]], step)]
+        spans = {}
+        for kernel, entry in ENTRY_OF.items():
+            calls = [e for e in entries
+                     if e["name"] == entry and inside(e["ts"], step)]
+            spans[kernel] = [
+                [d["name"] for d in mine if d.get("cat") == "kernel"
+                 and inside(launch_ts[d["args"]["correlation"]], call)]
+                for call in calls]
+        out.append({"name": step["name"], "span": step, "device": mine,
+                    "entries": spans})
+    return out
+
+
+def tooling_profile(torch, dev, gpu_name, work, base):
+    """Trainer(FacialMMTConfig()).run_multimodal on phase 7's in-memory data
+    (2 auxiliary steps of 150 images, 2 target steps of 4 utterances) with
+    runtime.profile_dir: one trace file, ProfilerStep#0-1 the target steps
+    (train steps 3-4, as JAX's schedule picks them) and #2 what ran after
+    them until the run closed the capture (validation); in each captured
+    step the entry points of kernels 1-6 called TARGET_STEP_LAUNCHES times,
+    each call with its device kernels; the ten device operations that took
+    the most time, and the device's idle share over the two steps."""
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    trace = os.path.join(work, "trace")
+    cfg = training_config(base, os.path.join(work, "saved"))
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  profile_dir=trace))
+    aux_ds, train_ds, eval_ds = training_datasets(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with entry_spans(torch):
+        f1 = Trainer(cfg, dev).run_multimodal(aux_ds, train_ds, eval_ds,
+                                              eval_ds)
+    sync(torch)
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    files = [name for name in os.listdir(trace)
+             if name.startswith("rank0.") and name.endswith(".pt.trace.json")]
+    if len(files) != 1 or not np.isfinite(f1):
+        raise AssertionError(f"--profile_dir: files {files}, W-F1 {f1}")
+    path = os.path.join(trace, files[0])
+    steps = read_step_trace(path)
+    names = [s["name"] for s in steps]
+    if names != ["ProfilerStep#0", "ProfilerStep#1", "ProfilerStep#2"]:
+        raise AssertionError(f"--profile_dir: spans {names}, expected the "
+                             f"two target steps and the tail")
+    for step in steps[:2]:
+        calls = {k: len(v) for k, v in step["entries"].items()}
+        empty = {k: sum(not c for c in v) for k, v in step["entries"].items()
+                 if any(not c for c in v)}
+        if calls != TARGET_STEP_LAUNCHES or empty:
+            raise AssertionError(f"{step['name']}: kernel calls {calls}, "
+                                 f"expected {TARGET_STEP_LAUNCHES}; calls "
+                                 f"without a device kernel {empty}")
+        print(f"tooling: --profile_dir: {step['name']} (a target step): "
+              + ", ".join(f"{k} {n} calls, "
+                          f"{sum(map(len, step['entries'][k]))} device kernels"
+                          for k, n in calls.items() if n))
+    tail = {k: len(v) for k, v in steps[2]["entries"].items() if v}
+    lo = steps[0]["span"]["ts"]
+    hi = steps[1]["span"]["ts"] + steps[1]["span"]["dur"]
+    device = steps[0]["device"] + steps[1]["device"]
+    by_name = {}
+    for d in device:
+        ms, n = by_name.get(d["name"], (0.0, 0))
+        by_name[d["name"]] = (ms + d["dur"] / 1e3, n + 1)
+    busy, end = 0.0, lo
+    for d in sorted(device, key=lambda d: d["ts"]):
+        a, b = max(d["ts"], end), min(d["ts"] + d["dur"], hi)
+        if b > a:
+            busy += b - a
+        end = max(end, min(d["ts"] + d["dur"], hi))
+    window = hi - lo
+    print(f"tooling: --profile_dir: run_multimodal in {seconds:.1f} s, "
+          f"trace {os.path.getsize(path) / 1e6:.1f} MB, spans {names}; the "
+          f"tail (validation until close) called {tail}; launches of the "
+          f"run {launches} on {gpu_name}")
+    print(f"tooling: --profile_dir: device idle {100 * (1 - busy / window):.1f} "
+          f"% of the two target steps' {window / 1e3:.1f} ms ({len(device)} "
+          f"device operations, busy {busy / 1e3:.1f} ms) on {gpu_name}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:10]:
+        print(f"tooling: --profile_dir: top device op {ms:.3f} ms in {n} "
+              f"({name.replace('(anonymous namespace)::', '')[:110]})")
+    return launches
+
+
+def tooling_debug_nans(torch, dev, gpu_name, base):
+    """One auxiliary and one target step of run_multimodal's (phase 7's
+    data, from one snapshot of the model) with and without
+    enable_nan_debugging: the losses and every gradient the optimizers
+    receive bit for bit, kernels 2-6 launched alike.  Then, debugging on, a
+    NaN in one face raises FloatingPointError naming a module, and a NaN put
+    by a tensor hook into the gradient arriving at the Swin head (the last
+    block's MLP half) raises it naming kernel 3's backward Function, which
+    launches kernel 4.  The handle is removed afterwards."""
+    import facialmmt_tpu_torch.ops.swin as swin_ops
+    from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.trainer import Trainer
+    from facialmmt_tpu_torch.utils.observability import enable_nan_debugging
+
+    cfg = training_config(base, "unused")
+    aux_ds, train_ds, _ = training_datasets(cfg)
+    trainer = Trainer(cfg, dev)
+    model = trainer._build_model(None)
+    gen = torch.Generator(dev).manual_seed(5)
+    images, labels = aux_ds.get_batch(range(AUX_IMAGES))
+    images = affwild2_train_augment(gen, trainer._to_device(images).float(),
+                                    img_size=cfg.data.swin_img_size)
+    labels = trainer._to_device(labels)
+    _, _, trg_bsz = trainer._init_multitask_state(model, train_ds,
+                                                  len(aux_ds))
+    batch, _ = next(iter(trainer._target_loader(train_ds, trg_bsz, False)
+                         .epoch(1)))
+    batch = trainer._prepare_faces(batch, train=True)
+    start = snapshot(model)
+
+    def steps(debug, aux_images=images):
+        """(losses, gradients, launches, seconds) of the two steps."""
+        model.load_state_dict(start)
+        state, _, _ = trainer._init_multitask_state(model, train_ds,
+                                                    len(aux_ds))
+        aux_step, trg_step, _, _ = trainer._make_steps(model)
+        grads = {}
+        for key, opt, branch in (("aux", state.swin_opt, model.swin_model),
+                                 ("target", state.mm_opt, model.multimodal)):
+            opt.step = recorded_step(opt.step, grads.setdefault(key, {}),
+                                     branch)
+        g = torch.Generator(dev).manual_seed(6)
+        handle = enable_nan_debugging() if debug else None
+        try:
+            kernels.reset_launch_counts()
+            sync(torch)
+            t0 = time.perf_counter()
+            losses = (float(aux_step(state, aux_images, labels, g)),
+                      float(trg_step(state, batch, g)))
+            sync(torch)
+            return (losses, grads, kernels.launch_counts(),
+                    time.perf_counter() - t0)
+        finally:
+            if handle is not None:
+                handle.remove()
+
+    plain = steps(False)
+    debug = steps(True)
+    differ = [f"{key}.{name}" for key in ("aux", "target")
+              for name, g in plain[1][key].items()
+              if not torch.equal(g, debug[1][key][name])]
+    if (debug[0] != plain[0] or differ or debug[2] != plain[2]
+            or set(plain[1]["aux"]) != set(debug[1]["aux"])):
+        raise AssertionError(f"--debug_nans changed the steps: losses "
+                             f"{plain[0]} vs {debug[0]}, gradients "
+                             f"{differ[:5]}, launches {plain[2]} vs "
+                             f"{debug[2]}")
+    require_launched(debug[2], SERVING_KERNELS[1:] + BACKWARD_KERNELS,
+                     "the NaN-checked steps")
+    n = sum(len(g) for g in debug[1].values())
+    print(f"tooling: --debug_nans: one aux and one target step, losses "
+          f"{debug[0]} and {n} gradients bit for bit with and without "
+          f"debugging; {plain[3] * 1e3:.0f} -> {debug[3] * 1e3:.0f} ms "
+          f"(first calls); launches {debug[2]} on {gpu_name}")
+
+    bad = images.clone()
+    bad[7, 0, 0, 0] = float("nan")
+    try:
+        steps(True, bad)
+    except FloatingPointError as e:
+        if "module" not in str(e):
+            raise
+        print(f"tooling: --debug_nans: a NaN in face 7 of 150 raised "
+              f"FloatingPointError: {e}")
+    else:
+        raise AssertionError("--debug_nans: a NaN face raised nothing")
+
+    mlp, last, calls = swin_ops.fused_ln_mlp_residual, sum(
+        cfg.swin.depths), []
+
+    def nan_gradient(*args, **kwargs):
+        out = mlp(*args, **kwargs)
+        calls.append(1)
+        if len(calls) == last:      # the last block's MLP half: the head's input
+            out.register_hook(lambda grad: grad * float("nan"))
+        return out
+
+    swin_ops.fused_ln_mlp_residual = nan_gradient
+    try:
+        steps(True)
+    except FloatingPointError as e:
+        if "FusedLnMlpResidualBackward" not in str(e):
+            raise
+        print(f"tooling: --debug_nans: a NaN put into the gradient at the "
+              f"Swin head raised FloatingPointError: {str(e)[:200]}")
+    else:
+        raise AssertionError("--debug_nans: a NaN gradient raised nothing")
+    finally:
+        swin_ops.fused_ln_mlp_residual = mlp
+    if torch.is_anomaly_enabled():
+        raise AssertionError("anomaly mode left on")
+    return debug[2]
+
+
+def recorded_step(step, into, module):
+    """An optimizer step that first copies `module`'s gradients `into`."""
+    def recorded(*args):
+        into.update({name: p.grad.detach().clone()
+                     for name, p in module.named_parameters()
+                     if p.grad is not None})
+        return step(*args)
+    return recorded
+
+
+def tooling_roundtrip(torch, dev, gpu_name, cli_root, work, extra=()):
+    """Phase 9's released pair (seed-7 weights) through `tools
+    convert-checkpoint` (--kind multimodal, swin), joined into a pipeline
+    checkpoint, and `tools export-checkpoint --kind pipeline`: the two
+    files it writes hold the input's tensors bit for bit; behind an
+    EmotionServer the exported pair answers as phase 9's does (the same
+    bits on two packs), kernels 1-3 launched 24 / 12 / 12 times a pack."""
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch import tools
+    from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
+    from facialmmt_tpu_torch.checkpoint.torch_load import (
+        MULTIMODAL, SWIN, load_torch_state_dict, released_state_dict)
+    from facialmmt_tpu_torch.data.meld import MeldMultimodalDataset
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.serving import EmotionServer
+
+    argv = cli_argv(cli_root, *extra, "--choice_modality", "T+A+V",
+                    "--doEval", "1", "--deterministic_gumbel", "1")
+    cfg = cli.config_from_args(cli.build_argparser().parse_args(argv))
+    test_ds = MeldMultimodalDataset(os.path.join(cli_root, "meld"), "test",
+                                    cli.text_arrays(cfg, "test"))
+    cfg = cli._adapt_static_shapes(cfg, test_ds)
+    pm = os.path.join(cli_root, "pretrained_model")
+    pair = (os.path.join(pm, cfg.load_multimodal_path),
+            os.path.join(pm, cfg.load_swin_path))
+    t0 = time.perf_counter()
+    ckpt = os.path.join(work, "ckpt")
+    for kind, path in zip(("multimodal", "swin"), pair):
+        tools.main(["convert-checkpoint", "--kind", kind, "--input", path,
+                    "--output", os.path.join(ckpt, kind)])
+    manager = CheckpointManager(ckpt)
+    joined = {MULTIMODAL + k: v for k, v in manager.restore("multimodal")
+              .items()}
+    joined.update({SWIN + k: v for k, v in manager.restore("swin").items()})
+    manager.save("best_1", joined)
+    base = os.path.join(work, "exported.pt")
+    tools.main(["export-checkpoint", "--kind", "pipeline", "--input",
+                os.path.join(ckpt, "best_1"), "--output", base])
+    exported = (base[:-3] + "_multimodal.pt", base[:-3] + "_swin.pt")
+    seconds = time.perf_counter() - t0
+    for src, out in zip(pair, exported):
+        want, got = load_torch_state_dict(src), load_torch_state_dict(out)
+        differ = [k for k in want if k not in got
+                  or want[k].dtype != got[k].dtype
+                  or not torch.equal(want[k], got[k])]
+        if differ or set(got) != set(want):
+            raise AssertionError(f"round trip of {src}: {differ[:5]}, keys "
+                                 f"{set(got) ^ set(want)}")
+    print(f"tooling: convert-checkpoint x2 + export-checkpoint --kind "
+          f"pipeline of phase 9's pair "
+          f"({sum(map(os.path.getsize, pair)) / 1e9:.3f} GB) in "
+          f"{seconds:.1f} s: every tensor bit for bit")
+
+    rng = np.random.default_rng(14)
+    packs = [synthetic_requests(rng, cfg, [8] * 8, 512),
+             synthetic_requests(rng, cfg, [5, 11, 0, 16, 2], 300)]
+    answers = []
+    for files in (pair, exported):
+        server = EmotionServer(cfg, released_state_dict(*files), max_batch=8,
+                               face_capacity=FACES, device=dev)
+        kernels.reset_launch_counts()
+        answers.append([np.stack(server.predict(reqs)) for reqs in packs])
+        sync(torch)
+        launches = kernels.launch_counts()
+        del server
+    require_counts(launches, {"fused_attention": 24 * len(packs),
+                              "fused_attention_block": 12 * len(packs),
+                              "fused_ln_mlp_residual": 12 * len(packs)},
+                   "the exported pair's server")
+    if not all(np.array_equal(a, b) for a, b in zip(*answers)):
+        raise AssertionError("the exported pair answers otherwise than "
+                             "phase 9's")
+    print(f"tooling: the exported pair behind an EmotionServer: "
+          f"{sum(map(len, packs))} answers equal to phase 9's pair's bit for "
+          f"bit; launches {launches} ({len(packs)} packs) on {gpu_name}")
+    return launches
+
+
 def main(json_out: str = "") -> int:
     """`json_out`: where to write the per-shape kernel times and the launch
     counts per path, if anywhere."""
@@ -3717,7 +4206,7 @@ def main(json_out: str = "") -> int:
     rng = np.random.default_rng(0)
     results = phase_kernels(torch, dev, rng)
     torch.cuda.empty_cache()
-    paths, server = phase_serving(torch, dev, rng, gpu_name)
+    paths, server, pack_p50_ms = phase_serving(torch, dev, rng, gpu_name)
     route_paths, route_ms = phase_swin_routes(torch, dev, rng, server, gpu_name)
     paths.update(route_paths)
     whole_paths, whole_ms = phase_whole_shift(torch, dev, rng, server, gpu_name)
@@ -3737,10 +4226,13 @@ def main(json_out: str = "") -> int:
                                      run["step_times"]))
         torch.cuda.empty_cache()
         paths.update(phase_appendix(torch, dev, gpu_name, cli_root))
-    torch.cuda.empty_cache()
-    paths.update(phase_front_end(torch, dev, gpu_name))
-    torch.cuda.empty_cache()
-    paths.update(phase_remat_mesh(torch, dev, gpu_name))
+        torch.cuda.empty_cache()
+        paths.update(phase_front_end(torch, dev, gpu_name))
+        torch.cuda.empty_cache()
+        paths.update(phase_remat_mesh(torch, dev, gpu_name))
+        torch.cuda.empty_cache()
+        paths.update(phase_tooling(torch, dev, gpu_name, cli_root,
+                                   pack_p50_ms))
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)

@@ -251,7 +251,6 @@ class RuntimeConfig:
     param_dtype: str = "float32"
     deterministic_gumbel: bool = False  # reference SAMPLES gumbel noise at eval
                                         # (src/models.py:31-32); True => softmax(logits/tau)
-    debug_nans: bool = False
     aux_log_interval: int = 1000
     trg_log_interval: int = 1600
     save_model_path: str = "saved_model"

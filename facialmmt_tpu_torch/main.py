@@ -27,11 +27,13 @@ and V, evaluation from the reference's released files and training from the
 pretrained Swin backbone and a local HF text tower; the appendix: T on the
 M3ED text, M3ED T+A / T+V / T+A+V at the utterance or dialogue level,
 MELD's dialogue level, crossmodal or concat fusion, macro-F1, the submission
-CSV and the 'pred true' dump.  Any JAX command line parses; a flag whose
-work is not ported raises NotImplementedError before any data loads
-(UNPORTED), an explicit --submission_template that does not exist raises
-FileNotFoundError there too, and the three flags that select a JAX
-implementation accept only the values that select nothing here
+CSV and the 'pred true' dump.  `--profile_dir D` writes a torch.profiler
+trace of train steps 3-7 into D (utils/observability.py::StepProfiler);
+`--debug_nans 1` raises FloatingPointError at the first module or backward
+Function that makes a NaN (enable_nan_debugging).  Any JAX command line
+parses; an explicit --submission_template that does not exist raises
+FileNotFoundError before any data loads, and the three flags that select a
+JAX implementation accept only the values that select nothing here
 (config_from_args).
 """
 
@@ -47,13 +49,6 @@ import numpy as np
 # the template's name in the reference's project
 # ((Appendix)CCAC2023/nustm_submission_empty.csv)
 DEFAULT_TEMPLATE = "nustm_submission_empty.csv"
-# (flag, value that is ported, what would run it): anything else raises
-UNPORTED = (
-    ("profile_dir", "", "profiler capture and NaN debugging (ROADMAP Queue 1 "
-                        "item 5)"),
-    ("debug_nans", 0, "profiler capture and NaN debugging (ROADMAP Queue 1 "
-                      "item 5)"),
-)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -179,7 +174,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval_face_chunk", type=int, default=0)
     p.add_argument("--deterministic_gumbel", type=int, default=0)
     p.add_argument("--debug_nans", type=int, default=0)
-    p.add_argument("--profile_dir", type=str, default="")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="non-empty: write a torch.profiler trace of train "
+                        "steps 3-7 (Chrome trace, *.pt.trace.json) here")
     p.add_argument("--prng_impl", type=str, default="auto",
                    choices=["auto", "rbg", "threefry2x32"],
                    help="only 'auto': the port draws from a torch.Generator")
@@ -199,17 +196,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for a command line whose work the port cannot do yet:
-    NotImplementedError naming the ROADMAP item for an unported branch,
-    ValueError for a value of a JAX implementation switch, which has no
-    counterpart here.  --dp / --tp asking for more than one rank need
-    torchrun's environment (NotImplementedError naming torchrun without
-    it), and --tp must divide its WORLD_SIZE (ValueError)."""
-    for flag, ported, what in UNPORTED:
-        value = getattr(args, flag)
-        if value not in (ported if isinstance(ported, tuple) else (ported,)):
-            raise NotImplementedError(
-                f"--{flag} {value}: {what} is not ported")
+    """Raise for a command line the port cannot run: ValueError for a
+    value of a JAX implementation switch, which has no counterpart here.
+    --dp / --tp asking for more than one rank need torchrun's environment
+    (NotImplementedError naming torchrun without it), and --tp must divide
+    its WORLD_SIZE (ValueError)."""
     world = os.environ.get("WORLD_SIZE")
     if (args.dp not in (-1, 1) or args.tp != 1) and world is None:
         raise NotImplementedError(
@@ -272,7 +263,6 @@ def config_from_args(args) -> "FacialMMTConfig":
                         clip=args.clip, patience=args.patience)
     runtime = RuntimeConfig(seed=args.seed, compute_dtype=args.compute_dtype,
                             profile_dir=args.profile_dir,
-                            debug_nans=bool(args.debug_nans),
                             eval_face_chunk=args.eval_face_chunk,
                             deterministic_gumbel=bool(
                                 args.deterministic_gumbel),
@@ -432,9 +422,12 @@ def run(argv=None) -> float:
     cfg = resolve_pretrained_text_dir(cfg, args.pretrained_model_dir)
 
     from facialmmt_tpu_torch.ops.kernels import resolve_device
-    from facialmmt_tpu_torch.utils.observability import MetricWriter
+    from facialmmt_tpu_torch.utils.observability import (MetricWriter,
+                                                         enable_nan_debugging)
 
     device = resolve_device(args.device)   # raises without a card
+    if args.debug_nans:
+        enable_nan_debugging()   # for the life of the process
     stdout = sys.stdout
     if int(os.environ.get("RANK", "0")) != 0:
         sys.stdout = open(os.devnull, "w")  # rank 0 alone prints

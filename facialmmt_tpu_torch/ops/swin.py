@@ -547,3 +547,32 @@ class SwinTransformer(nn.Module):
                     var.to(bn.running_var.dtype), alpha=1 - BN_MOMENTUM)
         return ((x - mean) * torch.rsqrt(var + bn.eps) * bn.weight.float()
                 + bn.bias.float())
+
+
+def swin_flops(cfg: SwinConfig) -> int:
+    """Analytic multiply-accumulates of one image's forward, the reference's
+    flops() (reference Swin_Transformer.py:149-160, 276-288, 333-337,
+    383-389, 424-429), as the JAX package counts them."""
+    flops = 0
+    ho, wo = cfg.patches_resolution
+    flops += ho * wo * cfg.embed_dim * cfg.in_chans * cfg.patch_size ** 2
+    if cfg.patch_norm:
+        flops += ho * wo * cfg.embed_dim
+    dim = cfg.embed_dim
+    for stage in range(len(cfg.depths)):
+        h = ho // (2 ** stage)
+        w = wo // (2 ** stage)
+        d = int(dim * 2 ** stage)
+        ws = min(cfg.window_size, h)
+        n = ws * ws
+        heads = cfg.num_heads[stage]
+        per_win = n * d * 3 * d + heads * n * (d // heads) * n * 2 + n * d * d
+        nw = h * w / n
+        per_block = (d * h * w * 2 + nw * per_win
+                     + 2 * h * w * d * d * cfg.mlp_ratio)
+        flops += int(per_block * cfg.depths[stage])
+        if stage < len(cfg.depths) - 1:
+            flops += h * w * d + (h // 2) * (w // 2) * 4 * d * 2 * d
+    flops += cfg.num_features * ho * wo // (4 ** (len(cfg.depths) - 1))
+    flops += (49 * cfg.num_features) * cfg.out_feature_dim
+    return int(flops)

@@ -126,13 +126,18 @@ def init_distributed(device="cuda", backend: Optional[str] = None,
     return device
 
 
-def build_mesh(dp: int = -1, tp: int = 1, device="cpu") -> MeshPlan:
+def build_mesh(dp: int = -1, tp: int = 1, device="cuda") -> MeshPlan:
     """The (data, model) mesh over the first dp * tp ranks of the process
-    group (dp = -1: all ranks / tp).  Every rank of the group calls it (the
-    groups are made collectively); a rank beyond dp * tp gets a plan whose
-    `member` is False."""
+    group (dp = -1: all ranks / tp) on `device`'s kind: the card unless the
+    caller asks for "cpu" (without a card "cuda" raises, as resolve_device
+    does).  Every rank of the group calls it (the groups are made
+    collectively); a rank beyond dp * tp gets a plan whose `member` is
+    False."""
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+    from facialmmt_tpu_torch.ops.kernels import resolve_device
+
+    kind = resolve_device(device).type
     world = dist.get_world_size()
     rank = dist.get_rank()
     if dp == -1:
@@ -140,7 +145,6 @@ def build_mesh(dp: int = -1, tp: int = 1, device="cpu") -> MeshPlan:
     n = dp * tp
     if tp < 1 or dp < 1 or n > world:
         raise ValueError(f"dp({dp}) * tp({tp}) does not fit {world} ranks")
-    kind = torch.device(device).type
     names = ("data", "model")
     if n == world:
         mesh = init_device_mesh(kind, (dp, tp), mesh_dim_names=names)

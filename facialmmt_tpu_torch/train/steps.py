@@ -40,6 +40,19 @@ from facialmmt_tpu_torch.models.unimodal import MeldUttTransformer
 from facialmmt_tpu_torch.train.optim import MultiTaskState, SingleTaskState
 
 
+def backward(loss) -> None:
+    """loss.backward().  Under NaN debugging (utils/observability.py::
+    enable_nan_debugging) anomaly mode reports a backward Function that
+    returned a NaN as a RuntimeError; it is raised as FloatingPointError, as
+    `jax_debug_nans` raises, naming the Function."""
+    try:
+        loss.backward()
+    except RuntimeError as e:
+        if "returned nan values" not in str(e):
+            raise
+        raise FloatingPointError(str(e)) from e
+
+
 def cross_entropy(logits, labels):
     return F.cross_entropy(logits.float(), labels.long())
 
@@ -146,7 +159,7 @@ def make_multimodal_train_step(model: FacialMMTPipeline, *,
             logits = model(local, generator=generator,
                            stop_swin_gradient=not swin_from_target)
         loss = _ce(split, logits, local["labels"], on)
-        loss.backward()
+        backward(loss)
         _apply_target_updates(state, swin_from_target, on)
         return split.report(loss, on)
 
@@ -180,7 +193,7 @@ def make_multimodal_train_step_accum(model: FacialMMTPipeline, *,
                 logits = model(micro, generator=generator,
                                stop_swin_gradient=not swin_from_target)
             loss = _ce(split, logits, micro["labels"], on) / m
-            loss.backward()                    # .grad accumulates the mean
+            backward(loss)                     # .grad accumulates the mean
             total = total + split.report(loss, on)
         _apply_target_updates(state, swin_from_target, on)
         return total
@@ -261,7 +274,7 @@ def make_aux_train_step(model: FacialMMTPipeline, *,
                                                 compute_dtype):
             logits = model.aux_logits(images, generator=generator, keeps=keeps)
         loss = _ce(split, logits, labels, on)
-        loss.backward()
+        backward(loss)
         state.swin_opt.step(on)
         state.swin_step += 1
         return split.report(loss, on)
@@ -285,7 +298,7 @@ def make_unimodal_train_step(model: MeldUttTransformer, *,
                                                 compute_dtype):
             logits = model(feats, mask, generator)
         loss = _ce(split, logits, labels, on)
-        loss.backward()
+        backward(loss)
         state.opt.step(on)
         state.step += 1
         return split.report(loss, on)
@@ -358,7 +371,7 @@ def make_dialogue_train_step(model, *, compute_dtype: str = "bfloat16",
         else:
             loss = masked_cross_entropy(logits, local["labels"],
                                         local["dia_mask"])
-        loss.backward()
+        backward(loss)
         state.opt.step(on)
         state.step += 1
         return split.report(loss, on)
@@ -419,7 +432,7 @@ def make_text_train_step(model, *, compute_dtype: str = "bfloat16",
                                                 compute_dtype):
             logits = _text_logits(model, local, generator)
         loss = _ce(split, logits, local["labels"], on)
-        loss.backward()
+        backward(loss)
         state.opt.step(on)
         state.step += 1
         return split.report(loss, on)

@@ -31,7 +31,10 @@ Training from scratch starts from pretrained towers as the reference does:
 backbone and a non-empty `pretrained_text_model_path` the HF text tower
 (`graft_subtree`, checkpoint/torch_load.py's loaders).  Progress lines and
 the JSON-lines records of `--metrics_path` go through a MetricWriter
-(utils/observability.py).
+(utils/observability.py).  A non-empty runtime.profile_dir (`--profile_dir`)
+traces train steps 3-7 of the run into that directory (StepProfiler: one
+`ProfilerStep#n` span a step; a run that ends or is preempted before step 7
+writes what it captured).
 
 TextTrainer and DialogueTrainer (the appendix) train one model with one
 optimizer over data/m3ed.py's datasets (or MeldDialogueDataset), select the
@@ -92,7 +95,8 @@ from facialmmt_tpu_torch.train.steps import (make_aux_train_step,
                                              make_multimodal_train_step_accum,
                                              make_unimodal_eval_step,
                                              make_unimodal_train_step)
-from facialmmt_tpu_torch.utils.observability import MetricWriter
+from facialmmt_tpu_torch.utils.observability import (MetricWriter,
+                                                     StepProfiler)
 from facialmmt_tpu_torch.utils.preemption import (Preempted,
                                                   preemption_requested)
 
@@ -183,6 +187,8 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.writer = writer or MetricWriter()
+        # --profile_dir: a trace of a few train steps (no-op when unset)
+        self.profiler = StepProfiler(cfg.runtime.profile_dir)
         self.plan = self._build_plan(self._effective_batch())
         if self.plan is not None and not self.plan.is_main:
             self.writer = _QuietWriter()
@@ -511,6 +517,7 @@ class Trainer:
             requested = bool(all_reduce_(flag, self.plan.group).item() > 0)
         if not requested:
             return
+        self.profiler.close()  # write a capture still running
         self._write(ckpt.save_step, self._ckpt_payload(
             state, best_f1, epoch - 1, progress, early_stop), epoch - 1)
         path = os.path.join(ckpt.directory, f"step_{epoch - 1}")
@@ -583,6 +590,7 @@ class Trainer:
                 loss = aux_step(state, images, self._to_device(labels),
                                 self.generator)
                 timer.update(float(loss), n_valid)
+                self.profiler.step()
                 notify("aux_step", epoch=epoch, index=i, loss=float(loss))
                 self._maybe_preempt(ckpt, state, best_f1, epoch,
                                     {"aux_batch": i + 1, "trg_batch": 0},
@@ -604,6 +612,7 @@ class Trainer:
                 device_batch = self._prepare_faces(batch, train=True)
                 loss = trg_step(state, device_batch, self.generator)
                 timer.update(float(loss), n_valid)
+                self.profiler.step()
                 notify("trg_step", epoch=epoch, index=i, loss=float(loss))
                 self._maybe_preempt(ckpt, state, best_f1, epoch,
                                     {"aux_batch": len(aux_loader),
@@ -641,6 +650,7 @@ class Trainer:
                           f"{opt.patience} epochs. Stopping training.")
                 break
 
+        self.profiler.close()
         self.best_epoch, best = ckpt.restore_best()
         load_full_state_dict(model, best, self.plan)
         logits, labels = self._eval_multimodal(eval_step, test_ds)
@@ -746,6 +756,7 @@ class Trainer:
                                   self._to_device(batch["labels"]),
                                   self.generator)
                 timer.update(float(loss), n_valid)
+                self.profiler.step()
                 self._maybe_preempt(ckpt, state, best_f1, epoch,
                                     {"batch": i + 1}, no_early_stop)
                 if i % cfg.runtime.trg_log_interval == 0 and i > 0:
@@ -763,6 +774,7 @@ class Trainer:
             self._write(ckpt.save_step, self._ckpt_payload(
                 state, best_f1, epoch, {"batch": 0}, no_early_stop), epoch)
 
+        self.profiler.close()
         self.best_epoch, best = ckpt.restore_best()
         load_full_state_dict(model, best, self.plan)
         logits, labels = self._eval_unimodal(eval_step, test_ds)
@@ -886,6 +898,7 @@ class _SingleModelTrainer(Trainer):
                 loss = train_step(state, self._batch_to_device(batch),
                                   self.generator)
                 timer.update(float(loss), n_valid)
+                self.profiler.step()
                 notify("trg_step", epoch=epoch, index=i, loss=float(loss))
                 self._maybe_preempt(ckpt, state, best_f1, epoch,
                                     {"batch": i + 1}, early)
@@ -918,6 +931,7 @@ class _SingleModelTrainer(Trainer):
                           f"{opt.patience} epochs. Stopping training.")
                 break
 
+        self.profiler.close()
         self.best_epoch, best = ckpt.restore_best()
         load_full_state_dict(model, best, self.plan)
         logits, labels, _ = self._predict(eval_step, test_ds, bsz)

@@ -1,19 +1,30 @@
-"""Run records (counterpart of MetricWriter in
+"""Run records, profiler traces and NaN checks (counterpart of
 facialmmt_tpu/utils/observability.py).
 
-MetricWriter prints the reference's progress lines (reference
-train.py:36-42, 146-152) and appends the same records as JSON lines to
-`--metrics_path`: one object per record with `tag` (`src_train`,
-`trg_train`, `val`, `test`), `step`, `time` (Unix seconds) and the record's
-numbers.  An empty path prints only.
+  * MetricWriter prints the reference's progress lines (reference
+    train.py:36-42, 146-152) and appends the same records as JSON lines to
+    `--metrics_path`: one object per record with `tag` (`src_train`,
+    `trg_train`, `val`, `test`), `step`, `time` (Unix seconds) and the
+    record's numbers.  An empty path prints only.
+  * trace_span names a region in a torch.profiler trace; profile_trace
+    captures one region; StepProfiler (`--profile_dir`) captures a few
+    training steps, each a `ProfilerStep#n` span.  The traces are Chrome
+    traces (`*.pt.trace.json`: chrome://tracing, Perfetto, TensorBoard's
+    profiler plugin), with the card's kernels when a card is present.
+  * enable_nan_debugging (`--debug_nans`) raises FloatingPointError at the
+    first module whose forward output holds a NaN and at the first backward
+    Function that returns one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Any, Dict
+
+import torch
 
 
 class MetricWriter:
@@ -56,3 +67,159 @@ class MetricWriter:
         if self._f:
             self._f.close()
             self._f = None
+
+
+def _activities():
+    """The CPU, and the card's kernels and copies when a card is present."""
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))
+
+
+def _write_trace(prof, log_dir: str) -> None:
+    """`rank<r>.<ns>.pt.trace.json` in `log_dir`: one file per rank and
+    capture."""
+    from torch.profiler import tensorboard_trace_handler
+
+    tensorboard_trace_handler(log_dir, worker_name=f"rank{_rank()}")(prof)
+
+
+@contextlib.contextmanager
+def trace_span(name: str):
+    """A named span in a torch.profiler trace (record_function); next to
+    nothing when no trace is being captured."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Capture the enclosed region as a trace in `log_dir`; yields the
+    torch.profiler.profile (its key_averages() and events() read the
+    capture once the region has ended)."""
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=_activities())
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        _write_trace(prof, log_dir)
+
+
+def _step_schedule(step: int):
+    return torch.profiler.ProfilerAction.RECORD
+
+
+class StepProfiler:
+    """Bounded trace capture for training loops (`--profile_dir`).
+
+    step() is called after every training step.  With an empty `log_dir`
+    every call is a no-op and no profiler is touched.  Otherwise the first
+    `skip` calls pass, call `skip + 1` starts a capture and call
+    `skip + steps + 1` stops it, so the trace holds the `steps` training
+    steps after the first `skip + 1` (the JAX package's schedule), as the
+    spans ProfilerStep#0 .. #steps-1; then it prints
+    `profiler: <steps>-step device trace written`.  One capture per run.
+    close() ends a capture the run cut short (its last span then holds what
+    ran after the last step until close) and writes it.  Each rank writes
+    its own file (`rank<r>.<ns>.pt.trace.json`)."""
+
+    def __init__(self, log_dir: str, steps: int = 5, skip: int = 1):
+        self.log_dir = log_dir
+        self.steps = steps
+        self.skip = skip
+        self._seen = 0
+        self._prof = None
+
+    def step(self):
+        if not self.log_dir:
+            return
+        self._seen += 1
+        if self._seen == self.skip + 1 and self._prof is None:
+            os.makedirs(self.log_dir, exist_ok=True)
+            # a schedule that always records: it opens the ProfilerStep#n
+            # spans, and start / stop below bound the capture
+            self._prof = torch.profiler.profile(activities=_activities(),
+                                                schedule=_step_schedule)
+            self._prof.start()
+        elif self._prof is not None and self._seen > self.skip + self.steps:
+            self._finish()
+            self.log_dir = ""  # one capture per run
+            print(f"profiler: {self.steps}-step device trace written")
+        elif self._prof is not None:
+            self._prof.step()
+
+    def _finish(self):
+        prof, self._prof = self._prof, None
+        prof.stop()
+        _write_trace(prof, self.log_dir)
+
+    def close(self):
+        if self._prof is not None:
+            self._finish()
+
+
+class NanDebugging:
+    """What enable_nan_debugging switched on; remove() restores the process
+    as it was (anomaly mode's two settings and the hook)."""
+
+    def __init__(self, hook, anomaly: bool, check_nan: bool):
+        self._hook = hook
+        self._anomaly = (anomaly, check_nan)
+
+    def remove(self) -> None:
+        if self._hook is not None:
+            self._hook.remove()
+            self._hook = None
+            torch.autograd.set_detect_anomaly(*self._anomaly)
+
+
+def _floating_tensors(out):
+    if isinstance(out, torch.Tensor):
+        if out.is_floating_point():
+            yield out
+    elif isinstance(out, (tuple, list)):
+        for item in out:
+            yield from _floating_tensors(item)
+    elif isinstance(out, dict):
+        for item in out.values():
+            yield from _floating_tensors(item)
+
+
+def _raise_on_nan(module, inputs, output):
+    for t in _floating_tensors(output):
+        if torch.isnan(t).any():
+            raise FloatingPointError(
+                f"NaN in the output of module {type(module).__name__}"
+                f"({module.extra_repr()}), shape {tuple(t.shape)}")
+
+
+def enable_nan_debugging() -> NanDebugging:
+    """The counterpart of `jax_debug_nans`: raise FloatingPointError at the
+    first operation that makes a NaN (not an inf), forward or backward.
+
+    Forward: a global forward hook checks every module's floating outputs
+    and names the first module whose output holds a NaN (inner modules
+    finish first).  Backward: anomaly mode with check_nan, which raises when
+    a backward Function (the kernels' autograd Functions included) returns
+    a NaN; the train steps (train/steps.py::backward) raise that as
+    FloatingPointError.  Nothing is computed differently: a clean step gives
+    the same bits with and without it, only slower (a NaN test, and so a
+    device sync, after every module and backward Function)."""
+    handle = NanDebugging(
+        torch.nn.modules.module.register_module_forward_hook(_raise_on_nan),
+        torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(True, check_nan=True)
+    return handle

@@ -250,8 +250,6 @@ def test_config_from_args_equals_jax(argv):
 @pytest.mark.parametrize("argv, world, error, match", [
     (["--dp", "2"], None, NotImplementedError, "torchrun"),
     (["--tp", "3"], "4", ValueError, "does not divide"),
-    (["--profile_dir", "/tmp/trace"], None, NotImplementedError, "profiler"),
-    (["--debug_nans", "1"], None, NotImplementedError, "NaN"),
 ])
 def test_unported_flags_raise_before_data(argv, world, error, match,
                                           tmp_path, monkeypatch):
@@ -264,6 +262,39 @@ def test_unported_flags_raise_before_data(argv, world, error, match,
     with pytest.raises(error, match=match):
         port_main.run(["--data_load_path", str(tmp_path / "none"),
                        "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--profile_dir", "/tmp/trace"],
+    ["--debug_nans", "1"],
+])
+def test_tooling_flags_are_ported(argv):
+    """--profile_dir and --debug_nans pass the port's check and map to the
+    JAX package's config (tests/test_torch_observability.py runs them)."""
+    args = port_main.build_argparser().parse_args(argv)
+    port_main.check_ported(args)
+    assert port_main.config_from_args(args) == port_config(
+        jax_main.config_from_args(jax_main.build_argparser().parse_args(argv)))
+
+
+def test_build_mesh_defaults_to_the_card(tmp_path):
+    """In a one-rank gloo group on the CPU: build_mesh with no device asks
+    for the card and raises without one; with "cpu" it builds the plan."""
+    import torch.distributed as dist
+
+    from facialmmt_tpu_torch.parallel.mesh import build_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build_mesh(1, 1)
+        plan = build_mesh(1, 1, "cpu")
+        assert plan.member and (plan.dp, plan.tp) == (1, 1)
+        assert plan.mesh.device_type == "cpu"
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("argv", [
@@ -391,6 +422,52 @@ def test_cli_train_v(meld_root, tmp_path, no_guard):
             for line in open(tmp_path / "m.jsonl")]
     assert tags.count("val") == 2 and tags[-1] == "test"
     assert "trg_train" in tags
+
+
+def test_cli_train_v_profiled_under_nan_debugging(meld_root, tmp_path,
+                                                  no_guard, monkeypatch):
+    """--profile_dir and --debug_nans run: NaN debugging is on before the
+    trainer is built and for the rest of the run (the handle main.run
+    leaves in place is removed here), the clean run raises nothing, and
+    the trace holds train step 3 of the 3 (ProfilerStep#0) and what ran
+    after it until the run closed the capture (#1)."""
+    import glob
+    import json
+
+    from facialmmt_tpu_torch.utils import observability
+
+    handles = []
+    enable = observability.enable_nan_debugging
+
+    def recorded():
+        handles.append(enable())
+        return handles[-1]
+
+    monkeypatch.setattr(observability, "enable_nan_debugging", recorded)
+    init, built = port_trainer.Trainer.__init__, []
+
+    def trainer_init(self, *args, **kwargs):
+        built.append(torch.is_anomaly_check_nan_enabled())
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(port_trainer.Trainer, "__init__", trainer_init)
+    trace = tmp_path / "trace"
+    try:
+        f1 = port_main.run(_train_argv(
+            meld_root, tmp_path / "saved", "--choice_modality", "V",
+            "--trg_lr", "1e-3", "--profile_dir", str(trace),
+            "--debug_nans", "1", "--metrics_path", ""))
+    finally:
+        for handle in handles:
+            handle.remove()
+    assert len(handles) == 1 and built == [True]
+    assert 0.0 <= f1 <= 1.0
+    (path,) = glob.glob(str(trace / "rank0.*.pt.trace.json"))
+    with open(path) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+    assert {n for n in names if n.startswith("ProfilerStep#")} == {
+        "ProfilerStep#0", "ProfilerStep#1"}
 
 
 def test_cli_train_tav_grafts_and_resumes(meld_root, tmp_path, small_swin,

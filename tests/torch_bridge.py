@@ -37,7 +37,8 @@ def port_config(jax_cfg):
     dataclasses.asdict() of a JAX-package config.  Every field the port has
     is carried across, SwinConfig's attention_impl / mlp_impl / merge_impl
     included; the few it lacks (the PRNG implementation, the
-    `fused_attention` switches of the encoder, crossmodal and text stacks)
-    are dropped."""
+    `fused_attention` switches of the encoder, crossmodal and text stacks,
+    RuntimeConfig.debug_nans, which neither command line sets: both act on
+    the flag) are dropped."""
     cls = getattr(port_config_module, type(jax_cfg).__name__)
     return _build(cls, dataclasses.asdict(jax_cfg))
