@@ -174,7 +174,22 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      Function, which launches kernel 4); (e) phase 9's released pair
      through convert-checkpoint and export-checkpoint --kind pipeline, bit
      for bit, behind an EmotionServer with the same answers, kernels 1-3
-     24 / 12 / 12 times a pack.
+     24 / 12 / 12 times a pack;
+ 15. the serving front over mesh servers (phase_front_mesh; experiments/
+     torch_front_mesh.py runs it alone): two rank processes sharing the
+     card over gloo, every rank constructing the front and rank 0
+     submitting from 8 threads: (a) a tp=2 router over (1, 12) / (8, 64)
+     and (b) a dp=2 front over (2, 12) / (8, 64), 64 default and 32 mixed
+     requests (0-20 faces, 64-512 tokens) each, every answer held within
+     SERVING_BOUND to one process replaying rank 0's recorded packs, the
+     same packs and buckets on both ranks, kernels 1-3 24 / 12 / 12 times
+     a pack on each, both ranks' generators equal the replay's; (c) an
+     idle gap longer than the keepalive (patched to 2 s), the IDLE headers
+     received, 8 more requests answered; (d) benchmark_load for 5 s called
+     on both ranks, the same stats on both; (e) close() ends both ranks,
+     exit 0; (f) a front at dp=1 on a one-rank NCCL group, bit for bit the
+     front without a plan.  The closed bursts' utt/s and the broadcast's
+     ms per pack are readings of two ranks sharing one card.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -2881,10 +2896,11 @@ class DispatchProbe:
                        for a, b in zip(self.events, self.events[1:])]
 
 
-def require_front_launches(kernels, cfg, packs, where):
+def require_front_launches(kernels, cfg, packs, where, got=None):
     """Kernels 1, 2 and 3 exactly once per text layer / Swin block of every
-    dispatched pack, every other kernel never."""
-    got = kernels.launch_counts()
+    dispatched pack, every other kernel never (`got`: counts read
+    elsewhere, by default the counts now)."""
+    got = kernels.launch_counts() if got is None else got
     want = dict.fromkeys(got, 0)
     want["fused_attention"] = cfg.text.num_layers * packs
     want["fused_attention_block"] = sum(cfg.swin.depths) * packs
@@ -3547,6 +3563,8 @@ def mesh_rank(kind, rank, world, work):
     from facialmmt_tpu_torch.ops import kernels
     from facialmmt_tpu_torch.parallel.mesh import build_mesh, init_distributed
 
+    if kind.startswith("front"):
+        return front_mesh_rank(kind, rank, world, work)
     rank, world = int(rank), int(world)
     case = torch.load(os.path.join(work, "case.pt"), weights_only=False)
     cfg = case["cfg"]
@@ -3713,6 +3731,313 @@ def mesh_runs(torch, dev, gpu_name, cfg):
     return {"mesh_dp2_steps": out["gloo2", 0]["dp2"]["launches"],
             "mesh_tp2_server": out["gloo2", 0]["tp2_server"]["launches"],
             "nccl_dp1_steps": nccl["launches"]}
+
+
+# ------------------------------------------- phase 15: the front on a mesh --
+
+# layout: ((dp, tp), buckets); max_batch and face_capacity divide dp
+FRONT_MESH_LAYOUTS = {"tp2": ((1, 2), ((1, 12), (8, 64))),
+                      "dp2": ((2, 1), ((2, 12), (8, 64)))}
+FRONT_MESH_DEFAULT = 64     # default requests of each layout's burst
+FRONT_MESH_MIXED = 32       # mixed ones: 0-20 faces, 64-512 tokens
+FRONT_MESH_THREADS = 8      # threads submitting the burst on the main rank
+FRONT_MESH_KEEPALIVE_S = 2.0    # serving.KEEPALIVE_S in the rank processes
+FRONT_MESH_IDLE_S = 5.0     # the idle gap, longer than the keepalive
+FRONT_MESH_AFTER = 8        # requests answered after the gap
+FRONT_MESH_LOAD_S = 5.0     # benchmark_load's seconds (dp=2)
+FRONT_MESH_RATE = 20.0      # and its utterances/s
+FRONT_MESH_TIMEOUT = 600    # seconds for the rank processes of phase 15
+
+
+def front_mesh_requests(cfg):
+    """The burst's requests (FRONT_MESH_DEFAULT default ones, then
+    FRONT_MESH_MIXED mixed ones) and the FRONT_MESH_AFTER sent after the
+    idle gap, the same on every process."""
+    from facialmmt_tpu_torch.serving import default_load_request
+
+    rng = np.random.default_rng(15)
+    mixed = [synthetic_requests(rng, cfg, [int(rng.integers(0, 21))],
+                                int(rng.integers(64, 513)))[0]
+             for _ in range(FRONT_MESH_MIXED)]
+    burst = [default_load_request(cfg)
+             for _ in range(FRONT_MESH_DEFAULT)] + mixed
+    return burst, [dict(r) for r in mixed[:FRONT_MESH_AFTER]]
+
+
+def recorded_packs(servers, requests, into):
+    """Wrap each server's build_pack to append (bucket index, the indices
+    in `requests` of the pack's requests) to `into`."""
+    index = {id(r): i for i, r in enumerate(requests)}
+    for b, server in enumerate(servers):
+        def build(reqs, b=b, real=server.build_pack):
+            into.append((b, [index[id(r)] for r in reqs]))
+            return real(reqs)
+        server.build_pack = build
+
+
+def submit_from_threads(front, requests):
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(FRONT_MESH_THREADS) as pool:
+        futures = list(pool.map(front.submit, requests))
+    return [f.result(timeout=300) for f in futures]
+
+
+def front_mesh_layout(torch, cfg, dev, plan, buckets, rank, requests,
+                      after=None, load=False, serial=False):
+    """One layout on this rank: its servers behind one AsyncBatchServer;
+    rank 0 submits the requests (from FRONT_MESH_THREADS threads, or one at
+    a time when `serial`; with `after`, more after an idle gap longer than
+    the keepalive); then benchmark_load on every rank when `load`."""
+    from facialmmt_tpu_torch import serving
+    from facialmmt_tpu_torch.ops import kernels
+
+    servers = [serving.EmotionServer(cfg, max_batch=mb, face_capacity=cap,
+                                     device=dev, mesh_plan=plan)
+               for mb, cap in buckets]
+    submit = submit_from_threads
+    if serial:
+        def submit(front, reqs):
+            return [front.submit(r).result(timeout=300) for r in reqs]
+    everything = requests + (after or [])
+    out = {"packs_run": [], "pack_bytes": {
+        (s.max_batch, s.face_capacity): sum(a.nbytes for a in (
+            serving._pack_arrays(s._zero_batch(), np.zeros(
+                (s.face_capacity,) + serving.FACE_SHAPE, np.uint8))))
+        for s in servers}}
+    if rank == 0:
+        recorded_packs(servers, everything, out["packs_run"])
+    sync(torch)
+    kernels.reset_launch_counts()
+    front = serving.AsyncBatchServer(servers)
+    if rank == 0:
+        t0 = time.perf_counter()
+        out["answers"] = submit(front, requests)
+        out["burst_s"] = time.perf_counter() - t0
+        out["burst_packs"] = len(front.pack_sizes)
+        if after:
+            time.sleep(FRONT_MESH_IDLE_S)
+            out["answers"] += submit(front, after)
+    front.close()
+    sync(torch)
+    for s in servers:
+        s.__dict__.pop("build_pack", None)      # recorded_packs' wrapper
+    out.update(launches=kernels.launch_counts(), packs=front.pack_sizes,
+               buckets=front.bucket_choices, keepalives=front.keepalives,
+               broadcast_ms=front.broadcast_ms,
+               generators=[s.generator.get_state() for s in servers])
+    if load:
+        out["load"] = serving.benchmark_load(
+            servers, FRONT_MESH_RATE, duration_s=FRONT_MESH_LOAD_S, seed=15)
+    del servers, front
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def front_mesh_rank(kind, rank, world, work):
+    """A rank process of phase 15 (chip_smoke.py --mesh-rank KIND RANK
+    WORLD DIR): 'front2', two ranks sharing cuda:0 over gloo, the tp=2
+    router then the dp=2 front; 'front_nccl1', a front without a plan,
+    then at dp=1 on a one-rank NCCL group, on the same requests one at a
+    time."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from facialmmt_tpu_torch import serving
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.parallel.mesh import build_mesh, init_distributed
+
+    rank, world = int(rank), int(world)
+    case = torch.load(os.path.join(work, "case.pt"), weights_only=False)
+    cfg, dev = case["cfg"], torch.device(case["device"])
+    if dev.type == "cuda":
+        kernels.library()
+    init = "file://" + os.path.join(work, f"init_{kind}")
+    burst, after = front_mesh_requests(cfg)
+    out = {}
+    if kind == "front_nccl1":
+        buckets = FRONT_MESH_LAYOUTS["tp2"][1]
+        out["none"] = front_mesh_layout(torch, cfg, dev, None, buckets, 0,
+                                        after, serial=True)
+        init_distributed(dev, backend="nccl" if dev.type == "cuda" else "gloo",
+                         init_method=init, rank=0, world_size=1)
+        out["plan"] = front_mesh_layout(torch, cfg, dev, build_mesh(1, 1, dev),
+                                        buckets, 0, after, serial=True)
+    else:
+        init_distributed(dev, backend="gloo", init_method=init, rank=rank,
+                         world_size=world)
+        if dev.type == "cuda":
+            gloo_cuda_gather()
+        serving.KEEPALIVE_S = FRONT_MESH_KEEPALIVE_S
+        for name, ((dp, tp), buckets) in FRONT_MESH_LAYOUTS.items():
+            out[name] = front_mesh_layout(
+                torch, cfg, dev, build_mesh(dp, tp, dev), buckets, rank,
+                burst, after if name == "tp2" else None, load=name == "dp2")
+    torch.save(out, os.path.join(work, f"out_{kind}_{rank}.pt"))
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def replayed_answers(servers, starts, requests, packs):
+    """Each request's row from one-process servers (by bucket index) that
+    run the recorded packs in order, each from the generator state it had
+    when built; and the generators after."""
+    for server, state in zip(servers, starts):
+        server.generator.set_state(state)
+    rows = {}
+    for b, ids in packs:
+        server = servers[b]
+        got = server.predict_raw(*server.build_pack([requests[i]
+                                                     for i in ids]))
+        rows.update({i: got[j] for j, i in enumerate(ids)})
+    return ([rows[i] for i in range(len(requests))],
+            [s.generator.get_state() for s in servers])
+
+
+def phase_front_mesh(torch, dev, gpu_name, cfg=None):
+    """Phase 15: the serving front over mesh servers, two rank processes
+    sharing the card over gloo (a tp=2 router, a dp=2 front; an idle gap;
+    benchmark_load; close), and a one-rank NCCL group at dp=1 against the
+    front without a plan.  Returns the launch counts of its paths."""
+    from facialmmt_tpu_torch.config import FacialMMTConfig
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.serving import EmotionServer
+
+    t_phase = time.perf_counter()
+    cfg = cfg or FacialMMTConfig()
+    work = tempfile.mkdtemp(prefix="front_mesh_")
+    torch.save({"cfg": cfg, "device": str(dev)}, os.path.join(work, "case.pt"))
+
+    def start(kind, world):
+        return {(kind, r): subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", kind,
+             str(r), str(world), work], cwd=ROOT) for r in range(world)}
+
+    def wait(procs):
+        try:
+            codes = {k: p.wait(timeout=FRONT_MESH_TIMEOUT)
+                     for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        if any(codes.values()):
+            raise AssertionError(f"phase 15 rank processes exited {codes}")
+        return {k: torch.load(os.path.join(work, f"out_{k[0]}_{k[1]}.pt"),
+                              weights_only=False) for k in procs}
+
+    t0 = time.perf_counter()
+    out = wait(start("front2", 2))
+    rank_s = time.perf_counter() - t0
+    procs = start("front_nccl1", 1)
+    try:
+        refs = {b: EmotionServer(cfg, max_batch=b[0], face_capacity=b[1],
+                                 device=dev)
+                for b in sorted({b for _, bs in FRONT_MESH_LAYOUTS.values()
+                                 for b in bs})}
+        starts = {b: s.generator.get_state() for b, s in refs.items()}
+        burst, after = front_mesh_requests(cfg)
+        paths = {}
+        for name, ((dp, tp), buckets) in FRONT_MESH_LAYOUTS.items():
+            main, other = out["front2", 0][name], out["front2", 1][name]
+            everything = burst + (after if name == "tp2" else [])
+            want, gens = replayed_answers(
+                [refs[b] for b in buckets], [starts[b] for b in buckets],
+                everything, main["packs_run"])
+            got = check_rows(f"front {name}", main["answers"],
+                             len(everything), cfg.num_labels)
+            worst = max(held_logits(f"front {name}, request {i}", g, w)
+                        for i, (g, w) in enumerate(zip(got, want)))
+            if (main["packs"], main["buckets"]) != (other["packs"],
+                                                    other["buckets"]):
+                raise AssertionError(f"front {name}: rank 0 ran packs "
+                                     f"{main['packs']} on {main['buckets']}, "
+                                     f"rank 1 {other['packs']} on "
+                                     f"{other['buckets']}")
+            for r, o in enumerate((main, other)):
+                require_front_launches(kernels, cfg, len(o["packs"]),
+                                       f"front {name}, rank {r}",
+                                       got=o["launches"])
+                if not all(torch.equal(a, b) for a, b in
+                           zip(o["generators"], gens)):
+                    raise AssertionError(f"front {name}, rank {r}: the "
+                                         f"generators differ from one "
+                                         f"process's after the same packs")
+            if set(main["buckets"]) != set(buckets):
+                raise AssertionError(f"front {name}: buckets used "
+                                     f"{sorted(set(main['buckets']))}")
+            by_bucket = {}
+            for b, ms in zip(main["buckets"], main["broadcast_ms"]):
+                by_bucket.setdefault(b, []).append(ms)
+            ms = ", ".join(f"{b} {statistics.median(v):.2f} ms "
+                           f"({main['pack_bytes'][b] / 1e6:.2f} MB, {len(v)} "
+                           f"packs)" for b, v in sorted(by_bucket.items()))
+            print(f"front mesh: {name} (dp={dp}, tp={tp}) over {buckets}, "
+                  f"two ranks sharing one card over gloo: a closed burst of "
+                  f"{len(burst)} requests ({FRONT_MESH_DEFAULT} default, "
+                  f"{FRONT_MESH_MIXED} mixed) from {FRONT_MESH_THREADS} "
+                  f"threads on rank 0 in {main['burst_packs']} packs, "
+                  f"{len(burst) / main['burst_s']:.1f} utt/s (two ranks "
+                  f"sharing one card: no scaling figure); broadcast per pack "
+                  f"median {ms}; packs {main['packs']} on the same buckets "
+                  f"on both ranks; every answer held to one process "
+                  f"replaying the recorded packs (max|d| {worst:.3g}); "
+                  f"launches per rank "
+                  f"{ {k: n for k, n in main['launches'].items() if n} } "
+                  f"for {len(main['packs'])} packs; both ranks' generators "
+                  f"equal the replay's after {len(main['packs'])} packs on "
+                  f"{gpu_name}")
+            paths[f"front_mesh_{name}"] = main["launches"]
+        tp2 = (out["front2", 0]["tp2"], out["front2", 1]["tp2"])
+        if not (tp2[0]["keepalives"] == tp2[1]["keepalives"]
+                >= int(FRONT_MESH_IDLE_S / FRONT_MESH_KEEPALIVE_S)):
+            raise AssertionError(f"keepalives sent {tp2[0]['keepalives']}, "
+                                 f"received {tp2[1]['keepalives']}")
+        print(f"front mesh: an idle gap of {FRONT_MESH_IDLE_S:.0f} s with "
+              f"KEEPALIVE_S {FRONT_MESH_KEEPALIVE_S:.0f} s: "
+              f"{tp2[0]['keepalives']} IDLE headers sent and received, then "
+              f"{FRONT_MESH_AFTER} requests answered (held above)")
+        loads = [out["front2", r]["dp2"]["load"] for r in range(2)]
+        if loads[0] != loads[1] or not loads[0]["n_requests"]:
+            raise AssertionError(f"benchmark_load: {loads}")
+        print(f"front mesh: benchmark_load at {FRONT_MESH_RATE:.0f} utt/s "
+              f"for {FRONT_MESH_LOAD_S:.0f} s over the dp=2 front, called "
+              f"on both ranks: the same stats on both {loads[0]} on "
+              f"{gpu_name}; both ranks exited 0 after close(), the rank "
+              f"processes took {rank_s:.1f} s")
+        del refs
+        nccl = wait(procs)["front_nccl1", 0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    none, one = nccl["none"], nccl["plan"]
+    same = (all((a == b).all() for a, b in zip(none["answers"],
+                                                one["answers"]))
+            and (none["packs"], none["buckets"]) == (one["packs"],
+                                                     one["buckets"])
+            and all(torch.equal(a, b) for a, b in zip(none["generators"],
+                                                      one["generators"]))
+            and none["launches"] == one["launches"]
+            and one["broadcast_ms"] == [] and one["keepalives"] == 0)
+    if not same:
+        raise AssertionError("the front at dp=1 on a one-rank NCCL group is "
+                             "not bit for bit the front without a plan")
+    require_front_launches(kernels, cfg, len(one["packs"]),
+                           "the front at dp=1 on a one-rank NCCL group",
+                           got=one["launches"])
+    print(f"front mesh: the front at dp=1 on a one-rank NCCL group: "
+          f"{len(one['answers'])} requests one at a time bit for bit the "
+          f"front without a plan (answers, packs {one['packs']} on "
+          f"{one['buckets']}, generators, launches), no broadcast")
+    paths["front_nccl_dp1"] = one["launches"]
+    print(f"front mesh: phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 # ------------------------------------------------------- phase 14: tooling --
@@ -4233,6 +4558,8 @@ def main(json_out: str = "") -> int:
         torch.cuda.empty_cache()
         paths.update(phase_tooling(torch, dev, gpu_name, cli_root,
                                    pack_p50_ms))
+    torch.cuda.empty_cache()
+    paths.update(phase_front_mesh(torch, dev, gpu_name))
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)

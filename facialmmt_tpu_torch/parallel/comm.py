@@ -15,12 +15,24 @@ deprecated, and its gather's backward needs a reduce-scatter or all-to-all):
     sum after a row-parallel product has an identity backward and the input
     of a column-parallel product sums its gradient over the group; torch's
     all_reduce, whose backward sums too, would count that gradient tp times.
+
+A serving front over a mesh (serving.py::AsyncBatchServer) feeds the other
+ranks from the main one by broadcasts over a gloo group of the mesh's ranks
+(MeshPlan.host_group, made by build_mesh), on CPU tensors: a header (op,
+bucket index, requests), the pack's fixed-shape arrays and a picklable
+object.  gloo, whatever the mesh runs on: a follower waits in the header's
+broadcast while the server idles, and a blocked NCCL collective is killed
+by its watchdog.  A wait there raises after HOST_TIMEOUT_S.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+PACK, IDLE, STOP = 0, 1, 2      # the ops of a front's header
+HOST_TIMEOUT_S = 600.0          # the timeout of a mesh's host group
 
 
 def group_size(group) -> int:
@@ -150,3 +162,29 @@ class ModelShard:
         """`split` argument of ops/layers.py::dropout for a tensor whose
         axis `dim` holds this rank's heads or hidden units."""
         return (dim, self.size, self.index)
+
+
+# ---------------------------------------------------- a serving front's link --
+
+def broadcast_header(header, group, src: int = 0):
+    """(op, bucket index, requests) from global rank `src`; the other ranks
+    pass None and get it."""
+    t = torch.tensor(header if header is not None else (0, 0, 0),
+                     dtype=torch.int64)
+    dist.broadcast(t, src, group=group)
+    return tuple(int(x) for x in t)
+
+
+def broadcast_arrays(arrays, group, src: int = 0) -> None:
+    """Numpy arrays (C-contiguous, of the same shapes and dtypes on every
+    rank) from global rank `src`, received in place on the others."""
+    for a in arrays:
+        dist.broadcast(torch.from_numpy(a.reshape(-1).view(np.uint8)), src,
+                       group=group)
+
+
+def broadcast_object(obj, group, src: int = 0):
+    """A picklable object of global rank `src`, on every rank of `group`."""
+    box = [obj]
+    dist.broadcast_object_list(box, src, group=group)
+    return box[0]

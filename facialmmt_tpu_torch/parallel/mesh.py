@@ -40,13 +40,16 @@ import torch
 import torch.distributed as dist
 
 from facialmmt_tpu_torch.parallel import context
-from facialmmt_tpu_torch.parallel.comm import ModelShard, all_gather_cat
+from facialmmt_tpu_torch.parallel.comm import (HOST_TIMEOUT_S, ModelShard,
+                                               all_gather_cat)
 
 
 @dataclass(frozen=True)
 class MeshPlan:
     """dp x tp ranks; `mesh` is the DeviceMesh, None on a rank outside the
-    mesh (dp shrunk: it leaves the run) and in an abstract plan (audits)."""
+    mesh (dp shrunk: it leaves the run) and in an abstract plan (audits).
+    `host_group`: a gloo group of the mesh's ranks for a serving front's
+    host broadcasts (parallel/comm.py), None for a mesh of one rank."""
 
     mesh: Any
     dp: int
@@ -55,6 +58,7 @@ class MeshPlan:
     data_group: Any = None
     model_group: Any = None
     group: Any = None          # the mesh's ranks (None: the default group)
+    host_group: Any = None
 
     @staticmethod
     def abstract(dp: int, tp: int) -> "MeshPlan":
@@ -131,8 +135,13 @@ def build_mesh(dp: int = -1, tp: int = 1, device="cuda") -> MeshPlan:
     group (dp = -1: all ranks / tp) on `device`'s kind: the card unless the
     caller asks for "cpu" (without a card "cuda" raises, as resolve_device
     does).  Every rank of the group calls it (the groups are made
-    collectively); a rank beyond dp * tp gets a plan whose `member` is
-    False."""
+    collectively, the host group of a serving front among them: made here,
+    where every rank takes part, since a group made by the mesh's ranks
+    alone is named from each process's count of groups, which ranks that
+    ran different layouts do not share); a rank beyond dp * tp gets a plan
+    whose `member` is False."""
+    import datetime
+
     from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     from facialmmt_tpu_torch.ops.kernels import resolve_device
@@ -153,10 +162,14 @@ def build_mesh(dp: int = -1, tp: int = 1, device="cuda") -> MeshPlan:
         mesh = DeviceMesh(kind, torch.arange(n).reshape(dp, tp),
                           mesh_dim_names=names)
         group = dist.new_group(list(range(n)))
+    host = None
+    if n > 1:
+        host = dist.new_group(list(range(n)), backend="gloo",
+                              timeout=datetime.timedelta(seconds=HOST_TIMEOUT_S))
     if rank >= n:
         return MeshPlan(None, dp, tp, rank)
     return MeshPlan(mesh, dp, tp, rank, mesh.get_group("data"),
-                    mesh.get_group("model"), group)
+                    mesh.get_group("model"), group, host)
 
 
 def shard_batch(plan: MeshPlan, tree: Any, axis: int = 0) -> Any:

@@ -22,7 +22,9 @@ full answers.
 AsyncBatchServer packs concurrent requests into those static shapes on one
 packer thread, optionally routing each pack to the smallest of several
 servers (buckets) that fits it; benchmark_load drives it with Poisson
-arrivals.
+arrivals.  Over mesh servers of several ranks every rank constructs the
+front: the main rank packs and broadcasts each pack, the others run what it
+sends (AsyncBatchServer's docstring).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import queue as queue_mod
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -43,8 +45,13 @@ from facialmmt_tpu_torch.data.image_pipeline import meld_face_eval_transform
 from facialmmt_tpu_torch.data.meld import FaceCapacityError
 from facialmmt_tpu_torch.models.pipeline import build_pipeline
 from facialmmt_tpu_torch.ops.kernels import resolve_device, to_device_async
+from facialmmt_tpu_torch.parallel import comm
 
 FACE_SHAPE = (160, 160, 3)
+# a front over several ranks: the main sends an IDLE header after this long
+# without a header; a follower whose main is gone raises after
+# parallel/comm.py::HOST_TIMEOUT_S without one
+KEEPALIVE_S = 60.0
 
 
 class EmotionServer:
@@ -69,6 +76,7 @@ class EmotionServer:
         self.transfer_dtype = transfer_dtype
         self.device = resolve_device(device)
         self.mesh_plan = mesh_plan
+        self._front_thread = None   # an open multi-rank front's thread
         model = build_pipeline(cfg, self.device, state_dict)
         if mesh_plan is not None:
             from facialmmt_tpu_torch.parallel.mesh import shard_model_
@@ -113,7 +121,16 @@ class EmotionServer:
         pipeline depends on this).  The host blocks only where the card's
         launch queue is full, which a full-width pack's device operations
         outnumber.  Under a mesh plan with dp > 1 only this rank's rows go
-        to the device, and the rows of every rank come back."""
+        to the device, and the rows of every rank come back.  While an
+        AsyncBatchServer over several ranks is open over this server, only
+        its thread may call (two threads running collectives on the mesh's
+        groups deadlock): any other raises RuntimeError."""
+        owner = self._front_thread
+        if owner is not None and threading.current_thread() is not owner:
+            raise RuntimeError(
+                "an AsyncBatchServer over this mesh server is open and its "
+                "thread runs every collective of the mesh; submit to the "
+                "front, or close it first")
         plan = self.mesh_plan
         split = plan is not None and plan.dp > 1
         if split:
@@ -133,9 +150,7 @@ class EmotionServer:
         probs = torch.softmax(logits.float(), dim=-1)
         if not split:
             return probs
-        from facialmmt_tpu_torch.parallel.comm import all_gather_cat
-
-        return all_gather_cat(probs, plan.data_group)
+        return comm.all_gather_cat(probs, plan.data_group)
 
     def predict_raw(self, batch: Dict[str, np.ndarray],
                     faces_raw: np.ndarray) -> np.ndarray:
@@ -222,14 +237,53 @@ def _start_readback(probs):
     after it: the packer waits for that event alone.  A `.cpu()` issued when
     the pack is resolved would be queued behind every pack dispatched since
     on the same stream and wait for them too, which serializes the pipeline.
-    Anything else (a CPU tensor, an array-like whose `__array__` waits) is
-    returned as it is, with no event."""
-    if isinstance(probs, torch.Tensor) and probs.is_cuda:
+    The event goes on the stream of the rows' own card, where the copy is
+    queued, whatever the calling thread's current device is.  Anything else
+    (a CPU tensor, an array-like whose `__array__` waits) is returned as it
+    is, with no event."""
+    if getattr(probs, "is_cuda", False):
         rows = probs.to("cpu", non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(probs.device))
         return rows, done
     return probs, None
+
+
+def _on_device(server):
+    """The context a front's thread runs under: the server's card as the
+    thread's current device (each host thread has its own, cuda:0 unless
+    set), so the streams the pack uses are that card's."""
+    dev = getattr(server, "device", None)
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _front_plan(servers):
+    """The mesh plan of several ranks the servers run under, or None (no
+    plan, or one rank: the front is one process's)."""
+    plans = [getattr(s, "mesh_plan", None) for s in servers]
+    multi = [p for p in plans if p is not None and p.dp * p.tp > 1]
+    if not multi:
+        return None
+    plan = multi[0]
+    if len(multi) < len(plans) or any(
+            (p.dp, p.tp, p.rank) != (plan.dp, plan.tp, plan.rank)
+            for p in multi):
+        raise ValueError("the buckets of a front over several ranks run on "
+                         "one mesh plan")
+    if not plan.member:
+        raise ValueError(f"rank {plan.rank} is outside the {plan.dp} x "
+                         f"{plan.tp} mesh and takes no part in its front")
+    if plan.host_group is None:
+        raise ValueError("a front over several ranks needs the plan's host "
+                         "group: make the plan with build_mesh")
+    return plan
+
+
+def _pack_arrays(batch, faces_raw):
+    """A pack's arrays in the order its broadcast sends them."""
+    return [batch[k] for k in sorted(batch)] + [faces_raw]
 
 
 class AsyncBatchServer:
@@ -253,7 +307,28 @@ class AsyncBatchServer:
     submit() returns a concurrent.futures.Future resolving to the request's
     probability vector.  One packer thread owns every device call, so device
     calls are serialized, and up to `pipeline_depth` packs are in flight
-    before the packer waits for the oldest one's rows.
+    before the packer waits for the oldest one's rows.  The thread runs with
+    the server's card as its current device.
+
+    Over EmotionServers with a mesh plan of several ranks (SPMD: every rank
+    must run the same packs on the same bucket in the same order), every
+    member rank constructs the front with the same arguments and the same
+    servers in the same order; the broadcasts go over the plan's gloo group
+    of the mesh's ranks (MeshPlan.host_group).  The main rank
+    (`plan.is_main`) packs as above and, before it dispatches a pack,
+    broadcasts a header (PACK, bucket, requests) and the pack's arrays; a
+    pack whose build_pack fails, or a single request whose faces exceed
+    every bucket, fails on the main alone and is sent nowhere.  Every other
+    rank (a follower) runs a thread that receives headers and runs each
+    pack on the same bucket, dropping its rows: its `pack_sizes` /
+    `bucket_choices` are the main's less the packs that failed there.
+    submit() on a follower returns a failed future.  While idle, the main
+    sends an IDLE header every KEEPALIVE_S; close() on the main drains the
+    packs in flight and sends STOP, close() on a follower returns once STOP
+    has arrived.  While the front is open a direct call on one of its
+    servers raises (EmotionServer.predict_device).  `broadcast_ms` holds
+    the main's host time of each pack's broadcast, `keepalives` the IDLE
+    headers sent or received, `pack_errors` what a follower's packs raised.
     """
 
     def __init__(self, server, batch_deadline_ms: float = 5.0,
@@ -278,11 +353,47 @@ class AsyncBatchServer:
         self._stop = threading.Event()
         self.pack_sizes: list = []
         self.bucket_choices: list = []
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.broadcast_ms: list = []
+        self.keepalives = 0
+        self.pack_errors: list = []
+        self._error: Optional[BaseException] = None
+        self.plan = _front_plan(self.servers)
+        self._group = None
+        loop = self._run
+        if self.plan is not None:
+            self._group = self.plan.host_group
+            self._last_header = time.perf_counter()
+            loop = self._run if self.plan.is_main else self._follow
+        self._thread = threading.Thread(target=self._serve, args=(loop,),
+                                        daemon=True)
+        if self.plan is not None:
+            if any(s._front_thread is not None for s in self.servers):
+                raise RuntimeError("another AsyncBatchServer is open over "
+                                   "one of these mesh servers")
+            for s in self.servers:
+                s._front_thread = self._thread
         self._thread.start()
+
+    def _serve(self, loop):
+        try:
+            with _on_device(self.server):
+                loop()
+        except Exception as e:  # a collective of the front's group failed
+            self._error = e
+            self._stop.set()
+            self._fail_queued()
+        finally:
+            if self.plan is not None:
+                for s in self.servers:
+                    s._front_thread = None
 
     def submit(self, request: Dict[str, Any]) -> Future:
         fut: Future = Future()
+        if self.plan is not None and not self.plan.is_main:
+            fut.set_exception(RuntimeError(
+                f"rank {self.plan.rank} follows the main rank 0 of its mesh: "
+                f"submit requests there"))
+            return fut
         if self._stop.is_set():
             fut.set_exception(RuntimeError("AsyncBatchServer is closed"))
             return fut
@@ -306,10 +417,58 @@ class AsyncBatchServer:
     def close(self):
         """Stop the packer.  In-flight packs resolve normally; requests still
         queued (or submitted after close) fail with RuntimeError rather than
-        stranding their futures until the caller's timeout."""
+        stranding their futures until the caller's timeout.  Over several
+        ranks the main then sends STOP, and a follower waits for it; a
+        failure of the front's thread is raised here."""
         self._stop.set()
-        self._thread.join(timeout=5.0)
+        self._thread.join(timeout=5.0 if self.plan is None else None)
         self._fail_queued()
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def share(self, obj):
+        """The main rank's `obj` on every rank of the front's mesh (one
+        process: `obj`).  Every rank calls it, after close()."""
+        if self._group is None:
+            return obj
+        return comm.broadcast_object(obj, self._group)
+
+    def _send(self, op, index=0, n=0):
+        comm.broadcast_header((op, index, n), self._group)
+        self._last_header = time.perf_counter()
+
+    def _dispatch(self, server, batch, faces_raw, n):
+        """Queue one pack on `server`; over several ranks, broadcast it to
+        the followers first."""
+        if self._group is not None:
+            t0 = time.perf_counter()
+            self._send(comm.PACK, self.servers.index(server), n)
+            comm.broadcast_arrays(_pack_arrays(batch, faces_raw), self._group)
+            self.broadcast_ms.append((time.perf_counter() - t0) * 1000)
+        return server.predict_device(batch, faces_raw)
+
+    def _follow(self):
+        """A follower's loop: run each pack the main sends until STOP."""
+        while True:
+            op, index, n = comm.broadcast_header(None, self._group)
+            if op == comm.STOP:
+                return
+            if op == comm.IDLE:
+                self.keepalives += 1
+                continue
+            server = self.servers[index]
+            batch = server._zero_batch()
+            faces_raw = np.zeros((server.face_capacity,) + FACE_SHAPE,
+                                 np.uint8)
+            comm.broadcast_arrays(_pack_arrays(batch, faces_raw), self._group)
+            self.pack_sizes.append(n)
+            self.bucket_choices.append((server.max_batch,
+                                        server.face_capacity))
+            try:
+                server.predict_device(batch, faces_raw)
+            except Exception as e:  # it failed on the main too: go on
+                self.pack_errors.append(e)
 
     def _faces_of(self, request) -> int:
         faces = request.get("faces")
@@ -352,6 +511,10 @@ class AsyncBatchServer:
             if first is None:
                 while inflight:  # idle: drain the pipeline
                     self._resolve(*inflight.popleft())
+                if (self._group is not None and time.perf_counter()
+                        - self._last_header >= KEEPALIVE_S):
+                    self._send(comm.IDLE)
+                    self.keepalives += 1
                 continue
             pack, faces = [first], self._faces_of(first[0])
             t0 = time.perf_counter()
@@ -397,7 +560,7 @@ class AsyncBatchServer:
             try:
                 batch, faces_raw = chosen.build_pack([r for r, _ in pack])
                 readback = _start_readback(
-                    chosen.predict_device(batch, faces_raw))
+                    self._dispatch(chosen, batch, faces_raw, len(pack)))
             except Exception as e:  # surface to every waiting caller
                 for _, fut in pack:
                     fut.set_exception(e)
@@ -411,6 +574,8 @@ class AsyncBatchServer:
                 self._resolve(*inflight.popleft())
         while inflight:
             self._resolve(*inflight.popleft())
+        if self._group is not None:
+            self._send(comm.STOP)
         # fail, don't strand, anything still queued at close()
         leftovers = list(self._holdover)
         self._holdover.clear()
@@ -446,9 +611,23 @@ def benchmark_load(server, rate_utt_per_s: float, duration_s: float = 10.0,
     sequence: a router) with Poisson arrivals at `rate_utt_per_s` for
     `duration_s`, and report the achieved throughput, end-to-end request
     latency (queue wait + packing deadline + device step) and batch fill;
-    behind a router also the packs per bucket."""
+    behind a router also the packs per bucket.  Over mesh servers of
+    several ranks every rank calls it: the main drives the arrivals, the
+    others follow, and every rank returns the main's stats."""
     front = AsyncBatchServer(server, batch_deadline_ms=batch_deadline_ms,
                              boundary_policy=boundary_policy)
+    if front.plan is not None and not front.plan.is_main:
+        front.close()         # returns once the main has closed its front
+        return front.share(None)
+    try:
+        stats = _drive_load(front, rate_utt_per_s, duration_s, seed,
+                            make_request)
+    finally:
+        front.close()
+    return front.share(stats)
+
+
+def _drive_load(front, rate_utt_per_s, duration_s, seed, make_request):
     rng = np.random.default_rng(seed)
     if make_request is None:
         def make_request(i):
@@ -484,7 +663,6 @@ def benchmark_load(server, rate_utt_per_s: float, duration_s: float = 10.0,
     for fut in futures:
         fut.result(timeout=60.0)
     wall = time.perf_counter() - t_start
-    front.close()
     arr = np.asarray(latencies) * 1000
     stats = {
         "offered_rate": rate_utt_per_s,

@@ -22,10 +22,16 @@ the one-device step).  The comparisons:
     at dp=1, and files written at dp=1 and dp=2 resumed at dp=2;
   * the mesh EmotionServer at dp=2 x tp=2 against one rank (JAX's
     tolerances, tests/test_appendix.py) and its divisibility assertion;
+  * the serving front (AsyncBatchServer, its router, ServingApp and
+    benchmark_load) over mesh servers at dp=2 and dp=2 x tp=2, every rank
+    constructing it and rank 0 submitting: the answers against JAX's front
+    over JAX's mesh server and the one-process port, the same packs on
+    every rank, the follower's refusals, the keepalive and close();
   * the TP and ZeRO-1 plans at FacialMMTConfig()'s production dims on the
     meta device (the counterpart of tests/test_sharding_audit.py).
 """
 
+import base64
 import dataclasses
 import os
 import shutil
@@ -38,7 +44,8 @@ import numpy as np
 import pytest
 import torch
 
-from facialmmt_tpu.config import FacialMMTConfig
+from facialmmt_tpu import serving as jax_serving
+from facialmmt_tpu.config import FacialMMTConfig, RuntimeConfig
 from facialmmt_tpu.models.pipeline import FacialMMTPipeline as JaxPipeline
 from facialmmt_tpu.parallel.mesh import (build_mesh, opt_state_shardings,
                                          param_shardings, shard_batch)
@@ -68,8 +75,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYOUTS = [(2, 1), (1, 2), (2, 2)]
 SCENARIO = {(2, 1): ("dp2", 2), (1, 2): ("tp2", 2), (2, 2): ("dp2tp2", 4)}
 SCENARIOS = {2: ["dp2", "dp2_replicated", "tp2", "dialogue_dp2",
-                 "trainers_dp2", "resume_dp2", "resume_at_dp2"],
-             4: ["dp2tp2", "server_dp2tp2", "shrink_dp"]}
+                 "trainers_dp2", "resume_dp2", "resume_at_dp2", "front_dp2"],
+             4: ["dp2tp2", "server_dp2tp2", "front_dp2tp2", "shrink_dp"]}
+FRONT = {2: "front_dp2", 4: "front_dp2tp2"}
+# the fronts' config: answers that do not depend on the pack they rode in
+FRONT_CFG = FacialMMTConfig.tiny().replace(
+    runtime=RuntimeConfig(deterministic_gumbel=True))
 WORLD_TIMEOUT = 240
 
 
@@ -217,6 +228,54 @@ def _requests(rng, cfg):
                                    dtype=np.uint8)}]
 
 
+def _front_requests(rng, cfg):
+    """Requests of 0-3 faces, 3-12 audio and 2-6 vision frames, 10-40
+    tokens; a light one (audio only) and a heavy one (6 faces)."""
+    d = cfg.data
+
+    def full(faces):
+        n = int(rng.integers(10, 41))
+        return {"audio": rng.normal(size=(int(rng.integers(3, 13)),
+                                          d.audio_feat_dim)),
+                "vision": rng.normal(size=(int(rng.integers(2, 7)),
+                                           d.vision_feat_dim)),
+                "faces": rng.integers(0, 255, (faces, 160, 160, 3),
+                                      dtype=np.uint8),
+                "input_ids": rng.integers(2, cfg.text.vocab_size, size=(n,)),
+                "sep_mask": np.eye(n)[int(rng.integers(0, n))],
+                "utt_in_dia_idx": 0}
+
+    reqs = [full(int(rng.integers(0, 4))) for _ in range(8)]
+    light = {"audio": rng.normal(size=(5, d.audio_feat_dim))}
+    heavy = full(6)
+    return reqs, light, heavy
+
+
+def _payload(req):
+    """serve_http's JSON body of a request."""
+    faces = req["faces"]
+    return {"audio": req["audio"].tolist(), "vision": req["vision"].tolist(),
+            "faces": base64.b64encode(faces.tobytes()).decode(),
+            "faces_shape": list(faces.shape),
+            "input_ids": req["input_ids"].tolist(),
+            "sep_mask": req["sep_mask"].tolist(), "utt_in_dia_idx": 0}
+
+
+def _jax_front(variables, requests):
+    """JAX's AsyncBatchServer over JAX's EmotionServer on a 2 x 2 mesh
+    (fp32, the (4, 8) bucket): every request submitted at once."""
+    server = jax_serving.EmotionServer(
+        FRONT_CFG, variables, max_batch=4, face_capacity=8,
+        dtype=jax.numpy.float32, transfer_dtype=np.float32,
+        mesh_plan=build_mesh(dp=2, tp=2, devices=jax.devices()[:4]))
+    front = jax_serving.AsyncBatchServer(server, batch_deadline_ms=50.0)
+    try:
+        futures = [front.submit(r) for r in requests]
+        return np.stack([f.result(timeout=120) for f in futures])
+    finally:
+        front.close()
+
+
 def _jax_mesh_step(jmodel, jstate, batch, swin_tx, mm_tx, dp, tp):
     plan = build_mesh(dp=dp, tp=tp, devices=jax.devices()[:dp * tp])
     rep = jax.sharding.NamedSharding(plan.mesh, jax.sharding.PartitionSpec())
@@ -260,9 +319,11 @@ def case(tmp_path_factory):
     _meld_files(root)
     uni, dia = _trainer_cfgs(root, root + "/dp2", 2)
     server_cfg = port_config(FacialMMTConfig.tiny())
-    server_sd = from_jax.pipeline_state_dict(_np_tree(random_params(
-        JaxPipeline(FacialMMTConfig.tiny()), rng, batch)))
+    server_vars = random_params(JaxPipeline(FacialMMTConfig.tiny()), rng,
+                                batch)
+    server_sd = from_jax.pipeline_state_dict(_np_tree(server_vars))
     requests = _requests(rng, server_cfg)
+    front_reqs, light, heavy = _front_requests(rng, server_cfg)
     torch.save({
         "scenarios": SCENARIOS, "nodrop_cfg": _asdict(pcfg),
         "opt": _asdict(port_config(OPT)), "state_dict": sd, "batch": batch,
@@ -274,8 +335,13 @@ def case(tmp_path_factory):
         "resume_dp1_cfg": _asdict(_resume_cfg(root + "/resume_w_dp1", 1, 2)),
         "shrink_cfg": _asdict(_shrink_cfg(root)),
         "server_cfg": _asdict(server_cfg), "server_sd": server_sd,
-        "requests": requests}, os.path.join(root, "case.pt"))
+        "requests": requests, "front_cfg": _asdict(port_config(FRONT_CFG)),
+        "front_requests": front_reqs, "front_light": light,
+        "front_heavy": heavy,
+        "front_payloads": [_payload(r) for r in front_reqs[:3]]},
+        os.path.join(root, "case.pt"))
     procs = {w: _spawn(w, root) for w in SCENARIOS}
+    ref = {"front_jax": _jax_front(server_vars, front_reqs)}
 
     # the references, while the ranks run (JAX's mesh steps when a case
     # first asks for one: jax_step)
@@ -283,8 +349,8 @@ def case(tmp_path_factory):
     mm_tx = jax_make_optimizer(OPT, OPT.trg_lr, TOTAL_STEPS, OPT.weight_decay)
     jstate = JaxState.create(variables["params"], variables["batch_stats"],
                              swin_tx, mm_tx)
-    ref = {"variables": variables, "jax": {},
-           "jax_args": (jmodel, jstate, batch, swin_tx, mm_tx)}
+    ref.update({"variables": variables, "jax": {},
+                "jax_args": (jmodel, jstate, batch, swin_tx, mm_tx)})
     # the port on one process: joint step then auxiliary step
     model = FacialMMTPipeline(pcfg)
     model.load_state_dict({k: torch.tensor(v) for k, v in sd.items()})
@@ -631,6 +697,123 @@ def test_packed_in_proj_split_takes_rows_of_each_block(monkeypatch, shape):
     monkeypatch.setattr(mesh, "all_gather_cat",
                         lambda t, group, dim: torch.cat(parts, dim))
     assert torch.equal(mesh.unshard_tensor(parts[0], mesh.PACKED, None), full)
+
+
+# ------------------------------------------------ the front over a mesh --
+
+def _front(outs, world, rank=0):
+    return outs[world][rank][FRONT[world]]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_front_matches_jax_mesh_front(case, world):
+    """(i) fp32 answers of requests submitted at once on rank 0 against
+    JAX's AsyncBatchServer over JAX's EmotionServer on a 2 x 2 mesh; (vii)
+    ServingApp(front).predict on rank 0 gives the same answers."""
+    ref, outs = case
+    got = _front(outs, world)
+    assert got["fp32"].shape == (8, 7)
+    np.testing.assert_allclose(got["fp32"], ref["front_jax"], rtol=5e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["app"], got["fp32"][:3], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_front_bf16_matches_one_process(case, world):
+    _, outs = case
+    got = _front(outs, world)
+    np.testing.assert_allclose(got["bf16"], got["bf16_one"], rtol=1e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_router_runs_the_same_packs_on_every_rank(case, world):
+    """(ii) A two-bucket router: a light request on the small bucket, a
+    6-face one on the large; every rank ran the same packs on the same
+    buckets, and the answers are the one-process router's."""
+    _, outs = case
+    main = _front(outs, world)
+    lists = main["router_lists"]
+    assert lists["buckets"][:2] == [(2, 4), (4, 8)]
+    assert sum(lists["packs"]) == 10 and lists["broadcasts"] == len(
+        lists["packs"])
+    for r in range(1, world):
+        theirs = _front(outs, world, r)["router_lists"]
+        assert (theirs["packs"], theirs["buckets"]) == (lists["packs"],
+                                                        lists["buckets"])
+    np.testing.assert_allclose(main["router"], main["router_one"],
+                               rtol=5e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_front_refusals_and_failures(case, world):
+    """(iii) submit on a follower fails its future naming the main rank; a
+    direct predict while the front is open raises on every rank and works
+    once it is closed; a request too large for the only bucket fails on
+    the main alone, which sends it nowhere, and the next one is answered."""
+    _, outs = case
+    main = _front(outs, world)
+    assert "too_large" in main and "FaceCapacityError" in main["too_large"]
+    for r in range(world):
+        got = _front(outs, world, r)
+        assert "AsyncBatchServer over this mesh server is open" in got["direct"]
+        np.testing.assert_allclose(got["direct_after"], main["fp32"][0],
+                                   rtol=1e-5, atol=1e-6)
+        if r:
+            assert "main rank 0" in got["submit"]
+            # the follower ran the main's packs less the one that failed
+            assert got["small"]["packs"] == main["small"]["packs"][1:]
+            assert got["small"]["buckets"] == main["small"]["buckets"]
+    assert main["small"]["packs"] == [1, 1]
+    np.testing.assert_allclose(main["after_too_large"], main["fp32"][1],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_front_keepalive_and_close(case, world):
+    """(iv) With KEEPALIVE_S at 0.2 s, a 1 s idle gap sends IDLE headers
+    that every follower receives, and the next request is answered; (v)
+    close() on the main ends every follower's thread (the ranks exit 0:
+    the world finished)."""
+    _, outs = case
+    main = _front(outs, world)
+    np.testing.assert_allclose(main["after_idle"], main["fp32"][0],
+                               rtol=1e-5, atol=1e-6)
+    sent = main["single"]["keepalives"]
+    assert sent >= 3
+    for r in range(world):
+        got = _front(outs, world, r)
+        assert got["single"]["keepalives"] == sent
+        for key in ("single", "small", "router_lists"):
+            assert not got[key]["alive"]
+        assert (got["single"]["packs"], got["single"]["buckets"]) == (
+            main["single"]["packs"], main["single"]["buckets"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_benchmark_load_same_on_every_rank(case, world):
+    """(vi) Every rank calls benchmark_load; each returns the main's
+    stats."""
+    _, outs = case
+    stats = _front(outs, world)["load"]
+    assert stats["n_requests"] >= 1 and stats["bucket_counts"]
+    for r in range(1, world):
+        assert _front(outs, world, r)["load"] == stats
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_front_generators_agree(case, world):
+    """(viii) Under the random gumbel every rank's generator has advanced
+    by the same packs to the same state."""
+    _, outs = case
+    before, after = _front(outs, world)["generator"]
+    assert not np.array_equal(before, after)
+    for r in range(1, world):
+        b, a = _front(outs, world, r)["generator"]
+        assert np.array_equal(b, before) and np.array_equal(a, after)
+        assert _front(outs, world, r)["rnd_packs"] == _front(
+            outs, world)["rnd_packs"]
 
 
 # ------------------------------------------------- production-dims audit --

@@ -276,3 +276,101 @@ def test_benchmark_load_matches_jax_keys(servers, router):
     assert got["mean_batch_fill"] >= 1.0
     if router:  # 6 faces a request: only the big bucket fits one
         assert set(got["bucket_counts"]) == {"4,16"}
+
+
+def test_packer_thread_and_readback_follow_the_servers_card(monkeypatch):
+    """A server on cuda:1: the packer thread runs with device 1 as its
+    current device, and the readback's event is recorded on device 1's
+    stream, where the copy is queued (torch.cuda's device, current_stream
+    and Event recorded by monkeypatch)."""
+    entered, recorded = [], []
+    card = torch.device("cuda", 1)
+
+    class _Device:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            entered.append((self.dev, threading.current_thread()))
+
+        def __exit__(self, *exc):
+            return False
+
+    class _Event:
+        def record(self, stream=None):
+            recorded.append(stream)
+
+        def synchronize(self):
+            pass
+
+    class _Rows:
+        is_cuda = True
+        device = card
+
+        def to(self, device, non_blocking=False):
+            assert device == "cpu" and non_blocking
+            return torch.full((2, 7), 1.0 / 7)
+
+    class _Server:
+        max_batch, face_capacity, device, mesh_plan = 2, 4, card, None
+
+        def face_take(self, faces):
+            return len(faces)
+
+        def build_pack(self, reqs):
+            return {}, None
+
+        def predict_device(self, batch, faces_raw):
+            return _Rows()
+
+    monkeypatch.setattr(torch.cuda, "device", _Device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: ("stream of", device))
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    front = port_serving.AsyncBatchServer(_Server(), batch_deadline_ms=1.0)
+    try:
+        probs = front.submit({}).result(timeout=30)
+    finally:
+        front.close()
+    assert probs.shape == (7,)
+    assert entered == [(card, front._thread)]
+    assert recorded == [("stream of", card)]
+
+
+@pytest.mark.parametrize("layout", [(1, 1), "none"])
+def test_one_rank_front_takes_the_one_process_path(layout):
+    """No plan, or a plan of one rank: no group, no broadcast, the stub's
+    rows as before."""
+    from facialmmt_tpu_torch.parallel.mesh import MeshPlan
+
+    release = threading.Event()
+    release.set()
+    stub = _stub_server(2, 4, release, 2)
+    stub.mesh_plan = None if layout == "none" else MeshPlan.abstract(*layout)
+    front = port_serving.AsyncBatchServer(stub, batch_deadline_ms=1.0)
+    try:
+        assert front.submit({}).result(timeout=30).shape == (7,)
+    finally:
+        front.close()
+    assert front.plan is None and front._group is None
+    assert front.broadcast_ms == [] and front.keepalives == 0
+
+
+def test_rank_outside_the_mesh_takes_no_part():
+    """A front over a plan whose rank is past dp x tp, over buckets on
+    different plans, or over a plan of several ranks without its host group
+    (not made by build_mesh), raises before it starts a thread."""
+    from facialmmt_tpu_torch.parallel.mesh import MeshPlan
+
+    release = threading.Event()
+    outside, inside = (_stub_server(2, 4, release, 2) for _ in range(2))
+    outside.mesh_plan = MeshPlan(None, 2, 1, rank=2)
+    with pytest.raises(ValueError, match="outside the 2 x 1 mesh"):
+        port_serving.AsyncBatchServer(outside)
+    outside.mesh_plan = MeshPlan(None, 2, 1, rank=0)
+    inside.mesh_plan = None
+    with pytest.raises(ValueError, match="one mesh plan"):
+        port_serving.AsyncBatchServer([outside, inside])
+    inside.mesh_plan = outside.mesh_plan
+    with pytest.raises(ValueError, match="host group"):
+        port_serving.AsyncBatchServer([outside, inside])

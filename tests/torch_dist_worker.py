@@ -17,7 +17,9 @@ import dataclasses
 import os
 import shutil
 import sys
+import time
 import typing
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -332,6 +334,119 @@ def text_tp(case, rank, dp, tp):
             "launches": kernels.launch_counts()["fused_attention"]}
 
 
+FRONT_BUCKETS = ((2, 4), (4, 8))        # (max_batch, face_capacity)
+
+
+def _burst(front, requests):
+    """Every request submitted at once from four threads; the answers."""
+    with ThreadPoolExecutor(4) as pool:
+        futures = list(pool.map(front.submit, requests))
+    return np.stack([f.result(timeout=120) for f in futures])
+
+
+def _lists(front):
+    return {"packs": list(front.pack_sizes),
+            "buckets": list(front.bucket_choices),
+            "keepalives": front.keepalives, "alive": front._thread.is_alive(),
+            "broadcasts": len(front.broadcast_ms)}
+
+
+def front(case, rank, dp, tp):
+    """The serving front over mesh servers of dp x tp ranks: every rank
+    constructs each front over the same servers, rank 0 submits.  A burst
+    at fp32 and bf16 plus ServingApp, a direct call and an idle gap longer
+    than the keepalive; a bucket too small for a request; the router; the
+    generator after a burst under the random gumbel; benchmark_load.  Rank
+    0 also answers on one process."""
+    from facialmmt_tpu_torch import serving
+    from facialmmt_tpu_torch.serve_http import ServingApp
+
+    cfg = config(case["front_cfg"])
+    sd = {k: torch.tensor(v) for k, v in case["server_sd"].items()}
+    reqs, main = case["front_requests"], rank == 0
+    plan = build_mesh(dp, tp, "cpu")
+    fp32 = dict(dtype=torch.float32, transfer_dtype=np.float32)
+
+    def servers(plan, cfg=cfg, buckets=FRONT_BUCKETS, **kw):
+        return [serving.EmotionServer(cfg, sd, max_batch=mb, face_capacity=cap,
+                                      device="cpu", mesh_plan=plan, **kw)
+                for mb, cap in buckets]
+
+    def refused(call):
+        try:
+            call()
+        except RuntimeError as e:
+            return str(e)
+        return None
+
+    small, big = servers(plan, **fp32)
+    out = {}
+    # (i), (iii), (iv), (vii): one bucket
+    f = serving.AsyncBatchServer(big, batch_deadline_ms=50.0)
+    out["direct"] = refused(lambda: big.predict(reqs[:1]))
+    if main:
+        out["fp32"] = _burst(f, reqs)
+        app = ServingApp(f)
+        out["app"] = np.stack([app.predict(p)["probs"]
+                               for p in case["front_payloads"]])
+        keepalive, serving.KEEPALIVE_S = serving.KEEPALIVE_S, 0.2
+        time.sleep(1.0)
+        serving.KEEPALIVE_S = keepalive
+        out["after_idle"] = f.submit(reqs[0]).result(timeout=60)
+    else:
+        out["submit"] = repr(f.submit(reqs[0]).exception(timeout=5))
+    f.close()
+    out["single"] = _lists(f)
+    out["direct_after"] = big.predict(reqs[:1])[0]
+    # (iii) a request whose faces exceed the only bucket
+    f = serving.AsyncBatchServer(small, batch_deadline_ms=20.0)
+    if main:
+        out["too_large"] = repr(f.submit(case["front_heavy"]).exception(
+            timeout=60))
+        out["after_too_large"] = f.submit(reqs[1]).result(timeout=60)
+    f.close()
+    out["small"] = _lists(f)
+    # (ii) the router, its servers given largest first
+    f = serving.AsyncBatchServer([big, small], batch_deadline_ms=50.0)
+    if main:
+        out["router"] = np.stack(
+            [f.submit(case["front_light"]).result(timeout=60),
+             f.submit(case["front_heavy"]).result(timeout=60)]
+            + list(_burst(f, reqs)))
+    f.close()
+    out["router_lists"] = _lists(f)
+    # bf16
+    (bf16,) = servers(plan, buckets=FRONT_BUCKETS[1:])
+    f = serving.AsyncBatchServer(bf16, batch_deadline_ms=50.0)
+    if main:
+        out["bf16"] = _burst(f, reqs)
+    f.close()
+    # (viii) the random gumbel: every rank's generator after the burst
+    (rnd,) = servers(plan, cfg=config(case["server_cfg"]),
+                     buckets=FRONT_BUCKETS[1:])
+    before = rnd.generator.get_state().clone()
+    f = serving.AsyncBatchServer(rnd, batch_deadline_ms=50.0)
+    if main:
+        _burst(f, reqs)
+    f.close()
+    out["generator"] = (before.numpy(), rnd.generator.get_state().numpy())
+    out["rnd_packs"] = len(f.pack_sizes)
+    # (vi) every rank calls benchmark_load
+    out["load"] = serving.benchmark_load([small, big], rate_utt_per_s=20.0,
+                                         duration_s=0.5, batch_deadline_ms=10.0)
+    if main:        # one process: the router and bf16 on the same requests
+        small1, big1 = servers(None, **fp32)
+        f = serving.AsyncBatchServer([big1, small1], batch_deadline_ms=50.0)
+        out["router_one"] = np.stack(
+            [f.submit(case["front_light"]).result(timeout=60),
+             f.submit(case["front_heavy"]).result(timeout=60)]
+            + list(_burst(f, reqs)))
+        f.close()
+        (one,) = servers(None, buckets=FRONT_BUCKETS[1:])
+        out["bf16_one"] = np.stack([one.predict([r])[0] for r in reqs])
+    return out
+
+
 SCENARIOS = {
     "dp2": lambda c, r: joint_step(c, r, 2, 1),
     "dp2_replicated": lambda c, r: joint_step(c, r, 2, 1, zero1=False),
@@ -342,6 +457,8 @@ SCENARIOS = {
     "resume_at_dp2": resume_at_dp2,
     "dp2tp2": lambda c, r: joint_step(c, r, 2, 2, remat=True),
     "server_dp2tp2": lambda c, r: server(c, r, 2, 2),
+    "front_dp2": lambda c, r: front(c, r, 2, 1),
+    "front_dp2tp2": lambda c, r: front(c, r, 2, 2),
     "text_tp2": lambda c, r: text_tp(c, r, 1, 2),
     "shrink_dp": shrink,
 }
