@@ -189,7 +189,27 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      on both ranks, the same stats on both; (e) close() ends both ranks,
      exit 0; (f) a front at dp=1 on a one-rank NCCL group, bit for bit the
      front without a plan.  The closed bursts' utt/s and the broadcast's
-     ms per pack are readings of two ranks sharing one card.
+     ms per pack are readings of two ranks sharing one card;
+ 16. the configurations of the JAX command line that no phase above runs
+     (phase_configurations; experiments/torch_configurations.py runs it
+     alone): (a) Swin drop_rate = attn_drop_rate = 0.1 on the default
+     route: a 64-face eval launches kernels 2 / 3 12 / 12 times and equals
+     the rate-0 model bit for bit; an auxiliary step with both rates
+     launches no kernel 2-6 and one with attn_drop_rate alone only kernels
+     3 and 4 (JAX's per-half rule), finite losses; (b) kernels 1-6 on fp32
+     tokens against their fp32 plain versions at phase 3's shapes (kernel 1
+     in TF32 beside SDPA in fp32); (c) the BERT-architecture towers through
+     `main.run` at full width: MELD T+A+V with --plm_name bert-large
+     (--doEval 1 twice, bit for bit, one eval batch against the CPU in
+     fp32, one training epoch) and M3ED with chinese-roberta-large (T one
+     epoch, --doEval 1 twice, one eval batch against the CPU; the dialogue
+     model one epoch and one eval), kernel 1 exactly once per text layer
+     per eval batch and never in a train step; (d) --compute_dtype
+     float32: an (8, 64) pack in fp32 on the card (kernels 1 / 2 / 3 24 /
+     12 / 12 times) against phase 4's CPU answer within FP32_BOUND, the
+     same pack through the former bf16 boundary printed beside it, an
+     auxiliary step (kernels 4 / 5 / 6 12 / 10 / 2 times) and a target step
+     in fp32, finite losses.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -227,6 +247,7 @@ SERVING_BOUND = 0.1
 # Swin blocks forward and backward
 GRAD_BOUND = 0.1
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
+PEAK_TF32_FLOPS = 494.7e12  # the same in TF32 (kernel 1's fp32 products)
 PEAK_HBM_BYTES = 3.35e12  # per second
 SWIN_STAGES = ((56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24))
 KERNELS = {
@@ -376,13 +397,16 @@ def tensor_bytes(*tensors) -> int:
 
 
 def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
-            timed=True, library=None, label="", summed=True, bitwise=False):
+            timed=True, library=None, label="", summed=True, bitwise=False,
+            peak_flops=PEAK_BF16_FLOPS):
     """Run kernel and plain on the same inputs and hold every output to the
     bound (a bias cotangent by its group sum, the only part of it that is
     defined); with `bitwise`, a second launch must give the same bits.  When
     `timed`, time the call (median kernel, plain and library times) beside
-    its bound and add them to the kernel's totals, unless `summed` is false:
-    then the shape is only printed and listed.  Prints one line."""
+    its bound (the FLOPs at `peak_flops`: the bf16 rate, or TF32's for
+    kernel 1's fp32 instantiation) and add them to the kernel's totals,
+    unless `summed` is false: then the shape is only printed and listed.
+    Prints one line."""
     got = kernel(*args)
     want = plain(*args)
     single = not isinstance(got, tuple)
@@ -421,7 +445,7 @@ def compare(torch, name, kernel, plain, args, results, *, flops, out_names=None,
     if timed:
         moved = tensor_bytes(*[a for a in args if torch.is_tensor(a)],
                              *[g for _, g, _ in outs])
-        flops_ms = flops / PEAK_BF16_FLOPS * 1e3
+        flops_ms = flops / peak_flops * 1e3
         bytes_ms = moved / PEAK_HBM_BYTES * 1e3
         ms = cuda_ms(torch, lambda: kernel(*args), reps=KERNEL_REPS)
         plain_ms = cuda_ms(torch, lambda: plain(*args), iters=5)
@@ -1063,6 +1087,9 @@ def phase_serving(torch, dev, rng, gpu_name):
     print(f"serving: card bf16 vs CPU fp32 on one 8-request pack: logits "
           f"max|d| {diff:.3g} <= {SERVING_BOUND} * max|logit| {scale:.3g}; "
           f"probabilities max|d| {float(np.abs(got - want).max()):.3g}")
+    # phase 16 holds the float32 model to the same CPU answer
+    reference = {"requests": packs[0], "probs": want,
+                 "state_dict": {k: v.cpu() for k, v in sd.items()}}
     del card, host
 
     lat = server.benchmark_latency(10)
@@ -1110,7 +1137,7 @@ def phase_serving(torch, dev, rng, gpu_name):
               f"{lat['p99_ms']:.2f} ms on {gpu_name}")
         paths[key] = launches
         del routed
-    return paths, server, p50_ms
+    return paths, server, p50_ms, reference
 
 
 def swin_route(cfg, route):
@@ -2106,17 +2133,19 @@ def fixtures():
 
 
 def write_meld_layout(root, cfg, splits=CLI_SPLITS,
-                      faces_per_utt=CLI_FACES_PER_UTT):
+                      faces_per_utt=CLI_FACES_PER_UTT, plm_name=None):
     """tests/fixtures.py's MELD layout under `root` at the config's widths,
     for `splits` {split: (dialogues, utterances a dialogue)} (per split the
     T+A+V and V pickles, profile and face-path JSONs, 1 to `faces_per_utt`
     face JPEGs an utterance, CSV and text JSON), and the tokenized-text npz
-    cache at max_seq_length tokens from the fixtures' whitespace
-    tokenizer."""
+    cache at max_seq_length tokens from the fixtures' whitespace tokenizer,
+    for `plm_name` (default the config's: RoBERTa's specials and cache
+    name, or a BERT-architecture tower's)."""
     from facialmmt_tpu_torch.data.text_prep import MeldTextPreprocessor
 
     fx, d = fixtures(), cfg.data
-    roberta = cfg.plm_name == "roberta-large"
+    plm_name = plm_name or cfg.plm_name
+    roberta = plm_name == "roberta-large"
     prep = MeldTextPreprocessor(fx.WhitespaceTokenizer(roberta), roberta,
                                 d.max_seq_length)
     for seed, (split, (dias, per)) in enumerate(splits.items()):
@@ -2128,8 +2157,7 @@ def write_meld_layout(root, cfg, splits=CLI_SPLITS,
         ids, mask, sep = MeldTextPreprocessor.to_arrays(prep.preprocess_split(
             os.path.join(root, f"{split}_sent_emo.csv"),
             os.path.join(root, f"{split}_text.json")))
-        np.savez(os.path.join(root, "T+A+V",
-                              f"text_{split}_{cfg.plm_name}.npz"),
+        np.savez(os.path.join(root, "T+A+V", f"text_{split}_{plm_name}.npz"),
                  ids=ids, mask=mask, sep=sep)
 
 
@@ -2510,16 +2538,19 @@ def expect_text_kernel(launches, want, where):
                              f"fused_attention {want} and nothing else")
 
 
-def write_m3ed_layout(root, cfg):
+def write_m3ed_layout(root, cfg, plm_name=None):
     """tests/fixtures.py's M3ED layout at the config's feature widths under
     <root>/m3ed (per split the text JSON, the utterance- and dialogue-level
     audio and vision pickles, the profile JSONs), the text caches
     <root>/appendix_data/T/text_{split}_{plm}_m3ed.npz from the port's
     M3edTextPreprocessor with the fixtures' whitespace tokenizer at
-    max_seq_length tokens, and a 48-row submission template."""
+    max_seq_length tokens (plm: `plm_name`, default the config's; the M3ED
+    preprocessor joins BERT-style whatever the tower, as the reference's),
+    and a 48-row submission template."""
     from facialmmt_tpu_torch.data.text_prep import M3edTextPreprocessor
 
     fx, d = fixtures(), cfg.data
+    plm_name = plm_name or cfg.plm_name
     prep = M3edTextPreprocessor(fx.WhitespaceTokenizer(False),
                                 d.max_seq_length)
     os.makedirs(os.path.join(root, "appendix_data", "T"), exist_ok=True)
@@ -2532,7 +2563,7 @@ def write_m3ed_layout(root, cfg):
         ids, mask, sep, labels = M3edTextPreprocessor.to_arrays(
             prep.preprocess_split(info["text"]["path"]))
         np.savez(os.path.join(root, "appendix_data", "T",
-                              f"text_{split}_{cfg.plm_name}_m3ed.npz"),
+                              f"text_{split}_{plm_name}_m3ed.npz"),
                  ids=ids, mask=mask, sep=sep, labels=labels)
     template = os.path.join(root, "m3ed", "template.csv")
     with open(template, "w") as f:
@@ -2608,6 +2639,125 @@ def appendix_run(torch, argv):
     return f1, kernels.launch_counts(), seen
 
 
+class AppendixRuns:
+    """The appendix's commands through `main.run` under `root`, watched:
+    phase 11's, and phase 16's with a BERT-architecture text tower (`extra`
+    carries --plm_name).  `layers`: the text tower's depth, kernel 1's
+    launches per eval batch; `template`: the submission template that
+    write_m3ed_layout wrote; `tag` begins each printed line."""
+
+    def __init__(self, torch, dev, gpu_name, root, extra, template,
+                 tag="appendix"):
+        from facialmmt_tpu_torch import main as cli
+        from facialmmt_tpu_torch.config import resolve_text_config
+
+        self.torch, self.dev, self.gpu_name = torch, dev, gpu_name
+        self.root, self.extra, self.template, self.tag = (root, tuple(extra),
+                                                          template, tag)
+        base = cli.config_from_args(cli.build_argparser().parse_args(
+            list(extra)))
+        self.layers = resolve_text_config(base).num_layers
+        self.n_test = APPENDIX_DIALOGUES * APPENDIX_UTTS
+
+    def argv(self, save, *own):
+        return ["--data_load_path", os.path.join(self.root, "appendix_data"),
+                "--m3ed_project_path", os.path.join(self.root, "m3ed"),
+                "--save_Model_path", save,
+                "--metrics_path", os.path.join(self.root, "appendix.jsonl"),
+                *self.extra, *own]
+
+    def train(self, key, save, *own, text_only=True):
+        from facialmmt_tpu_torch.utils import preemption
+
+        try:
+            f1, launches, seen = appendix_run(self.torch, self.argv(
+                save, "--doEval", "0", "--num_epochs", "1", *own))
+        finally:
+            if preemption._guard is not None:    # cli.run installed it
+                preemption._guard.uninstall()
+        if not (seen["losses"] and np.isfinite(seen["losses"]).all()
+                and max(seen["k1_at_steps"]) == 0 and 0.0 <= f1 <= 1.0):
+            raise AssertionError(f"{key}: losses {seen['losses']}, kernel "
+                                 f"1 at the steps {seen['k1_at_steps']}, "
+                                 f"F1 {f1}")
+        if text_only:
+            expect_text_kernel(launches, self.layers * seen["eval_batches"],
+                               key)
+        files = sorted(os.listdir(save))
+        if "best_1" not in files or "step_1" not in files:
+            raise AssertionError(f"{key}: files {files}")
+        print(f"{self.tag}: {key}: one epoch at FacialMMTConfig() width, "
+              f"{len(seen['steps'])} steps, losses "
+              f"{[round(x, 4) for x in seen['losses'][:4]]}..., step median "
+              f"{statistics.median(seen['steps']) * 1e3:.1f} ms (first "
+              f"{seen['steps'][0] * 1e3:.0f} ms), test F1 {f1:.4f}, "
+              f"{seen['eval_batches']} eval batches, {seen['total']:.1f} s in "
+              f"all; launches {launches} on {self.gpu_name}")
+        return launches, seen
+
+    def evaluate_twice(self, key, save, api, *own):
+        from facialmmt_tpu_torch.utils.submission import M3ED_EMOTIONS
+
+        outs = []
+        stem = os.path.join(self.root, key.replace(" ", "_"))
+        for n in (1, 2):
+            out_csv = f"{stem}_{n}.csv"
+            f1, launches, seen = appendix_run(self.torch, self.argv(
+                save, "--doEval", "1", *own, "--submission_template",
+                self.template, "--submission_out", out_csv, "--pred_dump_path",
+                f"{stem}_{n}.txt"))
+            expect_text_kernel(launches, self.layers * seen["eval_batches"],
+                               key)
+            with open(out_csv, "rb") as f:
+                outs.append((f1, launches, seen, f.read()))
+        (f1, launches, seen, csv_bytes), second = outs
+        logits = seen["logits"][0]
+        rows = [line.split(",") for line in csv_bytes.decode().splitlines()]
+        want_rows = [[f"dia{i // APPENDIX_UTTS}_utt{i % APPENDIX_UTTS}",
+                      M3ED_EMOTIONS[int(k)]]
+                     for i, k in enumerate(logits.argmax(-1))]
+        if not (second[0] == f1 == api and second[3] == csv_bytes
+                and np.array_equal(second[2]["logits"][0], logits)
+                and rows[1:] == want_rows and logits.shape[0] == self.n_test):
+            raise AssertionError(f"{key}: F1 {f1} / {second[0]} / API {api}, "
+                                 f"CSV equal {second[3] == csv_bytes}, rows "
+                                 f"{rows[1:4]} vs {want_rows[:3]}")
+        print(f"{self.tag}: {key} --doEval 1: macro-F1 {f1:.4f} = the second "
+              f"run's = the API's; logits bit for bit, the CSV byte for byte, "
+              f"{len(rows) - 1} rows in test order; {seen['eval_batches']} "
+              f"eval batches, {self.n_test / seen['eval_s']:.1f} utterances/s "
+              f"in the eval loop ({seen['total']:.2f} s end to end); launches "
+              f"{launches} on {self.gpu_name}")
+        return launches, seen
+
+    def card_vs_cpu(self, key, trainer_cls, cfg, ds, save):
+        """One eval batch: bf16 on the card against fp32 on the CPU, on the
+        best file's weights, compared on the per-row centred logits."""
+        from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
+
+        _, best = CheckpointManager(save).restore_best()
+        got = []
+        for device, dtype in ((self.dev, cfg.runtime.compute_dtype),
+                              (self.torch.device("cpu"), "float32")):
+            trainer = trainer_cls(cfg.replace(runtime=dataclasses.replace(
+                cfg.runtime, compute_dtype=dtype)), device)
+            model = trainer._build_single(best)
+            _, step = trainer._steps(model)
+            batch = ds.get_batch(list(range(trainer._effective_batch())))
+            logits = step(trainer._batch_to_device(batch))[0]
+            got.append(logits.float().cpu().numpy().astype(np.float64))
+            del model
+        z_card, z_cpu = (z - z.mean(-1, keepdims=True) for z in got)
+        diff = float(np.abs(z_card - z_cpu).max())
+        scale = float(np.abs(z_cpu).max())
+        if not (np.isfinite(z_card).all() and diff <= SERVING_BOUND * scale):
+            raise AssertionError(f"{key}: card vs CPU fp32 max|d| {diff} > "
+                                 f"{SERVING_BOUND} * {scale}")
+        print(f"{self.tag}: {key}: one eval batch {tuple(got[0].shape)}, card "
+              f"{cfg.runtime.compute_dtype} vs CPU fp32: centred logits "
+              f"max|d| {diff:.3g} <= {SERVING_BOUND} * {scale:.3g}")
+
+
 def phase_appendix(torch, dev, gpu_name, root, extra=()):
     """The appendix (CCAC2023/M3ED) through `main.run` at FacialMMTConfig()
     width (RoBERTa-large, 768-wide fusion) on files that tests/fixtures.py's
@@ -2631,15 +2781,12 @@ def phase_appendix(torch, dev, gpu_name, root, extra=()):
     memory."""
     from facialmmt_tpu_torch import main as cli
     from facialmmt_tpu_torch.checkpoint.io import CheckpointManager
-    from facialmmt_tpu_torch.config import resolve_text_config
     from facialmmt_tpu_torch.data.m3ed import (M3edDialogueDataset,
                                                M3edTextDataset)
     from facialmmt_tpu_torch.train.trainer import DialogueTrainer, TextTrainer
     from facialmmt_tpu_torch.utils import preemption
-    from facialmmt_tpu_torch.utils.submission import M3ED_EMOTIONS
 
     base = cli.config_from_args(cli.build_argparser().parse_args(list(extra)))
-    layers = resolve_text_config(base).num_layers
     t0 = time.perf_counter()
     template = write_m3ed_layout(root, base)
     meld = os.path.join(root, "meld")
@@ -2654,97 +2801,10 @@ def phase_appendix(torch, dev, gpu_name, root, extra=()):
     print(f"appendix: M3ED files ({len(APPENDIX_SPLITS)} splits of "
           f"{APPENDIX_DIALOGUES} dialogues x {APPENDIX_UTTS} utterances) "
           f"written in {time.perf_counter() - t0:.1f} s")
-    n_test = APPENDIX_DIALOGUES * APPENDIX_UTTS
-
-    def argv(save, *own):
-        return ["--data_load_path", os.path.join(root, "appendix_data"),
-                "--m3ed_project_path", os.path.join(root, "m3ed"),
-                "--save_Model_path", save,
-                "--metrics_path", os.path.join(root, "appendix.jsonl"),
-                *extra, *own]
-
-    def train(key, save, *own, text_only=True):
-        try:
-            f1, launches, seen = appendix_run(torch, argv(
-                save, "--doEval", "0", "--num_epochs", "1", *own))
-        finally:
-            if preemption._guard is not None:    # cli.run installed it
-                preemption._guard.uninstall()
-        if not (seen["losses"] and np.isfinite(seen["losses"]).all()
-                and max(seen["k1_at_steps"]) == 0 and 0.0 <= f1 <= 1.0):
-            raise AssertionError(f"{key}: losses {seen['losses']}, kernel "
-                                 f"1 at the steps {seen['k1_at_steps']}, "
-                                 f"F1 {f1}")
-        if text_only:
-            expect_text_kernel(launches, layers * seen["eval_batches"], key)
-        files = sorted(os.listdir(save))
-        if "best_1" not in files or "step_1" not in files:
-            raise AssertionError(f"{key}: files {files}")
-        print(f"appendix: {key}: one epoch at FacialMMTConfig() width, "
-              f"{len(seen['steps'])} steps, losses "
-              f"{[round(x, 4) for x in seen['losses'][:4]]}..., step median "
-              f"{statistics.median(seen['steps']) * 1e3:.1f} ms (first "
-              f"{seen['steps'][0] * 1e3:.0f} ms), test F1 {f1:.4f}, "
-              f"{seen['eval_batches']} eval batches, {seen['total']:.1f} s in "
-              f"all; launches {launches} on {gpu_name}")
-        return launches, seen
-
-    def evaluate_twice(key, save, api, *own):
-        outs = []
-        stem = os.path.join(root, key.replace(" ", "_"))
-        for n in (1, 2):
-            out_csv = f"{stem}_{n}.csv"
-            f1, launches, seen = appendix_run(torch, argv(
-                save, "--doEval", "1", *own, "--submission_template", template,
-                "--submission_out", out_csv, "--pred_dump_path",
-                f"{stem}_{n}.txt"))
-            expect_text_kernel(launches, layers * seen["eval_batches"], key)
-            with open(out_csv, "rb") as f:
-                outs.append((f1, launches, seen, f.read()))
-        (f1, launches, seen, csv_bytes), second = outs
-        logits = seen["logits"][0]
-        rows = [line.split(",") for line in csv_bytes.decode().splitlines()]
-        want_rows = [[f"dia{i // APPENDIX_UTTS}_utt{i % APPENDIX_UTTS}",
-                      M3ED_EMOTIONS[int(k)]]
-                     for i, k in enumerate(logits.argmax(-1))]
-        if not (second[0] == f1 == api and second[3] == csv_bytes
-                and np.array_equal(second[2]["logits"][0], logits)
-                and rows[1:] == want_rows and logits.shape[0] == n_test):
-            raise AssertionError(f"{key}: F1 {f1} / {second[0]} / API {api}, "
-                                 f"CSV equal {second[3] == csv_bytes}, rows "
-                                 f"{rows[1:4]} vs {want_rows[:3]}")
-        print(f"appendix: {key} --doEval 1: macro-F1 {f1:.4f} = the second "
-              f"run's = the API's; logits bit for bit, the CSV byte for byte, "
-              f"{len(rows) - 1} rows in test order; {seen['eval_batches']} "
-              f"eval batches, {n_test / seen['eval_s']:.1f} utterances/s in "
-              f"the eval loop ({seen['total']:.2f} s end to end); launches "
-              f"{launches} on {gpu_name}")
-        return launches, seen
-
-    def card_vs_cpu(key, trainer_cls, cfg, ds, save):
-        """One eval batch: bf16 on the card against fp32 on the CPU, on the
-        best file's weights, compared on the per-row centred logits."""
-        _, best = CheckpointManager(save).restore_best()
-        got = []
-        for device, dtype in ((dev, cfg.runtime.compute_dtype),
-                              (torch.device("cpu"), "float32")):
-            trainer = trainer_cls(cfg.replace(runtime=dataclasses.replace(
-                cfg.runtime, compute_dtype=dtype)), device)
-            model = trainer._build_single(best)
-            _, step = trainer._steps(model)
-            batch = ds.get_batch(list(range(trainer._effective_batch())))
-            logits = step(trainer._batch_to_device(batch))[0]
-            got.append(logits.float().cpu().numpy().astype(np.float64))
-            del model
-        z_card, z_cpu = (z - z.mean(-1, keepdims=True) for z in got)
-        diff = float(np.abs(z_card - z_cpu).max())
-        scale = float(np.abs(z_cpu).max())
-        if not (np.isfinite(z_card).all() and diff <= SERVING_BOUND * scale):
-            raise AssertionError(f"{key}: card vs CPU fp32 max|d| {diff} > "
-                                 f"{SERVING_BOUND} * {scale}")
-        print(f"appendix: {key}: one eval batch {tuple(got[0].shape)}, card "
-              f"{cfg.runtime.compute_dtype} vs CPU fp32: centred logits "
-              f"max|d| {diff:.3g} <= {SERVING_BOUND} * {scale:.3g}")
+    runs = AppendixRuns(torch, dev, gpu_name, root, extra, template)
+    argv, train = runs.argv, runs.train
+    evaluate_twice, card_vs_cpu = runs.evaluate_twice, runs.card_vs_cpu
+    n_test = runs.n_test
 
     paths, readings = {}, {}
     # ---- T: train one epoch, then --doEval 1 twice
@@ -3209,28 +3269,14 @@ def remat_aux(torch, dev, gpu_name, cfg):
     block under remat, the backward kernels as often as without.  Peak
     memory of that forward + backward and the median of three full steps
     (forward, backward, clip + AdamW) per case."""
-    from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
-    from facialmmt_tpu_torch.data.meld import SyntheticFerDataset
-    from facialmmt_tpu_torch.models.pipeline import init_random_
-    from facialmmt_tpu_torch.models.swin_fer import \
-        SwinForAffwildClassification
     from facialmmt_tpu_torch.ops import kernels
     from facialmmt_tpu_torch.train.optim import make_optimizer
     from facialmmt_tpu_torch.train.steps import compute_context, cross_entropy
 
-    with torch.device(dev):
-        model = SwinForAffwildClassification(cfg)
-    model.to(dev)
-    init_random_(model, torch.Generator(dev).manual_seed(cfg.runtime.seed))
+    model = fer_model(torch, dev, cfg)
     model.train()
     opt = make_optimizer(model.parameters(), cfg.optim, cfg.optim.aux_lr, 10)
-    images_np, labels_np = SyntheticFerDataset(
-        AUX_IMAGES, 112, cfg.num_labels, seed=21).get_batch(range(AUX_IMAGES))
-    images = affwild2_train_augment(
-        torch.Generator(dev).manual_seed(3),
-        torch.from_numpy(images_np).to(dev).float(),
-        img_size=cfg.data.swin_img_size)
-    labels = torch.from_numpy(labels_np).to(dev)
+    images, labels = aux_batch(torch, dev, cfg)
     start = snapshot(model)
     blocks = sum(cfg.swin.depths)
     dtype = cfg.runtime.compute_dtype
@@ -4493,6 +4539,710 @@ def tooling_roundtrip(torch, dev, gpu_name, cli_root, work, extra=()):
     return launches
 
 
+# --------------------------------------------------------- configurations --
+
+# Kernels with an fp32 instantiation (phase 16 (b)); kernels 7-12 keep their
+# bf16 boundary
+FP32_KERNELS = ("fused_attention", "fused_attention_block",
+                "fused_ln_mlp_residual", "fused_ln_mlp_residual_bwd",
+                "fused_attention_block_bwd", "fused_attention_block_bwd_spill")
+# launches of one (8, 64) eval pack and of one auxiliary step (12 Swin
+# blocks, 10 of them at C <= 384)
+PACK_LAUNCHES = {"fused_attention": 24, "fused_attention_block": 12,
+                 "fused_ln_mlp_residual": 12}
+AUX_STEP_LAUNCHES = {"fused_attention_block": 12, "fused_ln_mlp_residual": 12,
+                     "fused_ln_mlp_residual_bwd": 12,
+                     "fused_attention_block_bwd": 10,
+                     "fused_attention_block_bwd_spill": 2}
+SWIN_DROP = 0.1        # phase 16's Swin drop_rate and attn_drop_rate
+# The (8, 64) pack under --compute_dtype float32 on the card against the
+# same weights in fp32 on the CPU: centred logits max|d| <= FP32_BOUND *
+# max|logit|.  Measured 3.9e-5 on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6): the bound leaves 5x, is 500x under SERVING_BOUND and
+# 8x under the 1.67e-3 that the same pack reads through the former bf16
+# boundary of kernels 1-6, which the phase also prints and holds above it
+FP32_BOUND = 2e-4
+BERT_TOWERS = ("bert-large", "chinese-roberta-large")
+
+
+def exactly(launches, want):
+    """{kernel: want's count, 0 for every kernel want does not name}."""
+    return {k: want.get(k, 0) for k in launches}
+
+
+def aux_batch(torch, dev, cfg):
+    """The auxiliary batch of phases 13 and 16: AUX_IMAGES synthetic FER
+    frames through the training augmentation, and their labels."""
+    from facialmmt_tpu_torch.data.image_pipeline import affwild2_train_augment
+    from facialmmt_tpu_torch.data.meld import SyntheticFerDataset
+
+    images_np, labels_np = SyntheticFerDataset(
+        AUX_IMAGES, 112, cfg.num_labels, seed=21).get_batch(range(AUX_IMAGES))
+    images = affwild2_train_augment(
+        torch.Generator(dev).manual_seed(3),
+        torch.from_numpy(images_np).to(dev).float(),
+        img_size=cfg.data.swin_img_size)
+    return images, torch.from_numpy(labels_np).to(dev)
+
+
+def fer_model(torch, dev, cfg, state=None):
+    """The Swin FER model of `cfg` on `dev`: random weights from the seed,
+    or `state`."""
+    from facialmmt_tpu_torch.models.pipeline import init_random_
+    from facialmmt_tpu_torch.models.swin_fer import \
+        SwinForAffwildClassification
+
+    with torch.device(dev):
+        model = SwinForAffwildClassification(cfg)
+    model.to(dev)          # the buffers made from numpy arrays
+    if state is None:
+        init_random_(model, torch.Generator(dev).manual_seed(cfg.runtime.seed))
+    else:
+        model.load_state_dict(state, strict=True)
+    return model
+
+
+def aux_step(torch, dev, model, images, labels, dtype):
+    """One auxiliary forward and backward under `dtype`: (loss, launches,
+    ms on the host clock around it, every gradient finite)."""
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.steps import compute_context, cross_entropy
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(dev).manual_seed(5)
+    kernels.reset_launch_counts()
+
+    def step():
+        with compute_context(dev, dtype):
+            loss = cross_entropy(model(images, generator=gen), labels)
+        loss.backward()
+        return loss.detach()
+
+    sync(torch)
+    t0 = time.perf_counter()
+    loss = step()
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    finite = all(torch.isfinite(p.grad).all() for p in model.parameters()
+                 if p.grad is not None)
+    return float(loss), kernels.launch_counts(), ms, bool(finite)
+
+
+def configurations_drop_rates(torch, dev, gpu_name, cfg):
+    """(a) Swin drop_rate = attn_drop_rate = SWIN_DROP on the default route.
+    Eval of a 64-face pack: kernels 2 / 3 once a block and nothing else,
+    bit for bit the rate-0 model's.  Training: one auxiliary step with both
+    rates (JAX's rule sends every half to 'xla': no kernel 2-6) and one with
+    attn_drop_rate alone (the attention halves to 'xla', the MLP halves on
+    kernels 3 and 4), finite losses and gradients."""
+    from facialmmt_tpu_torch.data.image_pipeline import \
+        meld_face_eval_transform
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.steps import compute_context
+
+    rated = lambda drop, attn: cfg.replace(swin=dataclasses.replace(
+        cfg.swin, drop_rate=drop, attn_drop_rate=attn))
+    blocks = sum(cfg.swin.depths)
+    plain = fer_model(torch, dev, cfg)
+    start = snapshot(plain)
+    model = fer_model(torch, dev, rated(SWIN_DROP, SWIN_DROP), start)
+    faces = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (FACES, 160, 160, 3), dtype=np.uint8)).to(dev)
+    x = meld_face_eval_transform(faces.float(), cfg.data.swin_img_size)
+    dtype = cfg.runtime.compute_dtype
+    outs = []
+    for m in (model, plain):
+        m.eval()
+        kernels.reset_launch_counts()
+        with torch.no_grad(), compute_context(dev, dtype):
+            outs.append(m(x))
+        sync(torch)
+        if m is model:
+            eval_launches = kernels.launch_counts()
+    require_counts(eval_launches, exactly(eval_launches, {
+        "fused_attention_block": blocks, "fused_ln_mlp_residual": blocks}),
+        "eval with Swin drop rates")
+    if not torch.equal(*outs):
+        raise AssertionError("eval with Swin drop rates differs from the "
+                             "rate-0 model")
+    print(f"configurations: Swin drop_rate = attn_drop_rate = {SWIN_DROP}, "
+          f"eval of {FACES} faces ({dtype}): kernels 2 / 3 launched "
+          f"{eval_launches['fused_attention_block']} / "
+          f"{eval_launches['fused_ln_mlp_residual']} times, bit for bit "
+          f"the rate-0 model's on {gpu_name}")
+    images, labels = aux_batch(torch, dev, cfg)
+    aux_launches = {}
+    for key, drop, attn, want in (
+            ("both rates", SWIN_DROP, SWIN_DROP, {}),
+            ("attn_drop_rate alone", 0.0, SWIN_DROP,
+             {"fused_ln_mlp_residual": blocks,
+              "fused_ln_mlp_residual_bwd": blocks})):
+        m = fer_model(torch, dev, rated(drop, attn), start)
+        loss, launches, ms, finite = aux_step(torch, dev, m, images, labels,
+                                              dtype)
+        require_counts(launches, exactly(launches, want),
+                       f"an aux step with {key}")
+        if not (np.isfinite(loss) and finite):
+            raise AssertionError(f"aux step with {key}: loss {loss}, "
+                                 f"gradients finite {finite}")
+        print(f"configurations: aux step ({AUX_IMAGES} images, {dtype}) with "
+              f"Swin {key} {SWIN_DROP}: the halves JAX's rule sends to 'xla' "
+              f"launch no kernel (launches "
+              f"{ {k: n for k, n in launches.items() if n} }), loss "
+              f"{loss:.4f}, gradients finite, {ms:.1f} ms on {gpu_name}")
+        aux_launches = launches
+        del m
+    del model, plain
+    return {"configurations_drop_eval": eval_launches,
+            "configurations_drop_aux": aux_launches}
+
+
+def fp32_kernel_rows(torch, dev, rng):
+    """(b) Kernels 1-6 on fp32 tokens (x, dy; kernel 1's q, k, v) against
+    their plain versions on the same operands, at the shapes of phase 1:
+    kernel 1 at the text tower's 8 x 16 x 512 x 64 (padded; unpadded and
+    the fusion stacks' shapes beside it, outside the row's sums; the
+    library call SDPA in fp32), kernels 2 and 3 at every stage of a 64-face
+    pack (then with keep at 150 images, checked only), kernels 4-6 at every
+    stage of 150 images.  The bound takes the FLOPs at TF32's rate for
+    kernel 1 and at bf16's for kernels 2-6, whose products keep bf16
+    operands.  Returns the rows as phase_kernels does."""
+    import torch.nn.functional as F
+
+    from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
+                                                 fused_block)
+    from facialmmt_tpu_torch.ops.swin import shifted_window_mask
+
+    bf = lambda a: torch.tensor(a).to(dev, torch.bfloat16).contiguous()
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    results = {}
+
+    b, h, s, d = 8, 16, 512, 64
+    bias = np.zeros((b, s), np.float32)
+    for i in range(b - 1):
+        bias[i, rng.integers(200, s):] = -1e30
+    bias[-1] = -1e30
+    q, k, v = (f32(rng.normal(size=(b, h, s, d)) * scale)
+               for scale in (d ** -0.5, 1.0, 1.0))
+    bias_t = f32(bias)
+    for label, bias_k, summed in ((f"fp32 {b}x{h}x{s}x{d}", bias_t, True),
+                                  (f"fp32 {b}x{h}x{s}x{d} no padding",
+                                   torch.zeros_like(bias_t), False)):
+        mask = bias_k[:, None, None, :]
+        compare(torch, "fused_attention", attention.fused_attention_cuda,
+                attention.fused_attention_plain, (q, k, v, bias_k), results,
+                flops=4.0 * b * h * s * s * d, label=label, summed=summed,
+                bitwise=True, peak_flops=PEAK_TF32_FLOPS,
+                library=lambda mask=mask: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=1.0))
+    for what, sq, sk in (("audio tower", 157, 157), ("crossmodal", 38, 157)):
+        fbias = np.zeros((8, sk), np.float32)
+        for i in range(8):
+            fbias[i, rng.integers(sk // 2, sk + 1):] = -10000.0
+        fq = f32(rng.normal(size=(8, 12, sq, 64)) * 0.125)
+        fk, fv = (f32(rng.normal(size=(8, 12, sk, 64))) for _ in range(2))
+        compare(torch, "fused_attention", attention.fused_attention_cuda,
+                attention.fused_attention_plain, (fq, fk, fv, f32(fbias)),
+                results, flops=4.0 * 8 * 12 * sq * sk * 64, summed=False,
+                label=f"fp32 {what} 8x12x{sq}x{sk}x64",
+                peak_flops=PEAK_TF32_FLOPS)
+
+    def block_args(w, c, heads, res, shifted):
+        rel = rng.normal(size=(1, heads, 49, 49)) * 0.5
+        mask = (shifted_window_mask(res, res, 7, 3)[:, None] if shifted
+                else np.zeros((1, 1, 49, 49)))
+        return (f32(rng.normal(size=(w, 49, c))),
+                bf(1 + 0.1 * rng.normal(size=c)), bf(0.1 * rng.normal(size=c)),
+                bf(rng.normal(size=(3 * c, c)) / np.sqrt(c)),
+                bf(0.1 * rng.normal(size=3 * c)),
+                bf(rng.normal(size=(c, c)) / np.sqrt(c)),
+                bf(0.1 * rng.normal(size=c)), f32(rel + mask))
+
+    def mlp_args(t, c):
+        return (f32(rng.normal(size=(t, c))), bf(1 + 0.1 * rng.normal(size=c)),
+                bf(0.1 * rng.normal(size=c)),
+                bf(rng.normal(size=(4 * c, c)) / np.sqrt(c)),
+                bf(0.1 * rng.normal(size=4 * c)),
+                bf(rng.normal(size=(c, 4 * c)) / np.sqrt(4 * c)),
+                bf(0.1 * rng.normal(size=c)))
+
+    def image_keep(images, repeat):
+        per_image = (rng.random(images) > 0.3) / 0.7
+        return f32(per_image).repeat_interleave(repeat).contiguous()
+
+    for stage, (res, c, heads) in enumerate(SWIN_STAGES):
+        nw = (res // 7) ** 2
+        for shifted in ((False, True) if res > 7 else (False,)):
+            compare(torch, "fused_attention_block",
+                    fused_block.fused_attention_block_cuda,
+                    fused_block.fused_attention_block_plain,
+                    block_args(FACES * nw, c, heads, res, shifted), results,
+                    flops=attn_block_flops(FACES * nw, 49, c, False),
+                    bitwise=True,
+                    label=f"fp32 stage {stage} W={FACES * nw} C={c} "
+                          f"h={heads} {'shifted' if shifted else 'unshifted'}")
+        t = FACES * res * res
+        compare(torch, "fused_ln_mlp_residual",
+                block_mlp.fused_ln_mlp_residual_cuda,
+                block_mlp.fused_ln_mlp_residual_plain, mlp_args(t, c), results,
+                flops=mlp_flops(t, c, False), bitwise=True,
+                label=f"fp32 stage {stage} T={t} C={c}")
+        w, t = AUX_IMAGES * nw, AUX_IMAGES * res * res
+        compare(torch, "fused_attention_block",
+                fused_block.fused_attention_block_cuda,
+                fused_block.fused_attention_block_plain,
+                (*block_args(w, c, heads, res, res > 7),
+                 image_keep(AUX_IMAGES, nw)), results, flops=0, timed=False,
+                label=f"fp32 stage {stage} W={w} C={c} with keep",
+                bitwise=True)
+        compare(torch, "fused_ln_mlp_residual",
+                block_mlp.fused_ln_mlp_residual_cuda,
+                block_mlp.fused_ln_mlp_residual_plain,
+                (*mlp_args(t, c), image_keep(AUX_IMAGES, res * res)), results,
+                flops=0, timed=False, bitwise=True,
+                label=f"fp32 stage {stage} T={t} C={c} with keep")
+        torch.cuda.empty_cache()
+
+    variants = {
+        "resident": ("fused_attention_block_bwd",
+                     fused_block.fused_attention_block_bwd_cuda,
+                     fused_block.fused_attention_block_bwd_plain),
+        "spill": ("fused_attention_block_bwd_spill",
+                  fused_block.fused_attention_block_bwd_spill_cuda,
+                  fused_block.fused_attention_block_bwd_spill_plain)}
+    for stage, (res, c, heads) in enumerate(SWIN_STAGES):
+        nw = (res // 7) ** 2
+        w, t = AUX_IMAGES * nw, AUX_IMAGES * res * res
+        name, kernel, plain = variants[fused_block.backward_variant(c)]
+        cases = (((False, False, True), (True, True, True),
+                  (False, True, False), (True, False, False)) if res > 7
+                 else ((False, False, True), (False, True, False)))
+        for shifted, keep, timed in cases:
+            x, *params = block_args(w, c, heads, res, shifted)
+            args = (x, f32(rng.normal(size=(w, 49, c))), *params[:5],
+                    params[6], image_keep(AUX_IMAGES, nw) if keep else None)
+            compare(torch, name, kernel, plain, args, results,
+                    flops=attn_block_flops(w, 49, c, True),
+                    out_names=ATTN_BWD_NAMES, timed=timed, bitwise=True,
+                    label=f"fp32 stage {stage} W={w} C={c} h={heads} "
+                          f"{'shifted' if shifted else 'unshifted'}"
+                          f"{' with keep' if keep else ''}")
+        for keep, timed in ((False, True), (True, False)):
+            x, *params = mlp_args(t, c)
+            args = (x, f32(rng.normal(size=(t, c))), *params[:5],
+                    image_keep(AUX_IMAGES, res * res) if keep else None)
+            compare(torch, "fused_ln_mlp_residual_bwd",
+                    block_mlp.fused_ln_mlp_residual_bwd_cuda,
+                    block_mlp.fused_ln_mlp_residual_bwd_plain, args, results,
+                    flops=mlp_flops(t, c, True), out_names=MLP_BWD_NAMES,
+                    timed=timed, bitwise=True,
+                    label=f"fp32 stage {stage} T={t} C={c}"
+                          f"{' with keep' if keep else ''}")
+        torch.cuda.empty_cache()
+    for r in results.values():
+        r["bound_by"] = ("operations" if r.pop("flops_ms") >= r.pop("bytes_ms")
+                         else "bytes")
+    return results
+
+
+def bf16_boundary(t):
+    """The tokens as kernels 1-6 took them before they had an fp32
+    instantiation: cast to bf16 at the boundary (the Functions cast the
+    result back to the tokens' dtype)."""
+    return t.detach().bfloat16().contiguous()
+
+
+def hold_fp32_pack(finite, diff, diff_before, scale):
+    """The float32 pack's centred logits within FP32_BOUND of the CPU's,
+    and the former bf16 boundary's reading above that bound."""
+    if not (finite and diff <= FP32_BOUND * scale < diff_before):
+        raise AssertionError(
+            f"float32 pack vs CPU fp32: centred logits max|d| {diff} (the "
+            f"former bf16 boundary {diff_before}) against {FP32_BOUND} * "
+            f"{scale}")
+
+
+def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
+    """(b) The model under --compute_dtype float32 on the card.  One (8, 64)
+    eval pack of `cfg` (EmotionServer in fp32, deterministic gumbel): kernels
+    1 / 2 / 3 launched exactly 24 / 12 / 12 times, its centred logits within
+    FP32_BOUND of the same weights in fp32 on the CPU (`reference`: phase
+    4's pack, weights and CPU answer; made here when None); the same pack
+    through the former bf16 boundary (bf16_boundary) printed beside it and
+    held above the bound.  One auxiliary step in fp32 (kernels 2-6 exactly
+    AUX_STEP_LAUNCHES), one target step in fp32 (TARGET_STEP_LAUNCHES),
+    finite losses, their times."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch.config import RuntimeConfig
+    from facialmmt_tpu_torch.data.meld import SyntheticMeldDataset
+    from facialmmt_tpu_torch.models.pipeline import build_pipeline
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.serving import EmotionServer
+    from facialmmt_tpu_torch.train.optim import MultiTaskState
+    from facialmmt_tpu_torch.train.steps import make_multimodal_train_step
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    det = cfg.replace(runtime=RuntimeConfig(deterministic_gumbel=True))
+    fp32_server = lambda sd, device: EmotionServer(
+        det, {k: (v.float() if v.is_floating_point() else v)
+              for k, v in sd.items()}, max_batch=8, face_capacity=FACES,
+        dtype=torch.float32, transfer_dtype=np.float32, device=device)
+    if reference is None:
+        server = EmotionServer(cfg, max_batch=8, face_capacity=FACES,
+                               device=dev)
+        reference = {"requests": synthetic_requests(
+            np.random.default_rng(0), cfg, [8] * 8, 512),
+            "state_dict": {k: v.cpu() for k, v in
+                           server.model.state_dict().items()}}
+        del server
+        host = fp32_server(reference["state_dict"], "cpu")
+        reference["probs"] = host.predict_raw(
+            *host.build_pack(reference["requests"]))
+        del host
+    card = fp32_server(reference["state_dict"], dev)
+    batch, faces = card.build_pack(reference["requests"])
+    kernels.reset_launch_counts()
+    got = card.predict_raw(batch, faces)
+    sync(torch)
+    pack_launches = kernels.launch_counts()
+    require_counts(pack_launches, exactly(pack_launches, PACK_LAUNCHES),
+                   "the float32 (8, 64) pack")
+    with mock.patch.object(kernels, "token_operand", bf16_boundary):
+        before = card.predict_raw(batch, faces)
+    t_pack = card.benchmark_latency(5)["p50_ms"]
+    del card
+    centred = lambda p: (np.log(p.astype(np.float64))
+                         - np.log(p.astype(np.float64)).mean(-1,
+                                                             keepdims=True))
+    z_want = centred(reference["probs"])
+    scale = float(np.abs(z_want).max())
+    diff = float(np.abs(centred(got) - z_want).max())
+    diff_before = float(np.abs(centred(before) - z_want).max())
+    hold_fp32_pack(np.isfinite(centred(got)).all(), diff, diff_before, scale)
+    print(f"configurations: --compute_dtype float32, one (8, 64) pack on the "
+          f"card vs the same weights in fp32 on the CPU: centred logits "
+          f"max|d| {diff:.3g} = {diff / scale:.3g} of max|logit| {scale:.3g} "
+          f"<= FP32_BOUND {FP32_BOUND} (SERVING_BOUND {SERVING_BOUND}); the "
+          f"same pack through the former bf16 boundary of kernels 1-6: "
+          f"{diff_before:.3g} = {diff_before / scale:.3g} of max|logit|; "
+          f"launches {pack_launches}; benchmark_latency(5) p50 "
+          f"{t_pack:.2f} ms on {gpu_name}")
+
+    f32cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                     compute_dtype="float32"))
+    images, labels = aux_batch(torch, dev, cfg)
+    model = fer_model(torch, dev, f32cfg)
+    loss, aux_launches, aux_ms, finite = aux_step(torch, dev, model, images,
+                                                  labels, "float32")
+    require_counts(aux_launches, exactly(aux_launches, AUX_STEP_LAUNCHES),
+                   "the float32 aux step")
+    if not (np.isfinite(loss) and finite):
+        raise AssertionError(f"float32 aux step: loss {loss}, gradients "
+                             f"finite {finite}")
+    print(f"configurations: --compute_dtype float32 aux step ({AUX_IMAGES} "
+          f"images): kernels 2-6 launched {aux_launches['fused_attention_block']}"
+          f" / {aux_launches['fused_ln_mlp_residual']} / "
+          f"{aux_launches['fused_ln_mlp_residual_bwd']} / "
+          f"{aux_launches['fused_attention_block_bwd']} / "
+          f"{aux_launches['fused_attention_block_bwd_spill']} times, loss "
+          f"{loss:.4f}, gradients finite, forward + backward {aux_ms:.1f} ms "
+          f"(first call) on {gpu_name}")
+    del model
+
+    tcfg = f32cfg.replace(optim=dataclasses.replace(
+        cfg.optim, trg_batch_size=4, trg_accumulation_steps=1))
+    trainer = Trainer(tcfg, device=dev)
+    model = build_pipeline(tcfg, dev).float()
+    state = MultiTaskState.create(model, tcfg.optim, 10, 10)
+    step = make_multimodal_train_step(model, compute_dtype="float32")
+    ds = SyntheticMeldDataset(tcfg, 4, 2, [8, 7, 9, 8], seed=12,
+                              split="train")
+    batch = trainer._prepare_faces(trainer._batch_with_escalation(
+        lambda cap: ds.get_batch(range(4), face_capacity=cap),
+        trainer._face_buckets(4)), train=True)
+    gen = torch.Generator(dev).manual_seed(9)
+    times = []
+    for _ in range(3):
+        kernels.reset_launch_counts()
+        loss, ms = timed_ms(torch, lambda: float(step(state, batch, gen)))
+        times.append(ms)
+        trg_launches = kernels.launch_counts()
+        require_counts(trg_launches, exactly(trg_launches,
+                                             TARGET_STEP_LAUNCHES),
+                       "the float32 target step")
+        if not np.isfinite(loss):
+            raise AssertionError(f"float32 target step: loss {loss}")
+    print(f"configurations: --compute_dtype float32 target step (4 "
+          f"utterances, full step with AdamW): loss {loss:.4f}, "
+          f"{times[0]:.1f} ms first, {statistics.median(times[1:]):.1f} ms "
+          f"after; launches {trg_launches} on {gpu_name}")
+    del model, state, trainer
+    return {"configurations_fp32_pack": pack_launches,
+            "configurations_fp32_aux": aux_launches,
+            "configurations_fp32_target": trg_launches}
+
+
+def meld_run(torch, argv):
+    """`main.run(argv)` for a MELD T+A+V command, watched: (W-F1, launch
+    counts, {'eval_batches': the eval loops' batches, 'logits': each eval
+    loop's logits, 'losses': each train step's, 'total': s})."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.train.trainer import Trainer
+    from facialmmt_tpu_torch.utils import preemption
+
+    seen = {"eval_batches": 0, "logits": [], "losses": []}
+    real_eval, real_run = Trainer._eval_multimodal, Trainer.run_multimodal
+
+    def counted_eval(self, eval_step, ds, *args, **kwargs):
+        def step(*a, **k):
+            seen["eval_batches"] += 1
+            return eval_step(*a, **k)
+
+        out = real_eval(self, step, ds, *args, **kwargs)
+        seen["logits"].append(out[0])
+        return out
+
+    def run_with_losses(self, *args, **kwargs):
+        def on_event(name, **info):
+            if name in ("aux_step", "trg_step"):
+                seen["losses"].append(info["loss"])
+
+        return real_run(self, *args, **kwargs, on_event=on_event)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(Trainer, "_eval_multimodal", counted_eval), \
+                mock.patch.object(Trainer, "run_multimodal", run_with_losses):
+            f1 = cli.run(argv)
+    finally:
+        if preemption._guard is not None:      # cli.run installed it
+            preemption._guard.uninstall()
+    sync(torch)
+    seen["total"] = time.perf_counter() - t0
+    return f1, kernels.launch_counts(), seen
+
+
+def meld_card_vs_cpu(torch, dev, gpu_name, cfg, state_dict, ds, what, n=4):
+    """One eval batch of the split's first `n` utterances through the
+    trainer's eval loop: `cfg`'s compute dtype on the card against the same
+    weights in fp32 on the CPU, held on the per-row centred logits at
+    SERVING_BOUND."""
+    from facialmmt_tpu_torch.train.steps import make_multimodal_eval_step
+    from facialmmt_tpu_torch.train.trainer import Trainer
+
+    class FirstUtterances:
+        def __len__(self):
+            return n
+
+        def __getattr__(self, name):
+            return getattr(ds, name)
+
+    got = []
+    for device, dtype in ((dev, cfg.runtime.compute_dtype),
+                          (torch.device("cpu"), "float32")):
+        c = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                    compute_dtype=dtype))
+        trainer = Trainer(c, device)
+        model = trainer._build_model(state_dict)
+        step = make_multimodal_eval_step(
+            model, face_chunk=c.runtime.eval_face_chunk, compute_dtype=dtype)
+        logits, _ = trainer._eval_multimodal(step, FirstUtterances(), n)
+        got.append(logits.astype(np.float64))
+        del model, trainer
+    z_card, z_cpu = (z - z.mean(-1, keepdims=True) for z in got)
+    diff = float(np.abs(z_card - z_cpu).max())
+    scale = float(np.abs(z_cpu).max())
+    if not (np.isfinite(z_card).all() and diff <= SERVING_BOUND * scale):
+        raise AssertionError(f"{what}: card vs CPU fp32 max|d| {diff} > "
+                             f"{SERVING_BOUND} * {scale}")
+    print(f"configurations: {what}: one eval batch {tuple(got[0].shape)}, "
+          f"card {cfg.runtime.compute_dtype} vs CPU fp32: centred logits "
+          f"max|d| {diff:.3g} <= {SERVING_BOUND} * {scale:.3g} on {gpu_name}")
+
+
+def configurations_bert_meld(torch, dev, gpu_name, root, extra=()):
+    """(c) MELD T+A+V with --plm_name bert-large (type vocabulary 2, pad 0,
+    LayerNorm eps 1e-12, no position offset) through `main.run` at full
+    width on phase 9's file sizes, random weights from the seed: --doEval 1
+    twice on a released pair (W-F1 and every logit bit for bit; kernel 1
+    exactly once per text layer per eval batch), one eval batch against the
+    CPU in fp32, then --doEval 0 --num_epochs 1 (2 auxiliary and 2 target
+    steps from an Aff-Wild2 tree, validation and test): finite losses,
+    kernel 1 only in the eval batches, kernels 4-6 launched."""
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.checkpoint.torch_load import released_state_dict
+    from facialmmt_tpu_torch.config import resolve_text_config
+    from facialmmt_tpu_torch.data.meld import MeldMultimodalDataset
+
+    plm = "bert-large"
+    meld = os.path.join(root, "meld")
+    argv = cli_argv(root, *extra, "--plm_name", plm, "--choice_modality",
+                    "T+A+V", "--deterministic_gumbel", "1")
+    cfg = cli.config_from_args(cli.build_argparser().parse_args(
+        argv + ["--doEval", "1"]))
+    layers = resolve_text_config(cfg).num_layers
+    write_meld_layout(meld, cfg, plm_name=plm)
+    test_ds = MeldMultimodalDataset(meld, "test", cli.text_arrays(cfg, "test"))
+    cfg = cli._adapt_static_shapes(cfg, test_ds)
+    mm_pt, swin_pt = write_released(torch, dev, cfg,
+                                    os.path.join(root, "pretrained_model"))
+    runs = [meld_run(torch, argv + ["--doEval", "1"]) for _ in range(2)]
+    for f1, launches, seen in runs:
+        require_counts(launches, {
+            "fused_attention": layers * seen["eval_batches"],
+            **dict.fromkeys(BACKWARD_KERNELS, 0)}, f"{plm} --doEval 1")
+        require_launched(launches, SERVING_KERNELS, f"{plm} --doEval 1")
+    (f1, launches, seen), (f1_again, _, seen_again) = runs
+    same = (len(seen["logits"]) == len(seen_again["logits"]) == 1
+            and np.array_equal(seen["logits"][0], seen_again["logits"][0]))
+    if not (np.isfinite(f1) and f1_again == f1 and same):
+        raise AssertionError(f"{plm} --doEval 1: W-F1 {f1} then {f1_again}, "
+                             f"logits bit for bit {same}")
+    print(f"configurations: MELD T+A+V --plm_name {plm} --doEval 1 on "
+          f"{len(test_ds)} utterances: W-F1 {f1:.4f}, the second run's "
+          f"W-F1 and logits bit for bit; {seen['eval_batches']} eval "
+          f"batches, kernel 1 {launches['fused_attention']} = {layers} text "
+          f"layers x {seen['eval_batches']}; {seen['total']:.1f} s; "
+          f"launches {launches} on {gpu_name}")
+    meld_card_vs_cpu(torch, dev, gpu_name, cfg,
+                     released_state_dict(mm_pt, swin_pt), test_ds,
+                     f"MELD T+A+V {plm}")
+
+    aux_root = os.path.join(root, "affwild")
+    fixtures().write_affwild_fixture(aux_root, AFFWILD_VIDEOS, AFFWILD_FRAMES,
+                                     seed=22)
+    save = os.path.join(root, "saved_bert")
+    f1_t, launches_t, seen_t = meld_run(torch, cli_argv(
+        root, *extra, "--plm_name", plm, "--choice_modality", "T+A+V",
+        "--doEval", "0", "--num_epochs", "1", "--save_Model_path", save,
+        "--data_folder", os.path.join(aux_root, "cropped_aligned"),
+        "--anno_folder", os.path.join(aux_root, "annos"),
+        "--data_list_train", os.path.join(aux_root, "train_list.txt")))
+    require_launched(launches_t, SERVING_KERNELS + BACKWARD_KERNELS,
+                     f"{plm} training")
+    require_counts(launches_t, {
+        "fused_attention": layers * seen_t["eval_batches"]},
+        f"{plm} training (kernel 1 in the eval batches only)")
+    if not (len(seen_t["losses"]) == 4 and np.isfinite(seen_t["losses"]).all()
+            and 0.0 <= f1_t <= 1.0):
+        raise AssertionError(f"{plm} training: losses {seen_t['losses']}, "
+                             f"W-F1 {f1_t}")
+    print(f"configurations: MELD T+A+V --plm_name {plm} --doEval 0 "
+          f"--num_epochs 1 (random towers from the seed): losses "
+          f"{[round(x, 4) for x in seen_t['losses']]}, test W-F1 "
+          f"{f1_t:.4f}, kernel 1 {launches_t['fused_attention']} = {layers} "
+          f"x {seen_t['eval_batches']} eval batches and none in the steps; "
+          f"{seen_t['total']:.1f} s; launches {launches_t} on {gpu_name}")
+    shutil.rmtree(save)
+    return {"configurations_bert_meld_eval": launches,
+            "configurations_bert_meld_train": launches_t}
+
+
+def configurations_bert_m3ed(torch, dev, gpu_name, root, extra=()):
+    """(c) M3ED with --plm_name chinese-roberta-large (M3ED's own tower, a
+    BERT architecture) through `main.run` at full width on phase 11's file
+    sizes: T trained one epoch, then --doEval 1 twice (macro-F1 equal to
+    eval_text_only's, logits bit for bit, the CSV byte for byte) and one
+    eval batch against the CPU in fp32; the dialogue model trained one
+    epoch, then --doEval 1 once.  Kernel 1 exactly once per text layer per
+    eval batch and never in a train step."""
+    from facialmmt_tpu_torch import main as cli
+    from facialmmt_tpu_torch.data.m3ed import M3edTextDataset
+    from facialmmt_tpu_torch.train.trainer import TextTrainer
+    from facialmmt_tpu_torch.utils import preemption
+
+    plm = "chinese-roberta-large"
+    extra = (*extra, "--plm_name", plm)
+    base = cli.config_from_args(cli.build_argparser().parse_args(list(extra)))
+    template = write_m3ed_layout(root, base, plm_name=plm)
+    runs = AppendixRuns(torch, dev, gpu_name, root, extra, template,
+                        tag=f"configurations M3ED {plm}")
+    paths = {}
+    save = os.path.join(root, "m3ed_t")
+    paths["configurations_m3ed_t_train"], _ = runs.train(
+        "T", save, "--choice_modality", "T")
+    cfg_t = cli.config_from_args(cli.build_argparser().parse_args(
+        runs.argv(save, "--choice_modality", "T")))
+    t_ds = M3edTextDataset(*cli.m3ed_text_arrays(cfg_t, "", "test"))
+    api = TextTrainer(cfg_t, dev).eval_text_only(t_ds, ckpt_dir=save)
+    paths["configurations_m3ed_t_eval"], _ = runs.evaluate_twice(
+        "T", save, api, "--choice_modality", "T")
+    runs.card_vs_cpu("T", TextTrainer, cfg_t, t_ds, save)
+    shutil.rmtree(save)
+    torch.cuda.empty_cache()
+
+    save = os.path.join(root, "m3ed_dia")
+    dia = ("--choice_modality", "T+A+V", "--uttORdia", "dia")
+    paths["configurations_m3ed_dia_train"], _ = runs.train(
+        "M3ED dia crossmodal", save, *dia)
+    try:
+        f1, launches, seen = appendix_run(torch, runs.argv(
+            save, "--doEval", "1", *dia))
+    finally:
+        if preemption._guard is not None:
+            preemption._guard.uninstall()
+    expect_text_kernel(launches, runs.layers * seen["eval_batches"],
+                       "M3ED dia --doEval 1")
+    if not 0.0 <= f1 <= 1.0:
+        raise AssertionError(f"M3ED dia --doEval 1 with {plm}: F1 {f1}")
+    print(f"configurations M3ED {plm}: M3ED dia --doEval 1: macro-F1 "
+          f"{f1:.4f}, {seen['eval_batches']} eval batches, kernel 1 "
+          f"{launches['fused_attention']} = {runs.layers} x "
+          f"{seen['eval_batches']}; {seen['total']:.2f} s on {gpu_name}")
+    paths["configurations_m3ed_dia_eval"] = launches
+    shutil.rmtree(save)
+    return paths
+
+
+def phase_configurations(torch, dev, gpu_name, root, cfg=None, reference=None,
+                         extra=(), kernel_rows=True):
+    """Phase 16: the configurations of the JAX command line that the
+    phases before run on another setting: (a) Swin drop rates on the kernel
+    routes (configurations_drop_rates), (b) --compute_dtype float32 with
+    kernels 1-6 in the tokens' own dtype (fp32_kernel_rows, unless
+    `kernel_rows` is false, and configurations_float32), (c) the
+    BERT-architecture text towers (configurations_bert_meld,
+    configurations_bert_m3ed) on files written under `root`.  `reference`:
+    phase 4's pack, weights and CPU answer (None: made here).  Returns
+    (launch counts per path, the fp32 kernel rows)."""
+    from facialmmt_tpu_torch.config import FacialMMTConfig
+
+    cfg = cfg or FacialMMTConfig()
+    rng = np.random.default_rng(16)
+    paths, seconds = {}, {}
+    t0 = time.perf_counter()
+    paths.update(configurations_drop_rates(torch, dev, gpu_name, cfg))
+    seconds["drop rates"] = time.perf_counter() - t0
+    rows = {}
+    if kernel_rows:
+        t0 = time.perf_counter()
+        rows = fp32_kernel_rows(torch, dev, rng)
+        seconds["fp32 kernels"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.update(configurations_bert_meld(torch, dev, gpu_name, root, extra))
+    seconds["bert-large MELD"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.update(configurations_bert_m3ed(torch, dev, gpu_name, root, extra))
+    seconds["chinese-roberta-large M3ED"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths.update(configurations_float32(torch, dev, gpu_name, cfg, reference))
+    seconds["float32 model"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"configurations: phase 16 in {sum(seconds.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+          + f") on {gpu_name}")
+    return paths, rows
+
+
 def main(json_out: str = "") -> int:
     """`json_out`: where to write the per-shape kernel times and the launch
     counts per path, if anywhere."""
@@ -4531,7 +5281,8 @@ def main(json_out: str = "") -> int:
     rng = np.random.default_rng(0)
     results = phase_kernels(torch, dev, rng)
     torch.cuda.empty_cache()
-    paths, server, pack_p50_ms = phase_serving(torch, dev, rng, gpu_name)
+    paths, server, pack_p50_ms, reference = phase_serving(torch, dev, rng,
+                                                          gpu_name)
     route_paths, route_ms = phase_swin_routes(torch, dev, rng, server, gpu_name)
     paths.update(route_paths)
     whole_paths, whole_ms = phase_whole_shift(torch, dev, rng, server, gpu_name)
@@ -4560,6 +5311,13 @@ def main(json_out: str = "") -> int:
                                    pack_p50_ms))
     torch.cuda.empty_cache()
     paths.update(phase_front_mesh(torch, dev, gpu_name))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as conf_root:
+        conf_paths, fp32_rows = phase_configurations(
+            torch, dev, gpu_name, conf_root, reference=reference)
+    paths.update(conf_paths)
+    fp32_paths = [p for k, p in conf_paths.items()
+                  if k.startswith("configurations_fp32")]
 
     if json_out:
         os.makedirs(os.path.dirname(os.path.abspath(json_out)), exist_ok=True)
@@ -4568,14 +5326,19 @@ def main(json_out: str = "") -> int:
                        "launches": paths,
                        "swin_forward_ms_by_route": route_ms,
                        "aux_step_breakdown_ms_peak_gib": run["aux_breakdown"],
-                       "swin_blocks_ms_whole_split_pallas_xla": whole_ms},
+                       "swin_blocks_ms_whole_split_pallas_xla": whole_ms,
+                       "fp32_kernels": fp32_rows},
                       f, indent=1)
     print(gpu_name)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(p[name] for p in paths.values()),
          "launches_by_path": {k: p[name] for k, p in paths.items()},
-         **{k: v for k, v in results[name].items() if k != "shapes"}}
+         **{k: v for k, v in results[name].items() if k != "shapes"},
+         **({"fp32": {
+             "launches": sum(p[name] for p in fp32_paths),
+             **{k: v for k, v in fp32_rows[name].items() if k != "shapes"}}}
+            if name in fp32_rows else {})}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

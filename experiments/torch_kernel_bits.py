@@ -16,7 +16,9 @@ at stage 3 of the 150-image auxiliary batch with a stochastic-depth keep;
 kernels 8-10 (the window-attention core's three entry points) at every
 stage shape of a 64-face pack, shifted bias and nW = 1 (the first entry
 point's outputs whole, with max|d| beside a difference; the others as a
-SHA-256 of their bits).
+SHA-256 of their bits); then, in bf16, kernel 1 at the text tower's padded
+8 x 16 x 512 x 64, kernel 4 (the MLP backward) and kernel 5 (the resident
+attention backward) at stage 1 of the auxiliary batch with keep.
 No kernel of the port adds with atomics, so every output repeats launch
 after launch: a difference is the two builds'.
 """
@@ -31,7 +33,8 @@ import torch
 
 def outputs(root):
     sys.path.insert(0, os.path.abspath(root))
-    from facialmmt_tpu_torch.ops.kernels import (block_mlp, fused_block,
+    from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
+                                                 fused_block,
                                                  window_attention)
 
     dev = torch.device("cuda")
@@ -82,11 +85,32 @@ def outputs(root):
                     got.cpu() if name == "fused_window_attention" else
                     hashlib.sha256(got.view(torch.int16).cpu().numpy()
                                    .tobytes()).hexdigest()]
+    bias = np.zeros((8, 512), np.float32)
+    for i in range(7):
+        bias[i, rng.integers(200, 512):] = -1e30
+    bias[-1] = -1e30
+    out["fused_attention"] = [attention.fused_attention_cuda(
+        *(bf(rng.normal(size=(8, 16, 512, 64)) * s)
+          for s in (0.125, 1.0, 1.0)), f32(bias)).cpu()]
+    keep = f32(np.tile([0.0, 1.43], 75))
+    x, *params = mlp
+    t = 150 * 784
+    out["fused_ln_mlp_residual_bwd"] = [
+        g.cpu() for g in block_mlp.fused_ln_mlp_residual_bwd_cuda(
+            bf(rng.normal(size=(t, c))), bf(rng.normal(size=(t, c))),
+            *params[:5], keep.repeat_interleave(784))]
+    s = block(150 * 16, 49, 192, 6, 16)
+    out["fused_attention_block_bwd"] = [
+        g.cpu() for g in fused_block.fused_attention_block_bwd_cuda(
+            s[0], bf(rng.normal(size=(150 * 16, 49, 192))), *s[1:6], s[7],
+            keep.repeat_interleave(16))]
+    torch.cuda.synchronize()
     return out
 
 
 SPILL_NAMES = ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwproj", "dbproj",
                "dbias")
+MLP_BWD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 
 
 def main(root, out_path, base_path=None):
@@ -96,7 +120,8 @@ def main(root, out_path, base_path=None):
         return 0
     base = torch.load(base_path)
     for name, tensors in got.items():
-        names = SPILL_NAMES if len(tensors) > 1 else ("out",)
+        names = (("out",) if len(tensors) == 1 else MLP_BWD_NAMES
+                 if name == "fused_ln_mlp_residual_bwd" else SPILL_NAMES)
         same = {n: a == b if isinstance(a, str) else torch.equal(a, b)
                 for n, a, b in zip(names, tensors, base[name])}
         line = f"bits: {name} vs {base_path}: " + ", ".join(

@@ -59,6 +59,22 @@
 // Rounding as the JAX reference: fp32 scores and softmax statistics,
 // probabilities rounded to bf16 for P v, fp32 accumulation, output rounded
 // once.
+//
+// fp32 q, k, v and out (the model under --compute_dtype float32; the JAX
+// kernel then computes in q's dtype: fp32 products, fp32 probabilities, fp32
+// out): attention_f32_kernel, the same flash scheme on TF32 mma.sync
+// (m16n8k8: operands rounded to TF32's 10-bit mantissa, cvt.rna, fp32
+// accumulation), 16 query rows a warp, q held in registers as A fragments
+// from the start, K / V / bias through the same two-stage cp.async ring in
+// fp32 (row stride D + 4 floats: the fragment loads of a warp hit 32
+// distinct banks), the same log2-domain online softmax, bias handling and
+// trailing-tile skip.  P v needs no shuffle: the k index of the product is
+// relabelled so that the scores' accumulator layout (columns 2t, 2t + 1 of
+// rows g, g + 8) is the A operand's (columns t, t + 4), with V's rows read
+// in the same order.  The output leaves as fp32, never rounded to bf16.  At
+// the text tower's shape it moves twice the bf16 kernel's bytes at half the
+// tensor cores' rate (PERF.md has its time beside F.scaled_dot_product_attention
+// in fp32).
 #include "common.cuh"
 
 #include <math.h>
@@ -389,14 +405,270 @@ int launch_rows(const void* q, const void* k, const void* v, const void* bias,
   return launch<D, 1>(q, k, v, bias, out, B, H, Sq, Sk, stream);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 operands on TF32 mma.sync (the design is at the top of this file).
+
+// An fp32 value rounded to TF32 (10-bit mantissa, to nearest, ties away),
+// as an mma.sync operand register.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// D (16x8, fp32) += A (16x8, tf32, row) * B (8x8, tf32, col).  Lane l holds,
+// with g = l / 4 and t = l % 4: a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; c0, c1 = D[g][2t..2t+1],
+// c2, c3 = D[g+8][2t..2t+1].
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int D>
+struct LayoutF32 {
+  static constexpr int kRows = 16 * kWarps;  // query rows per block
+  static constexpr int ld = D + 4;  // fp32 row stride: 16-byte pad
+  static constexpr size_t kv_bytes = (size_t)kKeys * ld * 4;
+  static constexpr size_t stage_bytes = 2 * kv_bytes + kKeys * 4;
+  static constexpr size_t bytes = kStages * stage_bytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int H, int Sq, int Sk) {
+  using L = LayoutF32<D>;
+  constexpr int ld = L::ld;
+  constexpr int kVec = D / 4;     // 16-byte chunks per row
+  constexpr int kNT = kKeys / 8;  // 8-key column blocks of a score tile
+  constexpr int kDT = D / 8;      // 8-wide column blocks (k steps of q k^T)
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int q0 = blockIdx.x * L::kRows;
+  const float* qp = q + (size_t)bh * Sq * D;
+  const float* kp = k + (size_t)bh * Sk * D;
+  const float* vp = v + (size_t)bh * Sk * D;
+  const float* bp = bias + (size_t)b * Sk;
+  int ntiles = (Sk + kKeys - 1) / kKeys;
+
+  auto stage = [&](int s) {
+    return reinterpret_cast<float*>(smem + s * L::stage_bytes);
+  };
+  // K, V and bias of key tile `tile` -> stage s; keys past Sk are zero
+  auto load_tile = [&](int tile, int s) {
+    const int k0 = tile * kKeys;
+    float* ks = stage(s);
+    float* vs = ks + kKeys * ld;
+    float* bs = vs + kKeys * ld;
+    for (int i = tid; i < kKeys * kVec; i += kThreads) {
+      const int j = i / kVec;
+      const int c = (i % kVec) * 4;
+      const bool real = k0 + j < Sk;
+      const size_t off = real ? (size_t)(k0 + j) * D + c : 0;
+      fmmt::cp_async16(ks + j * ld + c, kp + off, real);
+      fmmt::cp_async16(vs + j * ld + c, vp + off, real);
+    }
+    if (tid < kKeys) {
+      const bool real = k0 + tid < Sk;
+      fmmt::cp_async4(bs + tid, bp + (real ? k0 + tid : 0), real);
+    }
+  };
+
+  {
+    // trailing key tiles of padding only, as the bf16 kernel skips them
+    __shared__ int last_real;
+    if (tid == 0) last_real = -1;
+    __syncthreads();
+    int mine = -1;
+    for (int j = tid; j < Sk; j += kThreads)
+      if (bp[j] > -1e29f) mine = j;
+    for (int o = 16; o > 0; o >>= 1)
+      mine = max(mine, __shfl_xor_sync(0xffffffffu, mine, o));
+    if (lane == 0) atomicMax(&last_real, mine);
+    __syncthreads();
+    if (last_real >= 0) ntiles = last_real / kKeys + 1;
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load_tile(s, s);
+    fmmt::cp_async_commit();
+  }
+
+  const int row0 = q0 + warp * 16 + g;   // this lane's rows row0, row0 + 8
+  const int row1 = row0 + 8;
+  const bool live = q0 + warp * 16 < Sq;
+  // q's A fragments, rows past Sq zero
+  uint32_t qf[kDT][4];
+#pragma unroll
+  for (int kk = 0; kk < kDT; ++kk) {
+    const int c = 8 * kk + t;
+    qf[kk][0] = tf32(row0 < Sq ? qp[(size_t)row0 * D + c] : 0.f);
+    qf[kk][1] = tf32(row1 < Sq ? qp[(size_t)row1 * D + c] : 0.f);
+    qf[kk][2] = tf32(row0 < Sq ? qp[(size_t)row0 * D + c + 4] : 0.f);
+    qf[kk][3] = tf32(row1 < Sq ? qp[(size_t)row1 * D + c + 4] : 0.f);
+  }
+  float o[kDT][4];
+#pragma unroll
+  for (int jn = 0; jn < kDT; ++jn)
+    o[jn][0] = o[jn][1] = o[jn][2] = o[jn][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    fmmt::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    {
+      const int next = tile + kStages - 1;
+      if (next < ntiles) load_tile(next, next % kStages);
+      fmmt::cp_async_commit();
+    }
+    if (!live) continue;
+    const float* ks = stage(tile % kStages);
+    const float* vs = ks + kKeys * ld;
+    const float* bs = vs + kKeys * ld;
+    const int nk = min(kKeys, Sk - tile * kKeys);
+
+    // S = q k^T: s[j] is the 16 x 8 block of keys 8j..8j+7
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDT; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const float* kr = ks + (8 * j + g) * ld + 8 * kk + t;
+        mma_1688_tf32(s[j], qf[kk], tf32(kr[0]), tf32(kr[4]));
+      }
+    }
+
+    // online softmax in the log2 domain, as the bf16 kernel: lane (g, t)
+    // holds columns 8j + 2t, + 1 of rows g (s[j][0..1]) and g + 8
+    // (s[j][2..3])
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bl = bs[8 * j + 2 * t + e] * kLog2e;
+        s[j][e] = fmaf(s[j][e], kLog2e, bl);
+        s[j][2 + e] = fmaf(s[j][2 + e], kLog2e, bl);
+        if (8 * j + 2 * t + e >= nk) s[j][e] = s[j][2 + e] = -INFINITY;
+        mx0 = fmaxf(mx0, s[j][e]);
+        mx1 = fmaxf(mx1, s[j][2 + e]);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0);
+    const float mn1 = fmaxf(m1, mx1);
+    const float alpha0 = ex2(m0 - mn0);
+    const float alpha1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = ex2(s[j][e] - mn0);
+        s[j][2 + e] = ex2(s[j][2 + e] - mn1);
+        sum0 += s[j][e];
+        sum1 += s[j][2 + e];
+      }
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int jn = 0; jn < kDT; ++jn) {
+      o[jn][0] *= alpha0;
+      o[jn][1] *= alpha0;
+      o[jn][2] *= alpha1;
+      o[jn][3] *= alpha1;
+    }
+
+    // O += P v over each 8-key block: the product's k index i stands for key
+    // 8j + 2i (i < 4) and 8j + 2(i - 4) + 1, so P's A fragment is the score
+    // registers as they lie, and V's B fragment rows 8j + 2t, 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const uint32_t pa[4] = {tf32(s[j][0]), tf32(s[j][2]), tf32(s[j][1]),
+                              tf32(s[j][3])};
+      const float* vr = vs + (8 * j + 2 * t) * ld + g;
+#pragma unroll
+      for (int jn = 0; jn < kDT; ++jn)
+        mma_1688_tf32(o[jn], pa, tf32(vr[8 * jn]), tf32(vr[ld + 8 * jn]));
+    }
+  }
+  if (!live) return;
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0;
+  const float inv1 = 1.f / l1;
+#pragma unroll
+  for (int jn = 0; jn < kDT; ++jn) {
+    const int c = 8 * jn + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(out + ((size_t)bh * Sq + row0) * D + c) =
+          make_float2(o[jn][0] * inv0, o[jn][1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(out + ((size_t)bh * Sq + row1) * D + c) =
+          make_float2(o[jn][2] * inv1, o[jn][3] * inv1);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* bias,
+               void* out, int B, int H, int Sq, int Sk, cudaStream_t stream) {
+  using L = LayoutF32<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + L::kRows - 1) / L::kRows, B * H);
+  attention_f32_kernel<D><<<grid, kThreads, L::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(out), H, Sq, Sk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Head dims 16, 32 and 64 are compiled (the text tower uses 64); the Python
-// wrapper rejects any other before calling.
+// wrapper rejects any other before calling.  f32: q, k, v and out are fp32
+// (the TF32 kernel), else bf16.
 FMMT_API int fmmt_fused_attention(const void* q, const void* k, const void* v,
                                   const void* bias, void* out, int B, int H,
-                                  int Sq, int Sk, int D, void* stream) {
+                                  int Sq, int Sk, int D, int f32,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    switch (D) {
+      case 16: return launch_f32<16>(q, k, v, bias, out, B, H, Sq, Sk, s);
+      case 32: return launch_f32<32>(q, k, v, bias, out, B, H, Sq, Sk, s);
+      case 64: return launch_f32<64>(q, k, v, bias, out, B, H, Sq, Sk, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (D) {
     case 16: return launch_rows<16>(q, k, v, bias, out, B, H, Sq, Sk, s);
     case 32: return launch_rows<32>(q, k, v, bias, out, B, H, Sq, Sk, s);

@@ -46,6 +46,17 @@
 // bf16; the scores, the softmax and the residual add are fp32; out is
 // rounded once.
 //
+// x and out come in bf16 or fp32 (x_f32; the model's compute dtype).  On
+// fp32 tokens the LN1 statistics, the residual and out are fp32, as the JAX
+// kernel keeps them for x in its own dtype; the products keep bf16 operands
+// (the JAX kernel's fp32 instantiation keeps xn, q, k, v and the
+// probabilities in fp32: the bf16 operands stay within the port's kernel
+// bound of the fp32 plain version, PERF.md).  LN1 is then applied by a row
+// pass (swin_bwd.cuh::prep_rows, the prologue's arithmetic) into the head
+// outputs' scratch, which the qkv product reads without a prologue before
+// the window pass overwrites it, and proj's epilogue is kResidualF32.  The
+// whole block (below) takes bf16 tokens only.
+//
 // The WHOLE Swin block, the attention half then the MLP half
 //   y = the attention half above (no keep), rounded to bf16,
 //   out = y + fc2(GELU(fc1(LN2(y))))
@@ -64,10 +75,12 @@
 // and fc1's prologue (kLnParts) merges a row's partials in column order into
 // (rstd, -mean rstd): a fixed order, so two launches give the same bits.  At
 // C = 768 a row spans six partials, at C = 96 one.
-#include "tile_gemm.cuh"
+#include "swin_bwd.cuh"
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -258,26 +271,28 @@ window_pass_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 size_t window_pass_bytes(int hd) { return kUnits * unit_bytes(hd); }
 
-// The four device kernels of the attention half into out (W N, C).  kEpi:
-// proj's epilogue, kResidual, or kResidualStats with the rows' LN2 partials
-// to row_part.  stats (W N) float2, qkv (W N, 3C) and heads_out (W N, C) bf16
-// are scratch.
-template <int kEpi>
-int attention_half(const __nv_bfloat16* x, const void* gamma,
-                   const void* beta, const void* wqkv, const void* bqkv,
-                   const void* wproj, const void* bproj, const void* bias,
-                   const void* keep, float2* stats, __nv_bfloat16* qkv,
-                   __nv_bfloat16* heads_out, __nv_bfloat16* out,
-                   float2* row_part, int W, int N, int C, int heads, int nW,
-                   float eps, cudaStream_t s) {
+// The four device kernels of the attention half into out (W N, C).  TX:
+// the tokens' type (x, out), bf16 or fp32.  kEpi: proj's epilogue,
+// kResidual, or kResidualStats with the rows' LN2 partials to row_part (bf16
+// tokens only; fp32 tokens take kResidualF32).  stats (W N) float2, qkv
+// (W N, 3C) and heads_out (W N, C) bf16 are scratch.
+template <typename TX, int kEpi>
+int attention_half(const TX* x, const void* gamma, const void* beta,
+                   const void* wqkv, const void* bqkv, const void* wproj,
+                   const void* bproj, const void* bias, const void* keep,
+                   float2* stats, __nv_bfloat16* qkv,
+                   __nv_bfloat16* heads_out, TX* out, float2* row_part, int W,
+                   int N, int C, int heads, int nW, float eps,
+                   cudaStream_t s) {
+  constexpr bool kF32 = std::is_same<TX, float>::value;
+  static_assert(!kF32 || kEpi == fmmt::gemm::kResidual,
+                "fp32 tokens: the attention half alone");
   const int hd = C / heads;
+  const auto* gb = static_cast<const __nv_bfloat16*>(gamma);
+  const auto* bb = static_cast<const __nv_bfloat16*>(beta);
   int err = fmmt::gemm::launch_row_stats(x, stats, W * N, C, eps, s);
   if (err != 0) return err;
   fmmt::gemm::Args a{};
-  a.a = x;
-  a.stats = stats;
-  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
-  a.beta = static_cast<const __nv_bfloat16*>(beta);
   a.b = static_cast<const __nv_bfloat16*>(wqkv);
   a.bias = static_cast<const __nv_bfloat16*>(bqkv);
   a.out = qkv;
@@ -287,7 +302,22 @@ int attention_half(const __nv_bfloat16* x, const void* gamma,
   a.keep_div = 1;
   a.q_cols = C;
   a.q_scale = 1.f / sqrtf(static_cast<float>(hd));
-  err = fmmt::gemm::launch<fmmt::gemm::kLnStats, fmmt::gemm::kScaleQ>(a, s);
+  if constexpr (kF32) {
+    // xn = bf16(LN1(x)) over the head outputs' scratch, which the window
+    // pass overwrites only after qkv has read it (one stream)
+    err = fmmt::bwd::launch_prep_rows<float>(x, nullptr, stats, gb, bb,
+                                             nullptr, 1, heads_out, nullptr,
+                                             W * N, C, s);
+    if (err != 0) return err;
+    a.a = heads_out;
+    err = fmmt::gemm::launch<fmmt::gemm::kLnNone, fmmt::gemm::kScaleQ>(a, s);
+  } else {
+    a.a = x;
+    a.stats = stats;
+    a.gamma = gb;
+    a.beta = bb;
+    err = fmmt::gemm::launch<fmmt::gemm::kLnStats, fmmt::gemm::kScaleQ>(a, s);
+  }
   if (err != 0) return err;
 
   const int units = W * heads;
@@ -306,15 +336,22 @@ int attention_half(const __nv_bfloat16* x, const void* gamma,
   p.a = heads_out;
   p.b = static_cast<const __nv_bfloat16*>(wproj);
   p.bias = static_cast<const __nv_bfloat16*>(bproj);
-  p.res = x;
   p.keep = static_cast<const float*>(keep);
   p.keep_div = N;
-  p.out = out;
   p.row_part = row_part;
   p.M = W * N;
   p.N = C;
   p.K = C;
-  return fmmt::gemm::launch<fmmt::gemm::kLnNone, kEpi>(p, s);
+  if constexpr (kF32) {
+    p.res_f32 = x;
+    p.out_f32 = out;
+    return fmmt::gemm::launch<fmmt::gemm::kLnNone,
+                              fmmt::gemm::kResidualF32>(p, s);
+  } else {
+    p.res = x;
+    p.out = out;
+    return fmmt::gemm::launch<fmmt::gemm::kLnNone, kEpi>(p, s);
+  }
 }
 
 bool bad_shape(int W, int N, int C, int heads, int nW) {
@@ -358,20 +395,29 @@ FMMT_API long long fmmt_fused_attention_block_smem(int N, int C, int heads) {
 }
 
 // stats (W N) float2, qkv_buf (W N, 3C) and attn_buf (W N, C) bf16 are
-// scratch the caller allocates; out (W, N, C) bf16.
+// scratch the caller allocates; x and out (W, N, C) fp32 when x_f32 is
+// nonzero, else bf16.
 FMMT_API int fmmt_fused_attention_block(
     const void* x, const void* gamma, const void* beta, const void* wqkv,
     const void* bqkv, const void* wproj, const void* bproj, const void* bias,
     const void* keep, void* stats, void* qkv_buf, void* attn_buf, void* out,
-    int W, int N, int C, int heads, int nW, float eps, void* stream) {
+    int W, int N, int C, int heads, int nW, int x_f32, float eps,
+    void* stream) {
   if (bad_shape(W, N, C, heads, nW))
     return static_cast<int>(cudaErrorInvalidValue);
-  return attention_half<fmmt::gemm::kResidual>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* st = static_cast<float2*>(stats);
+  auto* qkv = static_cast<__nv_bfloat16*>(qkv_buf);
+  auto* heads_out = static_cast<__nv_bfloat16*>(attn_buf);
+  if (x_f32)
+    return attention_half<float, fmmt::gemm::kResidual>(
+        static_cast<const float*>(x), gamma, beta, wqkv, bqkv, wproj, bproj,
+        bias, keep, st, qkv, heads_out, static_cast<float*>(out), nullptr, W,
+        N, C, heads, nW, eps, s);
+  return attention_half<__nv_bfloat16, fmmt::gemm::kResidual>(
       static_cast<const __nv_bfloat16*>(x), gamma, beta, wqkv, bqkv, wproj,
-      bproj, bias, keep, static_cast<float2*>(stats),
-      static_cast<__nv_bfloat16*>(qkv_buf),
-      static_cast<__nv_bfloat16*>(attn_buf), static_cast<__nv_bfloat16*>(out),
-      nullptr, W, N, C, heads, nW, eps, static_cast<cudaStream_t>(stream));
+      bproj, bias, keep, st, qkv, heads_out, static_cast<__nv_bfloat16*>(out),
+      nullptr, W, N, C, heads, nW, eps, s);
 }
 
 // Bytes of scratch one whole-block call needs (-1: a shape it does not
@@ -410,7 +456,7 @@ FMMT_API int fmmt_fused_whole_block(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   fmmt::Arena ar{static_cast<unsigned char*>(scratch), 0};
   const WholeScratch sc = whole_plan(ar, W, N, C, HID);
-  int err = attention_half<fmmt::gemm::kResidualStats>(
+  int err = attention_half<__nv_bfloat16, fmmt::gemm::kResidualStats>(
       static_cast<const __nv_bfloat16*>(x), gamma, beta, wqkv, bqkv, wproj,
       bproj, bias, nullptr, sc.stats, sc.qkv, sc.heads_out, sc.y, sc.parts, W,
       N, C, heads, nW, eps, s);

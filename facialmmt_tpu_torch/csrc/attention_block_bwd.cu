@@ -69,10 +69,18 @@
 // accumulation and the LN backward are fp32; dbqkv sums the fp32 dq | dk |
 // dv (the spill variant: the bf16-rounded ones, as JAX sums the emitted
 // dqkv) and dbias the fp32 ds.
+//
+// x, dy and dx come in bf16 or fp32 (x_f32; the model's compute dtype), as
+// the JAX kernels read x and the gradient in x's dtype: on fp32 tokens the
+// LN statistics, the LN backward and dx are fp32, the matmul operands stay
+// bf16, and qkv is recomputed from step 1's bf16 xn (the same values the
+// prologue would normalise) by a product without a prologue.
 #include "swin_bwd.cuh"
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -517,7 +525,8 @@ FMMT_API long long fmmt_fused_attention_block_bwd_smem(int C, int heads) {
 namespace {
 
 // The whole sequence; kSpill: dbqkv from the bf16-rounded dq | dk | dv.
-template <bool kSpill>
+// TX: the type of x, dy and dx, bf16 or fp32.
+template <bool kSpill, typename TX>
 int attention_bwd(const void* x, const void* dy, const void* gamma,
                   const void* beta, const void* wqkv, const void* bqkv,
                   const void* wqkvt, const void* wprojt, const void* bias,
@@ -531,8 +540,8 @@ int attention_bwd(const void* x, const void* dy, const void* gamma,
   const int hd = C / heads;
   Arena ar{static_cast<unsigned char*>(scratch), 0};
   const Scratch s = plan(ar, W, N, C, heads);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* dyb = static_cast<const __nv_bfloat16*>(dy);
+  const auto* xb = static_cast<const TX*>(x);
+  const auto* dyb = static_cast<const TX*>(dy);
   const auto* gb = static_cast<const __nv_bfloat16*>(gamma);
   const auto* bb = static_cast<const __nv_bfloat16*>(beta);
   const auto* kp = static_cast<const float*>(keep);
@@ -544,10 +553,6 @@ int attention_bwd(const void* x, const void* dy, const void* gamma,
   if (err) return err;
 
   gemm::Args a{};
-  a.a = xb;
-  a.stats = s.st;
-  a.gamma = gb;
-  a.beta = bb;
   a.b = static_cast<const __nv_bfloat16*>(wqkv);
   a.bias = static_cast<const __nv_bfloat16*>(bqkv);
   a.out = s.qkv;
@@ -557,7 +562,16 @@ int attention_bwd(const void* x, const void* dy, const void* gamma,
   a.keep_div = 1;
   a.q_cols = C;
   a.q_scale = 1.f / sqrtf(static_cast<float>(hd));
-  err = gemm::launch<gemm::kLnStats, gemm::kScaleQ>(a, cs);
+  if constexpr (std::is_same<TX, float>::value) {
+    a.a = s.xn;
+    err = gemm::launch<gemm::kLnNone, gemm::kScaleQ>(a, cs);
+  } else {
+    a.a = xb;
+    a.stats = s.st;
+    a.gamma = gb;
+    a.beta = bb;
+    err = gemm::launch<gemm::kLnStats, gemm::kScaleQ>(a, cs);
+  }
   if (err) return err;
 
   gemm::Args d{};
@@ -605,8 +619,7 @@ int attention_bwd(const void* x, const void* dy, const void* gamma,
   err = gemm::launch<gemm::kLnNone, gemm::kF32>(q, cs);
   if (err) return err;
   err = fmmt::bwd::launch_ln_bwd(s.dxn, xb, dyb, s.st, gb, kp, N,
-                                 static_cast<__nv_bfloat16*>(dx), s.ln_part,
-                                 T, C, cs);
+                                 static_cast<TX*>(dx), s.ln_part, T, C, cs);
   if (err) return err;
 
   err = gemm::launch_wgrad(s.dqkv, s.xn, s.dwqkv_part, 3 * C, C, T, cs);
@@ -632,21 +645,22 @@ int attention_bwd(const void* x, const void* dy, const void* gamma,
 
 }  // namespace
 
-// wqkv (3C,C), bqkv (3C), wqkvt = Wqkv^T (C,3C), wprojt = Wproj^T (C,C), all
-// bf16; bias (nW,h,N,N) and keep (W) fp32 (keep may be null); scratch of
-// fmmt_fused_attention_block_bwd_scratch bytes.  Outputs: dx (W,N,C) bf16;
-// dvec (3C) fp32 = dgamma | dbeta | dbproj; dwqkv (3C,C), dbqkv (3C), dwproj
-// (C,C) and dbias (h,N,N) fp32.  The resident variant: dbqkv sums the fp32
-// dq | dk | dv.
+// x, dy and dx (W,N,C) fp32 when x_f32 is nonzero, else bf16; wqkv (3C,C),
+// bqkv (3C), wqkvt = Wqkv^T (C,3C), wprojt = Wproj^T (C,C), all bf16; bias
+// (nW,h,N,N) and keep (W) fp32 (keep may be null); scratch of
+// fmmt_fused_attention_block_bwd_scratch bytes.  Outputs: dx; dvec (3C) fp32
+// = dgamma | dbeta | dbproj; dwqkv (3C,C), dbqkv (3C), dwproj (C,C) and dbias
+// (h,N,N) fp32.  The resident variant: dbqkv sums the fp32 dq | dk | dv.
 FMMT_API int fmmt_fused_attention_block_bwd(
     const void* x, const void* dy, const void* gamma, const void* beta,
     const void* wqkv, const void* bqkv, const void* wqkvt, const void* wprojt,
     const void* bias, const void* keep, void* scratch, void* dx, void* dvec,
     void* dwqkv, void* dbqkv, void* dwproj, void* dbias, int W, int N, int C,
-    int heads, int nW, float eps, void* stream) {
-  return attention_bwd<false>(x, dy, gamma, beta, wqkv, bqkv, wqkvt, wprojt,
-                              bias, keep, scratch, dx, dvec, dwqkv, dbqkv,
-                              dwproj, dbias, W, N, C, heads, nW, eps, stream);
+    int heads, int nW, int x_f32, float eps, void* stream) {
+  return (x_f32 ? attention_bwd<false, float>
+                : attention_bwd<false, __nv_bfloat16>)(
+      x, dy, gamma, beta, wqkv, bqkv, wqkvt, wprojt, bias, keep, scratch, dx,
+      dvec, dwqkv, dbqkv, dwproj, dbias, W, N, C, heads, nW, eps, stream);
 }
 
 // The spill variant, the same operands: dbqkv sums the bf16-rounded dq | dk
@@ -656,8 +670,9 @@ FMMT_API int fmmt_fused_attention_block_bwd_spill(
     const void* wqkv, const void* bqkv, const void* wqkvt, const void* wprojt,
     const void* bias, const void* keep, void* scratch, void* dx, void* dvec,
     void* dwqkv, void* dbqkv, void* dwproj, void* dbias, int W, int N, int C,
-    int heads, int nW, float eps, void* stream) {
-  return attention_bwd<true>(x, dy, gamma, beta, wqkv, bqkv, wqkvt, wprojt,
-                             bias, keep, scratch, dx, dvec, dwqkv, dbqkv,
-                             dwproj, dbias, W, N, C, heads, nW, eps, stream);
+    int heads, int nW, int x_f32, float eps, void* stream) {
+  return (x_f32 ? attention_bwd<true, float>
+                : attention_bwd<true, __nv_bfloat16>)(
+      x, dy, gamma, beta, wqkv, bqkv, wqkvt, wprojt, bias, keep, scratch, dx,
+      dvec, dwqkv, dbqkv, dwproj, dbias, W, N, C, heads, nW, eps, stream);
 }

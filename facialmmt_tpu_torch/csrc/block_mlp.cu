@@ -34,7 +34,15 @@
 // Rounding follows the JAX kernel: LN output and GELU output are rounded to
 // bf16 before their matmuls; fc2 + bias, keep and the residual add are fp32,
 // rounded once.
-#include "tile_gemm.cuh"
+//
+// x and out come in bf16 or fp32 (x_f32; the model's compute dtype): as the
+// JAX kernel reads x in its own dtype, fp32 tokens keep their LN statistics
+// and the residual in fp32 and out is fp32, never rounded; the products'
+// operands stay bf16, as the JAX kernel's do.  On fp32 tokens LN2 is applied
+// by a row pass (swin_bwd.cuh::prep_rows, the prologue's arithmetic) into a
+// bf16 (T, C) scratch, xn_buf, that fc1 reads without a prologue, and fc2's
+// epilogue is kResidualF32; bf16 tokens take the sequence above unchanged.
+#include "swin_bwd.cuh"
 
 // Shared-memory bytes the larger of the two products needs per block; the
 // wrapper checks this against the card's limit before launching.
@@ -45,28 +53,25 @@ FMMT_API long long fmmt_fused_ln_mlp_residual_smem(int C, int HID) {
 }
 
 // stats (T) float2 and h_buf (T, HID) bf16 are scratch the caller
-// allocates; out (T, C) bf16.
+// allocates, and with x_f32 xn_buf (T, C) bf16 (null otherwise); x and out
+// (T, C) are fp32 when x_f32 is nonzero, else bf16.
 FMMT_API int fmmt_fused_ln_mlp_residual(const void* x, const void* gamma,
                                         const void* beta, const void* w1,
                                         const void* b1, const void* w2,
                                         const void* b2, const void* keep,
-                                        void* stats, void* h_buf, void* out,
-                                        int T, int C, int HID, float eps,
-                                        void* stream) {
-  if (T < 1 || C % 16 != 0 || C < 16 || C > 768 || HID % 64 != 0 || HID < 64)
+                                        void* stats, void* h_buf, void* xn_buf,
+                                        void* out, int T, int C, int HID,
+                                        int x_f32, float eps, void* stream) {
+  if (T < 1 || C % 16 != 0 || C < 16 || C > 768 || HID % 64 != 0 || HID < 64
+      || (x_f32 && !xn_buf))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* gb = static_cast<const __nv_bfloat16*>(gamma);
+  const auto* bb = static_cast<const __nv_bfloat16*>(beta);
   __nv_bfloat16* hb = static_cast<__nv_bfloat16*>(h_buf);
-
   float2* st = static_cast<float2*>(stats);
-  int err = fmmt::gemm::launch_row_stats(xb, st, T, C, eps, s);
-  if (err != 0) return err;
+
   fmmt::gemm::Args a{};
-  a.a = xb;
-  a.stats = st;
-  a.gamma = static_cast<const __nv_bfloat16*>(gamma);
-  a.beta = static_cast<const __nv_bfloat16*>(beta);
   a.b = static_cast<const __nv_bfloat16*>(w1);
   a.bias = static_cast<const __nv_bfloat16*>(b1);
   a.out = hb;
@@ -74,19 +79,41 @@ FMMT_API int fmmt_fused_ln_mlp_residual(const void* x, const void* gamma,
   a.N = HID;
   a.K = C;
   a.keep_div = 1;
-  err = fmmt::gemm::launch<fmmt::gemm::kLnStats, fmmt::gemm::kGelu>(a, s);
-  if (err != 0) return err;
-
   fmmt::gemm::Args p{};
   p.a = hb;
   p.b = static_cast<const __nv_bfloat16*>(w2);
   p.bias = static_cast<const __nv_bfloat16*>(b2);
-  p.res = xb;
   p.keep = static_cast<const float*>(keep);
   p.keep_div = 1;
-  p.out = static_cast<__nv_bfloat16*>(out);
   p.M = T;
   p.N = C;
   p.K = HID;
+  if (x_f32) {
+    const float* xf = static_cast<const float*>(x);
+    auto* xn = static_cast<__nv_bfloat16*>(xn_buf);
+    int err = fmmt::gemm::launch_row_stats(xf, st, T, C, eps, s);
+    if (err != 0) return err;
+    err = fmmt::bwd::launch_prep_rows<float>(xf, nullptr, st, gb, bb, nullptr,
+                                             1, xn, nullptr, T, C, s);
+    if (err != 0) return err;
+    a.a = xn;
+    err = fmmt::gemm::launch<fmmt::gemm::kLnNone, fmmt::gemm::kGelu>(a, s);
+    if (err != 0) return err;
+    p.res_f32 = xf;
+    p.out_f32 = static_cast<float*>(out);
+    return fmmt::gemm::launch<fmmt::gemm::kLnNone,
+                              fmmt::gemm::kResidualF32>(p, s);
+  }
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  int err = fmmt::gemm::launch_row_stats(xb, st, T, C, eps, s);
+  if (err != 0) return err;
+  a.a = xb;
+  a.stats = st;
+  a.gamma = gb;
+  a.beta = bb;
+  err = fmmt::gemm::launch<fmmt::gemm::kLnStats, fmmt::gemm::kGelu>(a, s);
+  if (err != 0) return err;
+  p.res = xb;
+  p.out = static_cast<__nv_bfloat16*>(out);
   return fmmt::gemm::launch<fmmt::gemm::kLnNone, fmmt::gemm::kResidual>(p, s);
 }

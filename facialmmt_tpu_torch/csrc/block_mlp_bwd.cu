@@ -47,6 +47,11 @@
 // Rounding follows the JAX kernel: xn, the GELU output, dy*keep and dh are
 // rounded to bf16 as matmul operands; every accumulation and the LN backward
 // are fp32; db1, db2, dgamma, dbeta sum the unrounded fp32 values.
+//
+// x, dy and dx come in bf16 or fp32 (x_f32; the model's compute dtype), as
+// the JAX kernel reads x and the gradient in x's dtype: only steps 1 and 4
+// read or write them (swin_bwd.cuh's row kernels), so on fp32 tokens the LN
+// statistics, the LN backward and dx are fp32 and the products the same.
 #include "swin_bwd.cuh"
 
 namespace {
@@ -114,21 +119,19 @@ FMMT_API long long fmmt_fused_ln_mlp_residual_bwd_smem(int C, int HID) {
   return static_cast<long long>(most);
 }
 
-// w1 (HID,C), b1 (HID), w1t = W1^T (C,HID), w2t = W2^T (HID,C), all bf16;
-// keep (T) fp32 or null; scratch of fmmt_fused_ln_mlp_residual_bwd_scratch
-// bytes.  Outputs: dx (T,C) bf16; dvec (3C) fp32 = dgamma | dbeta | db2;
-// dw1 (HID,C), db1 (HID), dw2 (C,HID) fp32.
-FMMT_API int fmmt_fused_ln_mlp_residual_bwd(
-    const void* x, const void* dy, const void* gamma, const void* beta,
-    const void* w1, const void* b1, const void* w1t, const void* w2t,
-    const void* keep, void* scratch, void* dx, void* dvec, void* dw1,
-    void* db1, void* dw2, int T, int C, int HID, float eps, void* stream) {
-  if (bad_shape(T, C, HID)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+namespace {
+
+// The whole sequence; TX: the type of x, dy and dx, bf16 or fp32.
+template <typename TX>
+int mlp_bwd(const void* x, const void* dy, const void* gamma,
+            const void* beta, const void* w1, const void* b1, const void* w1t,
+            const void* w2t, const void* keep, void* scratch, void* dx,
+            void* dvec, void* dw1, void* db1, void* dw2, int T, int C, int HID,
+            float eps, cudaStream_t cs) {
   Arena ar{static_cast<unsigned char*>(scratch), 0};
   const Scratch s = plan(ar, T, C, HID);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* dyb = static_cast<const __nv_bfloat16*>(dy);
+  const auto* xb = static_cast<const TX*>(x);
+  const auto* dyb = static_cast<const TX*>(dy);
   const auto* gb = static_cast<const __nv_bfloat16*>(gamma);
   const auto* kp = static_cast<const float*>(keep);
 
@@ -165,8 +168,7 @@ FMMT_API int fmmt_fused_ln_mlp_residual_bwd(
   if (err) return err;
 
   err = fmmt::bwd::launch_ln_bwd(s.dxn, xb, dyb, s.st, gb, kp, 1,
-                                 static_cast<__nv_bfloat16*>(dx), s.ln_part,
-                                 T, C, cs);
+                                 static_cast<TX*>(dx), s.ln_part, T, C, cs);
   if (err) return err;
   err = gemm::launch_wgrad(s.dh, s.xn, s.dw1_part, HID, C, T, cs);
   if (err) return err;
@@ -184,4 +186,23 @@ FMMT_API int fmmt_fused_ln_mlp_residual_bwd(
   if (err) return err;
   return gemm::sum_rows(s.ln_part, static_cast<float*>(dvec),
                         fmmt::bwd::ln_bwd_blocks(T), 3 * C, s.tmp, cs);
+}
+
+}  // namespace
+
+// x, dy and dx (T,C) fp32 when x_f32 is nonzero, else bf16; w1 (HID,C), b1
+// (HID), w1t = W1^T (C,HID), w2t = W2^T (HID,C), all bf16; keep (T) fp32 or
+// null; scratch of fmmt_fused_ln_mlp_residual_bwd_scratch bytes.  Outputs:
+// dx; dvec (3C) fp32 = dgamma | dbeta | db2; dw1 (HID,C), db1 (HID), dw2
+// (C,HID) fp32.
+FMMT_API int fmmt_fused_ln_mlp_residual_bwd(
+    const void* x, const void* dy, const void* gamma, const void* beta,
+    const void* w1, const void* b1, const void* w1t, const void* w2t,
+    const void* keep, void* scratch, void* dx, void* dvec, void* dw1,
+    void* db1, void* dw2, int T, int C, int HID, int x_f32, float eps,
+    void* stream) {
+  if (bad_shape(T, C, HID)) return static_cast<int>(cudaErrorInvalidValue);
+  return (x_f32 ? mlp_bwd<float> : mlp_bwd<__nv_bfloat16>)(
+      x, dy, gamma, beta, w1, b1, w1t, w2t, keep, scratch, dx, dvec, dw1, db1,
+      dw2, T, C, HID, eps, static_cast<cudaStream_t>(stream));
 }

@@ -254,6 +254,37 @@ __device__ __forceinline__ float round_bf16(const float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// Eight consecutive elements of a row in fp32: one 16-byte load of bf16, or
+// two of fp32 (p 32-byte aligned: rows of K % 8 == 0 elements).
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// One token element as fp32, and back into the tokens' type (bf16: rounded
+// once, as the JAX kernels' .astype(x.dtype); fp32: as is).
+__device__ __forceinline__ float to_f32(const __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(const float v) { return v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, const float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_f32(float* p, const float v) { *p = v; }
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;

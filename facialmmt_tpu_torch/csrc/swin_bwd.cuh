@@ -10,7 +10,10 @@
 //                  dbeta = sum dxn and the bias sum of the unrounded dy keep,
 //                  which sum_rows adds in a fixed order.
 // Rounding as the JAX kernels: xn and dyk are bf16 matmul operands; the LN
-// backward and every sum are fp32.
+// backward and every sum are fp32.  The tokens x, the gradient dy and dx are
+// of the model's type, TX = bf16 or fp32 (dx rounded once, or not at all);
+// prep_rows without dy (kDy false) is the forward's LayerNorm pass on fp32
+// tokens (tile_gemm.cuh).
 #pragma once
 
 #include "tile_gemm.cuh"
@@ -19,10 +22,11 @@ namespace fmmt {
 namespace bwd {
 
 // 8 elements a thread: xn = bf16((x rstd - mean rstd) gamma + beta), the
-// forward's normalise in tile_gemm.cuh, and dyk = bf16(dy keep[t / keep_div]).
+// forward's normalise in tile_gemm.cuh, and with kDy dyk = bf16(dy
+// keep[t / keep_div]).
+template <typename TX, bool kDy>
 static __global__ void __launch_bounds__(256)
-prep_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ dy,
+prep_rows_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
                  const float2* __restrict__ st,
                  const __nv_bfloat16* __restrict__ gamma,
                  const __nv_bfloat16* __restrict__ beta,
@@ -35,42 +39,48 @@ prep_rows_kernel(const __nv_bfloat16* __restrict__ x,
   const long long t = e / C;
   const int c = (int)(e % C);
   const float2 sc = st[t];
-  const float kf = keep ? keep[t / keep_div] : 1.f;
-  const uint4 xv = *reinterpret_cast<const uint4*>(x + e);
-  const uint4 dv = *reinterpret_cast<const uint4*>(dy + e);
-  const uint4 gv = *reinterpret_cast<const uint4*>(gamma + c);
-  const uint4 bv = *reinterpret_cast<const uint4*>(beta + c);
-  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
-  const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bv);
-  uint4 xo, dko;
+  float xf[8], gf[8], bf[8];
+  load8(x + e, xf);
+  load8(gamma + c, gf);
+  load8(beta + c, bf);
+  uint4 xo;
   uint32_t* x32 = reinterpret_cast<uint32_t*>(&xo);
-  uint32_t* d32 = reinterpret_cast<uint32_t*>(&dko);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 xf = __bfloat1622float2(x2[k]);
-    const float2 gf = __bfloat1622float2(g2[k]);
-    const float2 bf = __bfloat1622float2(b2[k]);
-    const float2 df = __bfloat1622float2(d2[k]);
-    x32[k] = pack_bf16(fmaf(fmaf(xf.x, sc.x, sc.y), gf.x, bf.x),
-                       fmaf(fmaf(xf.y, sc.x, sc.y), gf.y, bf.y));
-    d32[k] = pack_bf16(df.x * kf, df.y * kf);
-  }
+  for (int k = 0; k < 4; ++k)
+    x32[k] = pack_bf16(fmaf(fmaf(xf[2 * k], sc.x, sc.y), gf[2 * k], bf[2 * k]),
+                       fmaf(fmaf(xf[2 * k + 1], sc.x, sc.y), gf[2 * k + 1],
+                            bf[2 * k + 1]));
   *reinterpret_cast<uint4*>(xn + e) = xo;
-  *reinterpret_cast<uint4*>(dyk + e) = dko;
+  if constexpr (kDy) {
+    const float kf = keep ? keep[t / keep_div] : 1.f;
+    float df[8];
+    load8(dy + e, df);
+    uint4 dko;
+    uint32_t* d32 = reinterpret_cast<uint32_t*>(&dko);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      d32[k] = pack_bf16(df[2 * k] * kf, df[2 * k + 1] * kf);
+    *reinterpret_cast<uint4*>(dyk + e) = dko;
+  }
 }
 
-static inline int launch_prep_rows(const __nv_bfloat16* x,
-                                   const __nv_bfloat16* dy, const float2* st,
+// dy and dyk may be null (the forward's pass: xn only).
+template <typename TX>
+static inline int launch_prep_rows(const TX* x, const TX* dy,
+                                   const float2* st,
                                    const __nv_bfloat16* gamma,
                                    const __nv_bfloat16* beta,
                                    const float* keep, int keep_div,
                                    __nv_bfloat16* xn, __nv_bfloat16* dyk,
                                    int T, int C, cudaStream_t stream) {
   const long long pieces = (long long)T * C / 8;
-  prep_rows_kernel<<<(unsigned)((pieces + 255) / 256), 256, 0, stream>>>(
-      x, dy, st, gamma, beta, keep, keep_div, xn, dyk, pieces, C);
+  const unsigned blocks = (unsigned)((pieces + 255) / 256);
+  if (dy)
+    prep_rows_kernel<TX, true><<<blocks, 256, 0, stream>>>(
+        x, dy, st, gamma, beta, keep, keep_div, xn, dyk, pieces, C);
+  else
+    prep_rows_kernel<TX, false><<<blocks, 256, 0, stream>>>(
+        x, dy, st, gamma, beta, keep, keep_div, xn, dyk, pieces, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -86,15 +96,14 @@ inline size_t ln_bwd_smem(int C) {
 // One warp a row, lane l holding columns l + 32 j (j < kCols).  Each warp
 // keeps its rows' column sums in registers; the 8 warps' sums are added in
 // warp order into part[block][3C] = dgamma | dbeta | sum of dy keep.
-template <int kCols>
+template <int kCols, typename TX>
 __global__ void __launch_bounds__(kLnWarps * 32)
-ln_bwd_rows_kernel(const float* __restrict__ dxn,
-                   const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ dy,
+ln_bwd_rows_kernel(const float* __restrict__ dxn, const TX* __restrict__ x,
+                   const TX* __restrict__ dy,
                    const float2* __restrict__ st,
                    const __nv_bfloat16* __restrict__ gamma,
                    const float* __restrict__ keep, int keep_div,
-                   __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+                   TX* __restrict__ dx, float* __restrict__ part,
                    int T, int C) {
   extern __shared__ __align__(16) float red[];
   const int warp = threadIdx.x / 32;
@@ -120,7 +129,7 @@ ln_bwd_rows_kernel(const float* __restrict__ dxn,
       d[j] = xh[j] = 0.f;
       if (c < C) {
         d[j] = dxn[t * C + c];
-        xh[j] = fmaf(bf(x[t * C + c]), sc.x, sc.y);
+        xh[j] = fmaf(to_f32(x[t * C + c]), sc.x, sc.y);
         const float dxh = d[j] * gm[j];
         s1 += dxh;
         s2 = fmaf(dxh, xh[j], s2);
@@ -132,9 +141,9 @@ ln_bwd_rows_kernel(const float* __restrict__ dxn,
     for (int j = 0; j < kCols; ++j) {
       const int c = lane + 32 * j;
       if (c < C) {
-        const float dyv = bf(dy[t * C + c]);
-        dx[t * C + c] = __float2bfloat16(
-            dyv + rstd * (d[j] * gm[j] - m1 - xh[j] * m2));
+        const float dyv = to_f32(dy[t * C + c]);
+        store_f32(dx + t * C + c,
+                  dyv + rstd * (d[j] * gm[j] - m1 - xh[j] * m2));
         sg[j] = fmaf(d[j], xh[j], sg[j]);
         sb[j] += d[j];
         sk[j] = fmaf(dyv, kf, sk[j]);
@@ -159,29 +168,29 @@ ln_bwd_rows_kernel(const float* __restrict__ dxn,
   }
 }
 
-template <int kCols>
-int launch_ln_bwd_cols(const float* dxn, const __nv_bfloat16* x,
-                       const __nv_bfloat16* dy, const float2* st,
-                       const __nv_bfloat16* gamma, const float* keep,
-                       int keep_div, __nv_bfloat16* dx, float* part, int T,
-                       int C, cudaStream_t stream) {
+template <int kCols, typename TX>
+int launch_ln_bwd_cols(const float* dxn, const TX* x, const TX* dy,
+                       const float2* st, const __nv_bfloat16* gamma,
+                       const float* keep, int keep_div, TX* dx, float* part,
+                       int T, int C, cudaStream_t stream) {
   const size_t bytes = ln_bwd_smem(C);
   cudaError_t err = cudaFuncSetAttribute(
-      ln_bwd_rows_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      ln_bwd_rows_kernel<kCols, TX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ln_bwd_rows_kernel<kCols><<<ln_bwd_blocks(T), kLnWarps * 32, bytes,
-                              stream>>>(dxn, x, dy, st, gamma, keep, keep_div,
-                                        dx, part, T, C);
+  ln_bwd_rows_kernel<kCols, TX><<<ln_bwd_blocks(T), kLnWarps * 32, bytes,
+                                  stream>>>(dxn, x, dy, st, gamma, keep,
+                                            keep_div, dx, part, T, C);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dx (T, C) bf16 and part (ln_bwd_blocks(T), 3C); C <= 768.
-static inline int launch_ln_bwd(const float* dxn, const __nv_bfloat16* x,
-                                const __nv_bfloat16* dy, const float2* st,
-                                const __nv_bfloat16* gamma, const float* keep,
-                                int keep_div, __nv_bfloat16* dx, float* part,
-                                int T, int C, cudaStream_t stream) {
+// dx (T, C) of the tokens' type and part (ln_bwd_blocks(T), 3C); C <= 768.
+template <typename TX>
+static inline int launch_ln_bwd(const float* dxn, const TX* x, const TX* dy,
+                                const float2* st, const __nv_bfloat16* gamma,
+                                const float* keep, int keep_div, TX* dx,
+                                float* part, int T, int C,
+                                cudaStream_t stream) {
   const int cols = (C + 31) / 32;
   if (cols <= 1)
     return launch_ln_bwd_cols<1>(dxn, x, dy, st, gamma, keep, keep_div, dx,

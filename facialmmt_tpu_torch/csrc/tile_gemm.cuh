@@ -20,7 +20,18 @@
 //              per 8-column group, merged in order in two halves)
 //   kPlain     acc, no bias                   (the backward's dattn, bf16)
 //   kF32       acc, no bias, fp32 out_f32     (the backward's dxn)
+//   kResidualF32  kResidual on fp32 rows: res_f32[m, n] + keep y to fp32
+//              out_f32, never rounded          (fc2, proj on fp32 tokens)
 // Any M; N and K multiples of 16.
+//
+// The tokens x of the Swin block halves come in bf16 or fp32 (the model's
+// compute dtype; the JAX kernels read x in its own dtype and keep the LN
+// statistics and the residual in fp32).  The product operands are bf16 in
+// both cases: on fp32 tokens the LayerNorm is applied by a row pass
+// (swin_bwd.cuh::prep_rows, the same arithmetic as the prologue's normalise)
+// into a bf16 copy that a kLnNone product reads, and the residual epilogue
+// reads and writes fp32 rows (kResidualF32).  row_stats_kernel reads either
+// type (load8).
 //
 // What bounds such a product on the H100: at the Swin-tiny shapes of a
 // 64-face pack (M = 3136 to 200704 rows, K and N = 96 to 3072) 2 M N K FLOP
@@ -82,7 +93,7 @@ namespace gemm {
 
 enum Epilogue {
   kGelu = 0, kScaleQ = 1, kResidual = 2, kPlain = 3, kF32 = 4,
-  kResidualStats = 5
+  kResidualStats = 5, kResidualF32 = 6
 };
 // Where a LayerNorm prologue's row statistics come from (none: no LayerNorm)
 enum Prologue { kLnNone = 0, kLnStats = 1, kLnParts = 2 };
@@ -104,9 +115,10 @@ struct Args {
   const __nv_bfloat16* b;
   const __nv_bfloat16* bias;
   const __nv_bfloat16* res;       // kResidual
-  const float* keep;              // kResidual, optional
+  const float* res_f32;           // kResidualF32
+  const float* keep;              // kResidual(F32), optional
   __nv_bfloat16* out;
-  float* out_f32;                 // kF32
+  float* out_f32;                 // kF32, kResidualF32
   float2* row_part;               // kResidualStats: (mean, M2) of row m over
                                   // column tile j at [m * (N / BN) + j]
   int M, N, K;
@@ -276,15 +288,16 @@ __device__ __forceinline__ float gelu_erf(float h) {
 // the biased variance), the row re-read from L1.  A row takes `lanes` lanes
 // (4 to 32, at least K / 8 where that is below 32), so that a warp keeps
 // several narrow rows' loads in flight.  Static: every source that includes
-// this header has its own copy.
+// this header has its own copy.  TX: the rows' type, bf16 or fp32.
+template <typename TX>
 static __global__ void __launch_bounds__(256)
-row_stats_kernel(const __nv_bfloat16* __restrict__ a, float2* __restrict__ st,
+row_stats_kernel(const TX* __restrict__ a, float2* __restrict__ st,
                  int M, int K, int lanes, float eps) {
   const int lane = threadIdx.x % 32;
   const int per_warp = 32 / lanes;
   const int row = (blockIdx.x * 8 + threadIdx.x / 32) * per_warp + lane / lanes;
   const int sub = lane % lanes;
-  const __nv_bfloat16* x = a + (size_t)min(row, M - 1) * K;
+  const TX* x = a + (size_t)min(row, M - 1) * K;
   auto group_sum = [&](float v) {
     for (int o = lanes / 2; o > 0; o >>= 1)
       v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -292,24 +305,20 @@ row_stats_kernel(const __nv_bfloat16* __restrict__ a, float2* __restrict__ st,
   };
   float s = 0.f;
   for (int c = sub * 8; c < K; c += lanes * 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(x + c);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+    float v[8];
+    load8(x + c, v);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(p[e]);
-      s += f.x + f.y;
-    }
+    for (int e = 0; e < 4; ++e) s += v[2 * e] + v[2 * e + 1];
   }
   const float mean = group_sum(s) / K;
   float q = 0.f;
   for (int c = sub * 8; c < K; c += lanes * 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(x + c);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+    float v[8];
+    load8(x + c, v);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(p[e]);
-      q = fmaf(f.x - mean, f.x - mean, q);
-      q = fmaf(f.y - mean, f.y - mean, q);
+      q = fmaf(v[2 * e] - mean, v[2 * e] - mean, q);
+      q = fmaf(v[2 * e + 1] - mean, v[2 * e + 1] - mean, q);
     }
   }
   const float rstd = rsqrtf(group_sum(q) / K + eps);
@@ -532,6 +541,17 @@ tile_gemm_kernel(const Args p) {
         y[2 * e + 1] += bv.y;
       }
     }
+    if constexpr (kEpi == kResidualF32) {
+      const float kw = p.keep ? p.keep[m / p.keep_div] : 1.f;
+      float rv[8];
+      load8(p.res_f32 + (size_t)m * N + n, rv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = rv[e] + y[e] * kw;
+      float4* o = reinterpret_cast<float4*>(p.out_f32 + (size_t)m * N + n);
+      o[0] = make_float4(y[0], y[1], y[2], y[3]);
+      o[1] = make_float4(y[4], y[5], y[6], y[7]);
+      continue;
+    }
     if constexpr (kEpi == kGelu) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) y[e] = gelu_erf(y[e]);
@@ -622,15 +642,16 @@ inline size_t smem_bytes(int N, int K, bool ln, int parts = 0) {
   }
 }
 
-// The rows' LayerNorm statistics for a kLnStats product: st (M) float2.
-static inline int launch_row_stats(const __nv_bfloat16* a, float2* st,
-                                   int M, int K, float eps,
-                                   cudaStream_t stream) {
+// The rows' LayerNorm statistics for a kLnStats product (or a prep_rows
+// pass): st (M) float2; a (M, K) bf16 or fp32.
+template <typename TX>
+static inline int launch_row_stats(const TX* a, float2* st, int M, int K,
+                                   float eps, cudaStream_t stream) {
   if (M < 1 || K % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   int lanes = 4;
   while (lanes < 32 && lanes * 8 < K) lanes *= 2;
   const int rows_per_block = 8 * (32 / lanes);
-  row_stats_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
+  row_stats_kernel<TX><<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
                      stream>>>(a, st, M, K, lanes, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -110,18 +110,18 @@ def build() -> tuple[Path, float]:
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fmmt_fused_attention": ([_VP] * 5 + [_I] * 5 + [_VP], _I),
-    "fmmt_fused_attention_block": ([_VP] * 13 + [_I] * 5 + [_F, _VP], _I),
+    "fmmt_fused_attention": ([_VP] * 5 + [_I] * 6 + [_VP], _I),
+    "fmmt_fused_attention_block": ([_VP] * 13 + [_I] * 6 + [_F, _VP], _I),
     "fmmt_fused_attention_block_smem": ([_I] * 3, ctypes.c_longlong),
-    "fmmt_fused_ln_mlp_residual": ([_VP] * 11 + [_I] * 3 + [_F, _VP], _I),
+    "fmmt_fused_ln_mlp_residual": ([_VP] * 12 + [_I] * 4 + [_F, _VP], _I),
     "fmmt_fused_ln_mlp_residual_smem": ([_I] * 2, ctypes.c_longlong),
-    "fmmt_fused_ln_mlp_residual_bwd": ([_VP] * 15 + [_I] * 3 + [_F, _VP], _I),
+    "fmmt_fused_ln_mlp_residual_bwd": ([_VP] * 15 + [_I] * 4 + [_F, _VP], _I),
     "fmmt_fused_ln_mlp_residual_bwd_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_ln_mlp_residual_bwd_scratch": ([_I] * 3, ctypes.c_longlong),
-    "fmmt_fused_attention_block_bwd": ([_VP] * 17 + [_I] * 5 + [_F, _VP], _I),
+    "fmmt_fused_attention_block_bwd": ([_VP] * 17 + [_I] * 6 + [_F, _VP], _I),
     "fmmt_fused_attention_block_bwd_smem": ([_I] * 2, ctypes.c_longlong),
     "fmmt_fused_attention_block_bwd_scratch": ([_I] * 5, ctypes.c_longlong),
-    "fmmt_fused_attention_block_bwd_spill": ([_VP] * 17 + [_I] * 5 + [_F, _VP],
+    "fmmt_fused_attention_block_bwd_spill": ([_VP] * 17 + [_I] * 6 + [_F, _VP],
                                              _I),
     "fmmt_window_attention": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
     "fmmt_window_attention_smem": ([_I] * 2, ctypes.c_longlong),
@@ -201,6 +201,30 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
             f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     require(t.is_contiguous(), f"{name}: must be contiguous")
     require(t.data_ptr() % 32 == 0, f"{name}: must be 32-byte aligned")
+
+
+# The token types kernels 1-6 take (x, dy, dx, out; kernel 1's q, k, v, out):
+# each C entry point has an instantiation of both, as the JAX kernels read x
+# in its own dtype.  Their weights go to the kernels in bf16.
+TOKEN_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_token_dtype(name: str, t: torch.Tensor) -> None:
+    require(t.dtype in TOKEN_DTYPES,
+            f"{name}: dtype {t.dtype}; kernels 1-6 take {TOKEN_DTYPES}")
+
+
+def token_operand(t: torch.Tensor) -> torch.Tensor:
+    """x, dy (or kernel 1's q, k, v) as kernels 1-6 take them: detached and
+    contiguous in their own dtype, bf16 or fp32.  Any other dtype raises:
+    the kernels never see a quiet cast of the tokens."""
+    check_token_dtype("tokens", t)
+    return t.detach().contiguous()
+
+
+def is_f32(t: torch.Tensor) -> int:
+    """The C entry points' token-type argument: 1 for fp32, 0 for bf16."""
+    return int(t.dtype == torch.float32)
 
 
 def grads_of_recomputed(fn, inputs, needs_grad, dout):

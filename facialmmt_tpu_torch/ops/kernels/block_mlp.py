@@ -10,8 +10,11 @@ stochastic-depth multiplier, which gets no gradient.
 `fused_ln_mlp_residual` is what the model calls: a torch.autograd.Function
 that saves only its inputs and recomputes LN / fc1 / GELU in the backward.
 Forward and backward each take the plain version for CPU tensors and the
-kernel for CUDA tensors; on a CUDA tensor the operands are cast to bf16 at the
-kernel boundary and every gradient comes back in its parameter's dtype.
+kernel for CUDA tensors; on a CUDA tensor x and dy go to the kernel in their
+own dtype, bf16 or fp32 (an instantiation each: the LN statistics, the
+residual, out and dx stay fp32 for fp32 tokens, as the JAX kernel keeps
+them), the weights in bf16 (`kernel_operands`, `bwd_kernel_operands`), and
+every gradient comes back in its parameter's dtype.
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ def fused_ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2, keep=None,
 def fused_ln_mlp_residual_cuda(x, gamma, beta, w1, b1, w2, b2, keep=None,
                                eps: float = 1e-5):
     """Launch csrc/block_mlp.cu (three device kernels: LN2 statistics, fc1 +
-    GELU, fc2 + residual): bf16 tokens and weights, fp32 keep, any T, C a
-    multiple of 16 up to 768, HID a multiple of 64; raises on anything
-    else."""
+    GELU, fc2 + residual; with fp32 tokens a LayerNorm row pass before fc1):
+    bf16 or fp32 tokens (out of the same dtype), bf16 weights, fp32 keep,
+    any T, C a multiple of 16 up to 768, HID a multiple of 64; raises on
+    anything else."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
     kernels.require(x.dim() == 2, f"x: expected (T, C), got {tuple(x.shape)}")
@@ -51,7 +55,9 @@ def fused_ln_mlp_residual_cuda(x, gamma, beta, w1, b1, w2, b2, keep=None,
     kernels.require(t > 0 and c % 16 == 0 and c <= 768 and hid % 64 == 0,
                     f"unsupported shape T={t}, C={c}, HID={hid}")
     bf16 = torch.bfloat16
-    for name, a, shape in (("x", x, (t, c)), ("gamma", gamma, (c,)),
+    kernels.check_token_dtype("x", x)
+    kernels.check_cuda_tensor("x", x, x.dtype, (t, c), dev)
+    for name, a, shape in (("gamma", gamma, (c,)),
                            ("beta", beta, (c,)), ("w1", w1, (hid, c)),
                            ("b1", b1, (hid,)), ("w2", w2, (c, hid)),
                            ("b2", b2, (c,))):
@@ -63,15 +69,18 @@ def fused_ln_mlp_residual_cuda(x, gamma, beta, w1, b1, w2, b2, keep=None,
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
     out = torch.empty_like(x)
-    # the kernel's scratch: LN2 statistics per token, the GELU output
+    # the kernel's scratch: LN2 statistics per token, the GELU output, and
+    # for fp32 tokens their bf16 LayerNorm, which fc1 reads
     stats = torch.empty((t, 2), dtype=torch.float32, device=dev)
     hidden = torch.empty((t, hid), dtype=bf16, device=dev)
+    f32 = kernels.is_f32(x)
+    xn = torch.empty((t, c), dtype=bf16, device=dev) if f32 else None
     err = lib.fmmt_fused_ln_mlp_residual(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         None if keep is None else keep.data_ptr(), stats.data_ptr(),
-        hidden.data_ptr(), out.data_ptr(), t, c, hid, eps,
-        kernels.stream_ptr(dev))
+        hidden.data_ptr(), None if xn is None else xn.data_ptr(),
+        out.data_ptr(), t, c, hid, f32, eps, kernels.stream_ptr(dev))
     kernels.check_launch("fused_ln_mlp_residual", err)
     fused_ln_mlp_residual_cuda.launches += 1
     return out
@@ -129,9 +138,10 @@ def fused_ln_mlp_residual_bwd_cuda(x, dy, gamma, beta, w1, b1, w2, keep=None,
     """Launch csrc/block_mlp_bwd.cu (the LN2 statistics, xn and dy * keep,
     the hidden layer's two products with the GELU backward, dxn, the LN
     backward, the split-T weight-gradient products and their fixed-order
-    sums): bf16 tokens, gradient and weights, fp32 keep, any T, C a multiple
-    of 16 up to 768, HID a multiple of 64; raises on anything else.  Same
-    returns as the plain version; two launches give the same bits."""
+    sums): bf16 or fp32 tokens with a gradient of the same dtype (dx of it
+    too), bf16 weights, fp32 keep, any T, C a multiple of 16 up to 768, HID
+    a multiple of 64; raises on anything else.  Same returns as the plain
+    version; two launches give the same bits."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
     kernels.require(x.dim() == 2, f"x: expected (T, C), got {tuple(x.shape)}")
@@ -141,8 +151,10 @@ def fused_ln_mlp_residual_bwd_cuda(x, dy, gamma, beta, w1, b1, w2, keep=None,
     kernels.require(t > 0 and c % 16 == 0 and c <= 768 and hid % 64 == 0,
                     f"unsupported shape T={t}, C={c}, HID={hid}")
     bf16 = torch.bfloat16
-    for name, a, shape in (("x", x, (t, c)), ("dy", dy, (t, c)),
-                           ("gamma", gamma, (c,)), ("beta", beta, (c,)),
+    kernels.check_token_dtype("x", x)
+    for name, a, shape in (("x", x, (t, c)), ("dy", dy, (t, c))):
+        kernels.check_cuda_tensor(name, a, x.dtype, shape, dev)
+    for name, a, shape in (("gamma", gamma, (c,)), ("beta", beta, (c,)),
                            ("w1", w1, (hid, c)), ("b1", b1, (hid,)),
                            ("w2", w2, (c, hid))):
         kernels.check_cuda_tensor(name, a, bf16, shape, dev)
@@ -165,7 +177,8 @@ def fused_ln_mlp_residual_bwd_cuda(x, dy, gamma, beta, w1, b1, w2, keep=None,
         w1.data_ptr(), b1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
         None if keep is None else keep.data_ptr(), scratch.data_ptr(),
         dx.data_ptr(), dvec.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-        dw2.data_ptr(), t, c, hid, eps, kernels.stream_ptr(dev))
+        dw2.data_ptr(), t, c, hid, kernels.is_f32(x), eps,
+        kernels.stream_ptr(dev))
     kernels.check_launch("fused_ln_mlp_residual_bwd", err)
     fused_ln_mlp_residual_bwd_cuda.launches += 1
     dgamma, dbeta, db2 = dvec
@@ -180,6 +193,23 @@ def kernel_operand(t, dtype=torch.bfloat16):
     return t.detach().to(dtype).contiguous()
 
 
+def kernel_operands(x, gamma, beta, w1, b1, w2, b2, keep):
+    """What FusedLnMlpResidual hands the forward kernel for CUDA tensors: x
+    in its own dtype (kernels.token_operand), the weights in bf16, keep in
+    fp32."""
+    return (kernels.token_operand(x),
+            *[kernel_operand(p) for p in (gamma, beta, w1, b1, w2, b2)],
+            None if keep is None else kernel_operand(keep, torch.float32))
+
+
+def bwd_kernel_operands(x, dy, gamma, beta, w1, b1, w2, keep):
+    """What FusedLnMlpResidual's backward hands the kernel: x and dy in
+    their own dtype, the weights in bf16, keep in fp32."""
+    return (kernels.token_operand(x), kernels.token_operand(dy),
+            *[kernel_operand(p) for p in (gamma, beta, w1, b1, w2)],
+            None if keep is None else kernel_operand(keep, torch.float32))
+
+
 class FusedLnMlpResidual(torch.autograd.Function):
     """x + keep * fc2(GELU(fc1(LN2(x)))) with a recomputing backward: only the
     inputs are saved."""
@@ -188,10 +218,8 @@ class FusedLnMlpResidual(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, keep, eps):
         params = (gamma, beta, w1, b1, w2, b2)
         if x.is_cuda:
-            xk = kernel_operand(x)
-            keep = None if keep is None else kernel_operand(keep, torch.float32)
-            out = fused_ln_mlp_residual_cuda(
-                xk, *[kernel_operand(p) for p in params], keep, eps)
+            xk, *pk, keep = kernel_operands(x, *params, keep)
+            out = fused_ln_mlp_residual_cuda(xk, *pk, keep, eps)
         else:
             xk = x.detach()
             out = fused_ln_mlp_residual_plain(xk, *params, keep, eps)
@@ -205,9 +233,8 @@ class FusedLnMlpResidual(torch.autograd.Function):
         xk, gamma, beta, w1, b1, w2, b2, keep = ctx.saved_tensors
         if xk.is_cuda:
             grads = fused_ln_mlp_residual_bwd_cuda(
-                xk, kernel_operand(dy),
-                *[kernel_operand(p) for p in (gamma, beta, w1, b1, w2)],
-                keep, ctx.eps)
+                *bwd_kernel_operands(xk, dy, gamma, beta, w1, b1, w2, keep),
+                ctx.eps)
         else:
             grads = fused_ln_mlp_residual_bwd_plain(
                 xk, dy.to(xk.dtype), gamma, beta, w1, b1, w2, keep, ctx.eps)

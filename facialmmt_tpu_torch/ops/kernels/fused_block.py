@@ -13,9 +13,12 @@ per-window stochastic-depth multiplier, which gets no gradient.
 `fused_attention_block` is what the model calls: a torch.autograd.Function
 that saves only its inputs and recomputes LN1 / qkv / softmax in the
 backward.  Forward and backward each take the plain version for CPU tensors
-and the kernel for CUDA tensors (operands cast to bf16 at the kernel
-boundary, gradients returned in their parameter's dtype).  Which backward
-serves a shape is decided in one place, `backward_variant`.
+and the kernel for CUDA tensors: x and dy in their own dtype, bf16 or fp32
+(an instantiation each: the LN statistics, the residual, out and dx stay
+fp32 for fp32 tokens, as the JAX kernel keeps them), the weights in bf16 and
+the bias in fp32 (`kernel_operands`, `bwd_kernel_operands`); gradients are
+returned in their parameter's dtype.  Which backward serves a shape is
+decided in one place, `backward_variant`.
 
 `fused_whole_block` is the WHOLE block, the attention half followed by the
 MLP half y + fc2(GELU(fc1(LN2(y)))), in one wrapper call
@@ -65,9 +68,10 @@ def fused_attention_block_plain(x, gamma, beta, wqkv, bqkv, wproj, bproj,
 def fused_attention_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                bias, keep=None, eps: float = 1e-5):
     """Launch csrc/attention_block.cu (four device kernels: LN1 statistics,
-    qkv, the windows' attention, proj + residual): bf16 tokens and weights, fp32
-    bias/keep, N <= 64, C and the head dim multiples of 16; raises on
-    anything else."""
+    qkv, the windows' attention, proj + residual; with fp32 tokens a
+    LayerNorm row pass before qkv): bf16 or fp32 tokens (out of the same
+    dtype), bf16 weights, fp32 bias/keep, N <= 64, C and the head dim
+    multiples of 16; raises on anything else."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
     kernels.require(x.dim() == 3 and bias.dim() == 4,
@@ -80,7 +84,9 @@ def fused_attention_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                     f"unsupported window shape N={n}, C={c}, heads={h}")
     kernels.require(w % nw == 0, f"W={w} is not a multiple of nW={nw}")
     bf16 = torch.bfloat16
-    for name, t, shape in (("x", x, (w, n, c)), ("gamma", gamma, (c,)),
+    kernels.check_token_dtype("x", x)
+    kernels.check_cuda_tensor("x", x, x.dtype, (w, n, c), dev)
+    for name, t, shape in (("gamma", gamma, (c,)),
                            ("beta", beta, (c,)), ("wqkv", wqkv, (3 * c, c)),
                            ("bqkv", bqkv, (3 * c,)), ("wproj", wproj, (c, c)),
                            ("bproj", bproj, (c,))):
@@ -94,7 +100,8 @@ def fused_attention_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
                     f"needs {smem} B of shared memory per block")
     out = torch.empty_like(x)
     # the kernel's scratch: LN1 statistics per token row, the (W N, 3C) qkv
-    # rows and the (W N, C) head outputs
+    # rows and the (W N, C) head outputs (with fp32 tokens first their bf16
+    # LayerNorm, which qkv reads)
     stats = torch.empty((w * n, 2), dtype=torch.float32, device=dev)
     qkv = torch.empty((w * n, 3 * c), dtype=bf16, device=dev)
     heads = torch.empty((w * n, c), dtype=bf16, device=dev)
@@ -102,8 +109,8 @@ def fused_attention_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj,
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wqkv.data_ptr(),
         bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(), bias.data_ptr(),
         None if keep is None else keep.data_ptr(), stats.data_ptr(),
-        qkv.data_ptr(), heads.data_ptr(), out.data_ptr(), w, n, c, h, nw, eps,
-        kernels.stream_ptr(dev))
+        qkv.data_ptr(), heads.data_ptr(), out.data_ptr(), w, n, c, h, nw,
+        kernels.is_f32(x), eps, kernels.stream_ptr(dev))
     kernels.check_launch("fused_attention_block", err)
     fused_attention_block_cuda.launches += 1
     return out
@@ -233,8 +240,10 @@ def _check_bwd_operands(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep):
                     f"unsupported window shape N={n}, C={c}, heads={h}")
     kernels.require(w % nw == 0, f"W={w} is not a multiple of nW={nw}")
     bf16 = torch.bfloat16
-    for name, t, shape in (("x", x, (w, n, c)), ("dy", dy, (w, n, c)),
-                           ("gamma", gamma, (c,)), ("beta", beta, (c,)),
+    kernels.check_token_dtype("x", x)
+    for name, t, shape in (("x", x, (w, n, c)), ("dy", dy, (w, n, c))):
+        kernels.check_cuda_tensor(name, t, x.dtype, shape, dev)
+    for name, t, shape in (("gamma", gamma, (c,)), ("beta", beta, (c,)),
                            ("wqkv", wqkv, (3 * c, c)), ("bqkv", bqkv, (3 * c,)),
                            ("wproj", wproj, (c, c))):
         kernels.check_cuda_tensor(name, t, bf16, shape, dev)
@@ -273,7 +282,7 @@ def _attention_bwd_cuda(entry, max_c, x, dy, gamma, beta, wqkv, bqkv, wproj,
         scratch.data_ptr(), dx.data_ptr(), dvec.data_ptr(), dwqkv.data_ptr(),
         dbqkv.data_ptr(), dwproj.data_ptr(),
         dbias.data_ptr(),           # group 0 of (nW, h, N, N) is its head
-        w, n, c, h, nw, eps, kernels.stream_ptr(dev))
+        w, n, c, h, nw, kernels.is_f32(x), eps, kernels.stream_ptr(dev))
     kernels.check_launch(entry, err)
     dgamma, dbeta, dbproj = dvec
     return dx, dgamma, dbeta, dwqkv, dbqkv, dwproj, dbproj, dbias
@@ -284,10 +293,10 @@ def fused_attention_block_bwd_cuda(x, dy, gamma, beta, wqkv, bqkv, wproj,
     """Launch the resident variant of csrc/attention_block_bwd.cu (the LN1
     statistics, xn and dy * keep, the qkv and dattn products, the window
     pass, dxn, the LN backward, the split-T weight-gradient products and
-    their fixed-order sums): bf16 tokens, gradient and weights, fp32
-    bias/keep, N <= 64, C <= 384, C and the head dim multiples of 16; raises
-    on anything else.  Returns as the plain version; two launches give the
-    same bits."""
+    their fixed-order sums): bf16 or fp32 tokens with a gradient of the same
+    dtype (dx of it too), bf16 weights, fp32 bias/keep, N <= 64, C <= 384,
+    C and the head dim multiples of 16; raises on anything else.  Returns as
+    the plain version; two launches give the same bits."""
     out = _attention_bwd_cuda("fmmt_fused_attention_block_bwd",
                               RESIDENT_MAX_C, x, dy, gamma, beta, wqkv, bqkv,
                               wproj, bias, keep, eps)
@@ -315,21 +324,40 @@ def fused_attention_block_bwd_spill_cuda(x, dy, gamma, beta, wqkv, bqkv,
 fused_attention_block_bwd_spill_cuda.launches = 0
 
 
+def kernel_operands(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, keep):
+    """What FusedAttentionBlock hands the forward kernel for CUDA tensors: x
+    in its own dtype (kernels.token_operand), the weights in bf16, the bias
+    and keep in fp32."""
+    from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
+
+    return (kernels.token_operand(x),
+            *[kernel_operand(p) for p in (gamma, beta, wqkv, bqkv, wproj,
+                                          bproj)],
+            kernel_operand(bias, torch.float32),
+            None if keep is None else kernel_operand(keep, torch.float32))
+
+
+def bwd_kernel_operands(x, dy, gamma, beta, wqkv, bqkv, wproj, bias, keep):
+    """What FusedAttentionBlock's backward hands the kernels: x and dy in
+    their own dtype, the weights in bf16, the bias and keep in fp32."""
+    from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
+
+    return (kernels.token_operand(x), kernels.token_operand(dy),
+            *[kernel_operand(p) for p in (gamma, beta, wqkv, bqkv, wproj)],
+            kernel_operand(bias, torch.float32),
+            None if keep is None else kernel_operand(keep, torch.float32))
+
+
 class FusedAttentionBlock(torch.autograd.Function):
     """x + keep * proj(MHA(LN1(x)) + bias) with a recomputing backward: only
     the inputs are saved."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, keep, eps):
-        from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
-
         params = (gamma, beta, wqkv, bqkv, wproj, bproj)
         if x.is_cuda:
-            xk = kernel_operand(x)
-            keep = None if keep is None else kernel_operand(keep, torch.float32)
-            bias_k = kernel_operand(bias, torch.float32)
-            out = fused_attention_block_cuda(
-                xk, *[kernel_operand(p) for p in params], bias_k, keep, eps)
+            xk, *pk, bias_k, keep = kernel_operands(x, *params, bias, keep)
+            out = fused_attention_block_cuda(xk, *pk, bias_k, keep, eps)
         else:
             xk, bias_k = x.detach(), bias.detach()
             out = fused_attention_block_plain(xk, *params, bias_k, keep, eps)
@@ -340,18 +368,14 @@ class FusedAttentionBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
-
         xk, gamma, beta, wqkv, bqkv, wproj, bproj, bias, keep = \
             ctx.saved_tensors
         spill = backward_variant(xk.shape[-1]) == "spill"
         if xk.is_cuda:
             fn = (fused_attention_block_bwd_spill_cuda if spill
                   else fused_attention_block_bwd_cuda)
-            grads = fn(xk, kernel_operand(dy),
-                       *[kernel_operand(p)
-                         for p in (gamma, beta, wqkv, bqkv, wproj)],
-                       bias, keep, ctx.eps)
+            grads = fn(*bwd_kernel_operands(xk, dy, gamma, beta, wqkv, bqkv,
+                                            wproj, bias, keep), ctx.eps)
         else:
             fn = (fused_attention_block_bwd_spill_plain if spill
                   else fused_attention_block_bwd_plain)

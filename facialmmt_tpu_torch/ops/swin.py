@@ -35,9 +35,14 @@ Train mode (module.train()): stochastic depth draws one multiplier per image
 and block half (0 with probability rate, else 1/keep_prob) from a
 torch.Generator, handed to the kernels as `keep` or multiplied in on the plain
 routes; the head's BatchNorm normalises with batch statistics and updates its
-running statistics in place.  drop_rate / attn_drop_rate > 0 run (from the
-same generator) only with both halves on 'xla': the kernels carry drop-path
-only.
+running statistics in place.  drop_rate / attn_drop_rate > 0 draw from the
+same generator.  The kernels carry drop-path only, so a training forward
+follows the JAX package's per-half rule (facialmmt_tpu/ops/swin.py
+SwinBlock / WindowAttention): either rate above 0 sends an 'auto' attention
+half to the plain composition with the 'xla' core, attn_drop_rate above 0
+sends a 'pallas' / 'pair' core to the 'xla' core, and drop_rate above 0
+sends an 'auto' / 'pallas' MLP half to the plain one.  In eval dropout is the
+identity and every half keeps its route.
 
 Remat: when resolve_remat(cfg.remat, images, 512) holds and a graph is being
 built, each block runs under torch.utils.checkpoint
@@ -215,6 +220,8 @@ class WindowAttention(nn.Module):
         nw = 1 if mask is None else mask.shape[0]
         if impl == "pair" and (w % 2 or (nw > 1 and nw % 2)):
             impl = "pallas"
+        if impl in ("pallas", "pair") and self.training and attn_drop > 0.0:
+            impl = "xla"      # the window kernels carry no dropout
         if impl in ("pallas", "pair"):
             # the kernels take (W, h, N, hd); the transposes are copies here
             q, k, v = qkv.reshape(w, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
@@ -289,13 +296,17 @@ class SwinBlock(nn.Module):
                 generator: torch.Generator | None = None):
         """keep_attn / keep_mlp: optional (B,) per-image stochastic-depth
         multipliers of the two halves.  attention_impl / mlp_impl: the route
-        of each half (module docstring); `generator` feeds the dropouts of
-        the 'xla' routes."""
-        if attention_impl == "auto":
+        of each half (module docstring); `generator` feeds the dropouts,
+        which in a training forward send a half off its kernel as the JAX
+        package's rule does (module docstring)."""
+        dropping = self.training and (self.drop > 0.0 or self.attn_drop > 0.0)
+        if attention_impl == "auto" and not dropping:
             x = self._attention_half_fused(x, keep_attn)
         else:
-            x = self._attention_half(x, keep_attn, attention_impl, generator)
-        if mlp_impl == "xla":
+            x = self._attention_half(
+                x, keep_attn, "xla" if attention_impl == "auto"
+                else attention_impl, generator)
+        if mlp_impl == "xla" or (self.training and self.drop > 0.0):
             return self._mlp_half(x, keep_mlp, generator)
         b, l, c = x.shape
         out = fused_ln_mlp_residual(
@@ -476,12 +487,6 @@ class SwinTransformer(nn.Module):
         cfg = self.cfg
         attn_impl = attention_impl or cfg.attention_impl
         _check_impl("attention_impl", attn_impl, ATTENTION_IMPLS)
-        if (cfg.drop_rate or cfg.attn_drop_rate) and \
-                (attn_impl, cfg.mlp_impl) != ("xla", "xla"):
-            raise NotImplementedError(
-                "Swin drop_rate / attn_drop_rate > 0 need attention_impl='xla' "
-                "and mlp_impl='xla' (the reference config has both rates at "
-                "0.0; the kernels carry drop-path only)")
         x = dropout(self.patch_embed(x), cfg.drop_rate, self.training,
                     generator)
         shard = context.current()

@@ -946,3 +946,98 @@ def test_text_tower_local_heads_take_kernel_1(cuda_device, tmp_path):
         assert got["heads"] == [cfg.num_heads // 2] * cfg.num_layers
         assert got["launches"] == cfg.num_layers
         assert _rel(torch.tensor(got["out"]), want) <= BOUND
+
+
+def _as_f32_tokens(args, which=(0,)):
+    """The same operands with the tokens (positions `which`) in fp32: the
+    model's tensors under --compute_dtype float32."""
+    return tuple(a.float() if i in which else a for i, a in enumerate(args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,d", [(512, 512, 64), (100, 130, 64),
+                                     (38, 157, 32), (20, 20, 16)])
+def test_fused_attention_kernel_fp32(rng, cuda_device, sq, sk, d):
+    """The TF32 instantiation of kernel 1: fp32 out, within the bound of the
+    fp32 plain version (finer than the bf16 kernel's), the fully padded
+    row's uniform softmax, two launches bit for bit."""
+    q, k, v, bias = _attention_inputs(rng, cuda_device, 2, 4, sq, sk, d)
+    q, k, v = (t.float() for t in (q, k, v))
+    got = attention.fused_attention_cuda(q, k, v, bias)
+    want = attention.fused_attention_plain(q, k, v, bias)
+    again = attention.fused_attention_cuda(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= BOUND / 4
+    assert torch.equal(got, again)
+    mean_v = v[-1].mean(dim=1, keepdim=True).expand(4, sq, d)
+    torch.testing.assert_close(got[-1], mean_v, atol=1e-3, rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", ["attention", "mlp"])
+@pytest.mark.parametrize("stage", [0, 3])
+def test_forward_halves_take_fp32_tokens(rng, cuda_device, half, stage):
+    """Kernels 2 and 3 on fp32 tokens at Swin-tiny stages 0 and 3 (8 faces),
+    with keep: fp32 out within the bound of the fp32 plain version, two
+    launches bit for bit, and a keep of 0 passes the fp32 row through
+    unrounded."""
+    res, c, heads = SWIN_STAGES[stage]
+    nw = (res // 7) ** 2
+    if half == "attention":
+        w = 8 * nw
+        args = _as_f32_tokens(_block_inputs(rng, cuda_device, w, 49, c, heads,
+                                            nw if res > 7 else 1))
+        keep = torch.tensor([0.0, 1.25] * (w // 2), device=cuda_device)
+        kernel = fused_block.fused_attention_block_cuda
+        plain = fused_block.fused_attention_block_plain
+    else:
+        t = 8 * res * res
+        args = _as_f32_tokens(_mlp_inputs(rng, cuda_device, t, c))
+        keep = torch.tensor([0.0, 1.25] * (t // 2), device=cuda_device)
+        kernel = block_mlp.fused_ln_mlp_residual_cuda
+        plain = block_mlp.fused_ln_mlp_residual_plain
+    x = args[0] + 1e-3 * torch.randn_like(args[0])    # not bf16-representable
+    args = (x, *args[1:])
+    got = kernel(*args, keep)
+    again = kernel(*args, keep)
+    want = plain(*args, keep)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _rel(got, want) <= BOUND
+    assert torch.equal(got, again)
+    assert torch.equal(got[0], x[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half,stage", [("mlp", 0), ("mlp", 3),
+                                        ("attention", 0), ("attention", 3)])
+def test_backward_kernels_take_fp32_tokens(rng, cuda_device, half, stage):
+    """Kernels 4-6 on fp32 x and dy (8 images): fp32 dx, every output within
+    the bound of the fp32 plain backward, two launches bit for bit."""
+    kernel, plain, names, args = _stage_bwd_args(rng, cuda_device, half,
+                                                 stage, True, images=8)
+    args = _as_f32_tokens(args, (0, 1))
+    got = kernel(*args)
+    again = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32
+    _hold_grads(names, got, want)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_other_token_dtypes(rng, cuda_device):
+    """No quiet cast: fp16 tokens, or a gradient of another dtype than x,
+    raise."""
+    args = _mlp_inputs(rng, cuda_device, 64, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        block_mlp.fused_ln_mlp_residual_cuda(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="dtype"):
+        block_mlp.fused_ln_mlp_residual_bwd_cuda(
+            args[0].float(), args[0], *args[1:6])
+    q, k, v, bias = _attention_inputs(rng, cuda_device, 1, 2, 8, 8, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        attention.fused_attention_cuda(q.float(), k, v, bias)

@@ -7,7 +7,9 @@ A CUDA kernel cannot run here, so what it computes is mirrored step by step:
     from -inf, P rounded to bf16 before P v, the last partial tile masked;
     without the rounding it equals the fp32 plain version and JAX's
     _reference_attention at atol 1e-5, rtol 1e-4 (summation order only); with
-    it, in bf16, the plain version within the kernels' 2e-2 bound;
+    it, in bf16, the plain version within the kernels' 2e-2 bound; its fp32
+    instantiation (q, k, v, P and v rounded to TF32 as mma.sync's operands)
+    within TF32_BOUND of the fp32 plain version and JAX's fp32 reference;
   * kernel 11: the tile plan (which block computes which output tile, how
     many blocks, how much shared memory) and the chunked LayerNorm + product,
     against fused_merge_plain and JAX's _reference at 4e-3 (the JAX suite's
@@ -46,6 +48,18 @@ TRANSITIONS = [(64 * 28 * 28, 384, 192), (64 * 14 * 14, 768, 384),
                (64 * 7 * 7, 1536, 768)]
 
 
+# the fp32 instantiation: operands keep TF32's 10 mantissa bits (relative
+# rounding 2^-11), accumulated in fp32 over 16-64 terms of mixed sign
+TF32_BOUND = 2e-3
+
+
+def tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to the nearest value with
+    a 10-bit mantissa, ties away from zero (the low 13 bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def _rel(got, want):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
@@ -60,15 +74,20 @@ def live_tiles(bias):
             else int(j) // KEY_TILE + 1 for j in last]
 
 
-def tiled_attention(q, k, v, bias, round_p=True, skip=True):
+def tiled_attention(q, k, v, bias, round_p=True, skip=True,
+                    operands_tf32=False):
     """csrc/attention.cu's per-row algorithm in fp32: for each tile of 64 keys
     (the last one zero-filled past Sk and masked to -inf) x = (q.k + bias)
     log2(e), m' = max(m, max x) with m = -inf at the start, alpha = 2^(m -
     m'), p = 2^(x - m'), l = l alpha + sum p, O = O alpha + bf16(p) v; the
-    output is O / l.  With `skip`, a batch row stops after live_tiles."""
+    output is O / l.  With `skip`, a batch row stops after live_tiles.  With
+    `operands_tf32` (the fp32 instantiation) q, k, v and p are rounded to
+    TF32 where they enter the products instead."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     q, k, v, bias = q.float(), k.float(), v.float(), bias.float()
+    if operands_tf32:
+        q, k, v = tf32(q), tf32(k), tf32(v)
     m = torch.full((b, h, sq, 1), -math.inf)
     l = torch.zeros((b, h, sq, 1))
     o = torch.zeros((b, h, sq, d))
@@ -89,7 +108,9 @@ def tiled_attention(q, k, v, bias, round_p=True, skip=True):
         alpha = torch.exp2(m - mn)
         p = torch.exp2(x - mn)
         l = torch.where(on, l * alpha + p.sum(-1, keepdim=True), l)
-        if round_p:
+        if operands_tf32:
+            p = tf32(p)
+        elif round_p:
             p = p.to(torch.bfloat16).float()
         o = torch.where(on, o * alpha + p @ vt, o)
         m = torch.where(on, mn, m)
@@ -132,6 +153,40 @@ def test_tiled_attention_matches_plain_and_jax(rng, sk, d):
     jax_bf16 = jattn._reference_attention(
         *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jnp.asarray(bias))
     assert _rel(rounded, np.asarray(jax_bf16, np.float32)) <= KERNEL_BOUND
+
+
+def test_tf32_rounds_as_cvt_rna():
+    """Ten mantissa bits kept, to nearest, ties away from zero, the sign
+    apart; values TF32 holds stay as they are."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp, 1 + ulp / 2, 1 + ulp / 2 - 2 ** -20,
+                      -(1 + ulp / 2), 3.0, 0.0, -2.5])
+    want = torch.tensor([1.0, 1 + ulp, 1 + ulp, 1.0, -(1 + ulp), 3.0, 0.0,
+                         -2.5])
+    assert torch.equal(tf32(x), want)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("sk", [512, 157])
+def test_tf32_instantiation_matches_plain_and_jax(rng, sk, d):
+    """The fp32 instantiation (--compute_dtype float32): q, k, v, P and v
+    rounded to TF32 where they enter the products, the softmax in fp32; the
+    fp32 plain version and JAX's fp32 reference within TF32_BOUND, about a
+    tenth of the bf16 kernel's error; the fully padded row the mean of v."""
+    q, k, v, bias = _attention_inputs(rng, 3, 2, 40, sk, d)
+    got = tiled_attention(T(q), T(k), T(v), T(bias),
+                          operands_tf32=True).numpy()
+    plain = attention.fused_attention_plain(T(q), T(k), T(v), T(bias))
+    assert plain.dtype == torch.float32
+    assert _rel(got, plain.numpy()) <= TF32_BOUND
+    want = np.asarray(jattn._reference_attention(q, k, v, jnp.asarray(bias)))
+    assert _rel(got, want) <= TF32_BOUND
+    bf16 = tiled_attention(*(T(a).to(torch.bfloat16) for a in (q, k, v)),
+                           T(bias)).numpy()
+    assert _rel(got, want) < _rel(bf16, want)
+    np.testing.assert_allclose(got[-1], np.broadcast_to(
+        v[-1].mean(axis=1, keepdims=True), got[-1].shape), atol=2e-3,
+        rtol=2e-3)
 
 
 @pytest.mark.parametrize("round_p", [False, True])

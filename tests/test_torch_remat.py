@@ -141,6 +141,30 @@ def test_swin_xla_route_dropout_remat_equals_plain():
     assert torch.equal(seen[0][2], seen[1][2])
 
 
+
+def test_swin_auto_route_dropout_remat_equals_plain():
+    """The default route with Swin's dropouts on: the training forward sends
+    both halves to the plain 'xla' composition (JAX's rule), whose draws the
+    checkpointed blocks replay."""
+    from facialmmt_tpu_torch.ops.swin import SwinTransformer
+
+    base = port_config(FacialMMTConfig.tiny()).swin
+    base = rep(base, attention_impl="auto", mlp_impl="auto", drop_rate=0.1,
+               attn_drop_rate=0.1, drop_path_rate=0.2)
+    x = torch.randn(4, base.img_size, base.img_size, 3,
+                    generator=torch.Generator().manual_seed(0))
+    seen = []
+    for on in (False, True):
+        torch.manual_seed(0)
+        m = SwinTransformer(rep(base, remat=on)).train()
+        g = torch.Generator().manual_seed(3)
+        y = m(x, generator=g)
+        y.square().sum().backward()
+        seen.append((y.detach(), _grads(m), g.get_state()))
+    assert torch.equal(seen[0][0], seen[1][0])
+    _assert_same(seen[0][1], seen[1][1], "Swin gradients")
+    assert torch.equal(seen[0][2], seen[1][2])
+
 def test_aux_gradients_with_remat_match_jax(weights):
     """The remat aux gradients against JAX's aux gradients with
     SwinConfig.remat=True (nn.remat on each block)."""

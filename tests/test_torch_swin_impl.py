@@ -213,34 +213,126 @@ def test_pair_takes_the_single_window_kernel_at_an_odd_window_count(
     assert _rel(got, want) <= BF16_BIAS
 
 
-def test_dropouts_run_on_the_xla_routes_only(rng):
-    """drop_rate / attn_drop_rate > 0: identity in eval, drawn from the
-    generator in train mode (same seed, same output; the RNG streams differ
-    from JAX's, so no parity), refused on a kernel route."""
+DROPOUT_ROUTES = {"xla-xla": dict(attention_impl="xla", mlp_impl="xla"),
+                  "pallas-xla": dict(attention_impl="pallas", mlp_impl="xla"),
+                  "xla-auto": dict(attention_impl="xla", mlp_impl="auto"),
+                  "auto-auto": dict(attention_impl="auto", mlp_impl="auto")}
+
+
+@pytest.mark.parametrize("route", list(DROPOUT_ROUTES))
+def test_dropouts_run_on_the_xla_routes_only(rng, interpret_window_kernels,
+                                             route):
+    """drop_rate / attn_drop_rate > 0 on every route: in eval dropout is the
+    identity, the halves keep their routes and the port equals JAX's
+    SwinTransformer with the same rates and route (the 'pallas' core in
+    interpret mode on the JAX side) and the port's rate-0 model; in a
+    training forward the dropouts draw from the generator (same seed, same
+    output; the RNG streams differ from JAX's, so no parity) on the 'xla'
+    halves that JAX's rule sends them to."""
     rates = dict(drop_rate=0.2, attn_drop_rate=0.2)
-    cfg = port_config(_swin_config(attention_impl="xla", mlp_impl="xla"))
-    torch.manual_seed(0)
-    plain = pswin.SwinTransformer(cfg).eval()
-    dropped = pswin.SwinTransformer(dataclasses.replace(cfg, **rates))
-    dropped.load_state_dict(plain.state_dict(), strict=True)
-    x = T(rng.normal(size=(4, 32, 32, 3)).astype(np.float32))
-    gen = lambda seed: torch.Generator().manual_seed(seed)
+    jcfg = _swin_config(**DROPOUT_ROUTES[route], **rates)
+    imgs = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+    variables = _swin_variables(jcfg, rng, imgs)
+    sd = _swin_state_dict(variables)
+    dropped = _load(pswin.SwinTransformer(port_config(jcfg)), sd)
+    plain = _load(pswin.SwinTransformer(port_config(
+        dataclasses.replace(jcfg, drop_rate=0.0, attn_drop_rate=0.0))), sd)
+    x = T(imgs)
     with torch.no_grad():
-        want = plain(x)
-        assert torch.equal(dropped.eval()(x), want)
-        dropped.train()
+        got = dropped(x)
+        assert torch.equal(got, plain(x))
+    want = np.asarray(jax.jit(jswin.SwinTransformer(jcfg).apply)(variables,
+                                                                  imgs))
+    assert _rel(got.numpy(), want) <= SAME_MATH
+    gen = lambda seed: torch.Generator().manual_seed(seed)
+    dropped.train()
+    with torch.no_grad():
         a = dropped(x, generator=gen(3), use_running_average=True)
         b = dropped(x, generator=gen(3), use_running_average=True)
         c = dropped(x, generator=gen(4), use_running_average=True)
     assert torch.equal(a, b)
-    assert not torch.equal(a, c) and not torch.equal(a, want)
-    for route in (dict(attention_impl="pallas", mlp_impl="xla"),
-                  dict(attention_impl="xla", mlp_impl="auto"),
-                  dict(attention_impl="auto", mlp_impl="auto")):
-        kernel_route = pswin.SwinTransformer(
-            dataclasses.replace(cfg, **rates, **route)).eval()
-        with pytest.raises(NotImplementedError, match="drop_rate"):
-            kernel_route(x)
+    assert not torch.equal(a, c) and not torch.equal(a, got)
+
+
+def _deep_config(**kw):
+    """Four stages of depths (2, 2, 6, 2): Swin-tiny's twelve blocks at a
+    width the CPU runs in a second; 32 x 32 tokens keep the 4 x 4 windows
+    (and the relative-position table) at every stage."""
+    return SwinConfig(img_size=64, patch_size=2, embed_dim=8,
+                      depths=(2, 2, 6, 2), num_heads=(1, 2, 4, 8),
+                      window_size=4, out_feature_dim=16, **kw)
+
+
+def _count_halves(monkeypatch):
+    """Calls of the block halves' kernel entry points (and the window core
+    of the 'pallas' route), counted by monkeypatching ops/swin.py."""
+    calls = {"attention": 0, "mlp": 0, "core": 0}
+    for key, name in (("attention", "fused_attention_block"),
+                      ("mlp", "fused_ln_mlp_residual"),
+                      ("core", "fused_window_attention")):
+        real = getattr(pswin, name)
+
+        def counted(*a, key=key, real=real, **k):
+            calls[key] += 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(pswin, name, counted)
+    return calls
+
+
+# (attention_impl, drop_rate, attn_drop_rate) -> the calls of a training
+# forward under JAX's per-half rule (facialmmt_tpu/ops/swin.py: the fused
+# attention half needs both rates at 0, the window core attn_drop at 0, the
+# fused MLP half drop at 0)
+TRAIN_RULE = {
+    ("auto", 0.0, 0.0): dict(attention=12, mlp=12, core=0),
+    ("auto", 0.0, 0.1): dict(attention=0, mlp=12, core=0),
+    ("auto", 0.1, 0.0): dict(attention=0, mlp=0, core=0),
+    ("auto", 0.1, 0.1): dict(attention=0, mlp=0, core=0),
+    ("pallas", 0.1, 0.0): dict(attention=0, mlp=0, core=12),
+    ("pallas", 0.0, 0.1): dict(attention=0, mlp=12, core=0),
+}
+
+
+@pytest.mark.parametrize("impl,drop,attn_drop", list(TRAIN_RULE))
+def test_drop_rates_route_each_half_as_jax_does(rng, monkeypatch, impl, drop,
+                                                attn_drop):
+    """Eval launches both halves' kernel entry points 12 / 12 times (the
+    window core 12 on 'pallas') whatever the rates; a training forward (with
+    drop-path on) takes the kernel of a half exactly where JAX's rule does."""
+    calls = _count_halves(monkeypatch)
+    cfg = port_config(_deep_config(attention_impl=impl, drop_rate=drop,
+                                   attn_drop_rate=attn_drop,
+                                   drop_path_rate=0.2))
+    torch.manual_seed(0)
+    model = pswin.SwinTransformer(cfg).eval()
+    x = T(rng.normal(size=(2, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        model(x)
+    assert calls == (dict(attention=12, mlp=12, core=0) if impl == "auto"
+                     else dict(attention=0, mlp=12, core=12))
+    calls.update(attention=0, mlp=0, core=0)
+    model.train()
+    y = model(x, generator=torch.Generator().manual_seed(1))
+    assert calls == TRAIN_RULE[impl, drop, attn_drop]
+    y.square().sum().backward()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+               if p.grad is not None)
+
+
+def test_drop_rate_eval_on_the_default_route_matches_jax(rng):
+    """Swin-tiny's depths with drop_rate 0.1 on 'auto': eval equals JAX's
+    SwinTransformer eval with the same rates (both dropouts the identity)."""
+    jcfg = _deep_config(drop_rate=0.1, attn_drop_rate=0.1)
+    imgs = rng.normal(size=(3, 64, 64, 3)).astype(np.float32)
+    variables = _swin_variables(jcfg, rng, imgs)
+    port = _load(pswin.SwinTransformer(port_config(jcfg)),
+                 _swin_state_dict(variables))
+    with torch.no_grad():
+        got = port(T(imgs)).numpy()
+    want = np.asarray(jax.jit(jswin.SwinTransformer(jcfg).apply)(variables,
+                                                                  imgs))
+    assert _rel(got, want) <= SAME_MATH
 
 
 def _hold_leaves(got, want, what, tol):
@@ -302,6 +394,51 @@ def test_aux_step_under_pallas_xla_window_matches_jax(
     pair.jstate, jloss = jstep(pair.jstate, images, labels,
                                jax.random.PRNGKey(1))
     ploss = pstep(pair.pstate, torch.tensor(images), torch.tensor(labels))
+    assert abs(float(ploss) - float(jloss)) <= 1e-4
+    want = _np_tree(pair.variables())
+    got = from_jax.to_jax_tree(
+        {k: v.detach().numpy() for k, v in pair.pmodel.state_dict().items()},
+        like=want)
+    _hold_leaves(got, want, "state after the step", 1e-3)
+
+
+def test_aux_step_with_drop_path_only_matches_jax(rng, monkeypatch):
+    """A training step whose only stochastic part is drop-path (rate 0.2,
+    dropout 0, deterministic gumbel) keeps the default route's kernels (their
+    plain versions here) and equals JAX's auxiliary step: both sides take the
+    same per-image multipliers, fed to JAX's DropPath and to the port's
+    sample_drop_path_keep in the order the blocks draw them.  1e-3 of each
+    leaf's max, the loss within 1e-4."""
+    cfg = nodrop_config()
+    cfg = cfg.replace(swin=dataclasses.replace(cfg.swin, depths=(2, 2),
+                                               drop_path_rate=0.2))
+    batch = make_multimodal_batch(rng, cfg, b=2)
+    pair = Pair(rng, cfg, batch)
+    images = np.asarray(batch["faces"][:6])
+    labels = rng.integers(0, 7, size=6).astype(np.int32)
+    draws = [((rng.random(6) > 0.2) / 0.8).astype(np.float32)
+             for _ in range(6)]
+    jax_draws, port_draws = list(draws), list(draws)
+
+    def jax_drop_path(self, x, *, deterministic=True):
+        if deterministic or self.rate == 0.0:
+            return x
+        keep = jnp.asarray(jax_draws.pop(0))
+        return x * keep.reshape((-1,) + (1,) * (x.ndim - 1)).astype(x.dtype)
+
+    monkeypatch.setattr(jswin.DropPath, "__call__", jax_drop_path)
+    monkeypatch.setattr(pswin, "sample_drop_path_keep",
+                        lambda b, rate, gen, dev: torch.tensor(
+                            port_draws.pop(0)))
+    calls = _count_halves(monkeypatch)
+    jstep = jax.jit(jsteps.make_aux_train_step(pair.jmodel, pair.swin_tx))
+    pstep = psteps.make_aux_train_step(pair.pmodel, compute_dtype="float32")
+    pair.jstate, jloss = jstep(pair.jstate, images, labels,
+                               jax.random.PRNGKey(0))
+    ploss = pstep(pair.pstate, torch.tensor(images), torch.tensor(labels))
+    # the blocks of rate > 0 (the first block's is 0): 3 blocks x 2 halves
+    assert not jax_draws and not port_draws
+    assert calls == dict(attention=4, mlp=4, core=0)
     assert abs(float(ploss) - float(jloss)) <= 1e-4
     want = _np_tree(pair.variables())
     got = from_jax.to_jax_tree(
