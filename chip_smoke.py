@@ -196,9 +196,12 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      route: a 64-face eval launches kernels 2 / 3 12 / 12 times and equals
      the rate-0 model bit for bit; an auxiliary step with both rates
      launches no kernel 2-6 and one with attn_drop_rate alone only kernels
-     3 and 4 (JAX's per-half rule), finite losses; (b) kernels 1-6 on fp32
+     3 and 4 (JAX's per-half rule), finite losses; (b) kernels 1-12 on fp32
      tokens against their fp32 plain versions at phase 3's shapes (kernel 1
-     in TF32 beside SDPA in fp32); (c) the BERT-architecture towers through
+     and kernels 8-10 in TF32 beside SDPA in fp32; kernels 8-11 each below
+     the error of the same call through their former bf16 boundary, printed
+     beside it; kernel 7 bit for bit kernel 2 then kernel 3, kernel 12 bit
+     for bit the index gather); (c) the BERT-architecture towers through
      `main.run` at full width: MELD T+A+V with --plm_name bert-large
      (--doEval 1 twice, bit for bit, one eval batch against the CPU in
      fp32, one training epoch) and M3ED with chinese-roberta-large (T one
@@ -207,9 +210,15 @@ also written there as JSON.  Phases (each prints lines; any failure raises and t
      per eval batch and never in a train step; (d) --compute_dtype
      float32: an (8, 64) pack in fp32 on the card (kernels 1 / 2 / 3 24 /
      12 / 12 times) against phase 4's CPU answer within FP32_BOUND, the
-     same pack through the former bf16 boundary printed beside it, an
-     auxiliary step (kernels 4 / 5 / 6 12 / 10 / 2 times) and a target step
-     in fp32, finite losses.
+     same pack through the former bf16 boundary printed beside it; the same
+     weights on the Swin routes ('pallas', 'auto', 'auto') and ('pair',
+     'auto', 'auto') (kernels 1 / 3 / 8 or 9 24 / 12 / 12 times, kernel 2
+     never) against the same route in fp32 on the CPU within FP32_BOUND,
+     the reading through kernels 8 / 9's former bf16 boundary beside it, and
+     its faces' Swin logits nearer the CPU's than through that boundary; an
+     auxiliary step (kernels 4 / 5 / 6 12 / 10 / 2 times), one
+     on ('pallas', 'xla', 'window') (kernel 8 12 times) and a target step in
+     fp32, finite losses.
 The line before the last is {"kernels": [...]} and the last line is
 {"ok": true, "device": {...}}.  Exits non-zero with no result when no CUDA
 device is visible or the package is missing.
@@ -4541,11 +4550,6 @@ def tooling_roundtrip(torch, dev, gpu_name, cli_root, work, extra=()):
 
 # --------------------------------------------------------- configurations --
 
-# Kernels with an fp32 instantiation (phase 16 (b)); kernels 7-12 keep their
-# bf16 boundary
-FP32_KERNELS = ("fused_attention", "fused_attention_block",
-                "fused_ln_mlp_residual", "fused_ln_mlp_residual_bwd",
-                "fused_attention_block_bwd", "fused_attention_block_bwd_spill")
 # launches of one (8, 64) eval pack and of one auxiliary step (12 Swin
 # blocks, 10 of them at C <= 384)
 PACK_LAUNCHES = {"fused_attention": 24, "fused_attention_block": 12,
@@ -4554,6 +4558,12 @@ AUX_STEP_LAUNCHES = {"fused_attention_block": 12, "fused_ln_mlp_residual": 12,
                      "fused_ln_mlp_residual_bwd": 12,
                      "fused_attention_block_bwd": 10,
                      "fused_attention_block_bwd_spill": 2}
+# phase 16 (d)'s float32 packs on the window-attention routes, and the
+# kernel each route's cores launch once a block (64 faces: every stage's
+# window count is even, so 'pair' pairs every block's windows)
+FP32_ROUTES = ((("pallas", "auto", "auto"), "fused_window_attention"),
+               (("pair", "auto", "auto"), "paired_window_attention"))
+FP32_AUX_ROUTE = ("pallas", "xla", "window")
 SWIN_DROP = 0.1        # phase 16's Swin drop_rate and attn_drop_rate
 # The (8, 64) pack under --compute_dtype float32 on the card against the
 # same weights in fp32 on the CPU: centred logits max|d| <= FP32_BOUND *
@@ -4699,20 +4709,26 @@ def configurations_drop_rates(torch, dev, gpu_name, cfg):
 
 
 def fp32_kernel_rows(torch, dev, rng):
-    """(b) Kernels 1-6 on fp32 tokens (x, dy; kernel 1's q, k, v) against
-    their plain versions on the same operands, at the shapes of phase 1:
-    kernel 1 at the text tower's 8 x 16 x 512 x 64 (padded; unpadded and
-    the fusion stacks' shapes beside it, outside the row's sums; the
-    library call SDPA in fp32), kernels 2 and 3 at every stage of a 64-face
-    pack (then with keep at 150 images, checked only), kernels 4-6 at every
-    stage of 150 images.  The bound takes the FLOPs at TF32's rate for
-    kernel 1 and at bf16's for kernels 2-6, whose products keep bf16
-    operands.  Returns the rows as phase_kernels does."""
+    """(b) Kernels 1-12 on fp32 tokens (x, dy; the attention cores' q, k, v)
+    against their plain versions on the same operands, at the shapes of
+    phase 1: kernel 1 at the text tower's 8 x 16 x 512 x 64 (padded;
+    unpadded and the fusion stacks' shapes beside it, outside the row's
+    sums; the library call SDPA in fp32), kernels 2 and 3 at every stage of
+    a 64-face pack (then with keep at 150 images, checked only), kernels 4-6
+    at every stage of 150 images, kernels 7-10 at the 7 stage shapes of a
+    64-face pack, kernel 11 at its 3 transitions, kernel 12 at stages 0-2
+    both ways.  The bound takes the FLOPs at TF32's rate for kernels 1 and
+    8-10 and at bf16's for kernels 2-7 and 11, whose products keep bf16
+    operands.  Kernels 8-11 are also run through their former bf16 boundary
+    (fp32_below_boundary).  Returns the rows as phase_kernels does."""
     import torch.nn.functional as F
 
     from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
-                                                 fused_block)
-    from facialmmt_tpu_torch.ops.swin import shifted_window_mask
+                                                 fused_block, merge_kernel,
+                                                 shift_permute,
+                                                 window_attention)
+    from facialmmt_tpu_torch.ops.swin import (shifted_window_mask,
+                                              shifted_window_perms)
 
     bf = lambda a: torch.tensor(a).to(dev, torch.bfloat16).contiguous()
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
@@ -4840,6 +4856,120 @@ def fp32_kernel_rows(torch, dev, rng):
                     label=f"fp32 stage {stage} T={t} C={c}"
                           f"{' with keep' if keep else ''}")
         torch.cuda.empty_cache()
+
+    # kernel 7: the whole block at every stage shape of a 64-face pack; bit
+    # for bit kernel 2 then kernel 3 on the same fp32 tokens (the split,
+    # timed beside it)
+    for stage, (res, c, heads) in enumerate(SWIN_STAGES):
+        nw = (res // 7) ** 2
+        for shifted in ((False, True) if res > 7 else (False,)):
+            w = FACES * nw
+            args = (*block_args(w, c, heads, res, shifted),
+                    *mlp_args(1, c)[1:])
+            label = (f"fp32 stage {stage} W={w} C={c} h={heads} "
+                     f"{'shifted' if shifted else 'unshifted'}")
+            compare(torch, "fused_whole_block",
+                    fused_block.fused_whole_block_cuda,
+                    fused_block.fused_whole_block_plain, args, results,
+                    flops=(attn_block_flops(w, 49, c, False)
+                           + mlp_flops(w * 49, c, False)), label=label,
+                    bitwise=True)
+            if not nan_filled_launches(
+                    torch, fused_block.fused_whole_block_cuda, args):
+                raise AssertionError(f"fused_whole_block {label}: a launch "
+                                     f"into NaN-filled memory differs")
+            split = lambda: block_mlp.fused_ln_mlp_residual_cuda(
+                fused_block.fused_attention_block_cuda(*args[:8]).view(-1, c),
+                *args[8:]).view(w, 49, c)
+            if not torch.equal(fused_block.fused_whole_block_cuda(*args),
+                               split()):
+                raise AssertionError(f"fused_whole_block {label}: not bit "
+                                     f"for bit kernel 2 then kernel 3")
+            entry = results["fused_whole_block"]["shapes"][-1]
+            entry["split_ms"] = cuda_ms(torch, split, reps=KERNEL_REPS)
+            entry["split_device_ms"] = device_ms(torch, split)
+            print(f"kernel fused_whole_block {label}: bit for bit kernel 2 "
+                  f"then kernel 3 on the same fp32 tokens, the split "
+                  f"{entry['split_ms']:.4f} ms "
+                  f"({fmt_ms(entry['split_device_ms'])} on the device alone)")
+        torch.cuda.empty_cache()
+
+    # kernels 8, 9, 10 at every stage shape of a 64-face pack with the bf16
+    # bias; the library call SDPA in fp32 with the bias as attn_mask
+    n, hd = 49, 32
+    for stage, (res, c, heads) in enumerate(SWIN_STAGES):
+        w = FACES * (res // 7) ** 2
+        for nw in (((res // 7) ** 2, 1) if res > 7 else (1,)):
+            rel = rng.normal(size=(1, heads, n, n)) * 0.5
+            mask = shifted_window_mask(res, res, 7, 3)[:, None] if nw > 1 else 0
+            q, k, v = (f32(rng.normal(size=(w, heads, n, hd)) * scale)
+                       for scale in (hd ** -0.5, 1.0, 1.0))
+            bias = f32(rel + mask).to(torch.bfloat16)
+            sdpa = [t.view(w // nw, nw * heads, n, hd) for t in (q, k, v)]
+            sdpa_mask = bias.float().view(1, nw * heads, n, n)
+            label = f"fp32 stage {stage} W={w} h={heads} nW={nw}"
+            for name in WINDOW_KERNELS:
+                kernel = getattr(window_attention, name + "_cuda")
+                compare(torch, name, kernel,
+                        window_attention.window_attention_plain,
+                        (q, k, v, bias), results,
+                        flops=4.0 * w * heads * n * n * hd, label=label,
+                        bitwise=True, peak_flops=PEAK_TF32_FLOPS,
+                        library=lambda: F.scaled_dot_product_attention(
+                            *sdpa, attn_mask=sdpa_mask, scale=1.0))
+                fp32_below_boundary(
+                    torch, name, label, results, kernel(q, k, v, bias),
+                    kernel(*map(bf16_boundary, (q, k, v)), bias),
+                    window_attention.window_attention_plain(q, k, v, bias))
+        torch.cuda.empty_cache()
+
+    # kernel 11 at the three stage transitions of a 64-face pack; no single
+    # PyTorch call computes it: layer_norm + linear in fp32, two calls, are
+    # timed for information
+    for stage, (res, c, _) in enumerate(SWIN_STAGES[:-1]):
+        rows = (res // 2) ** 2
+        args = (f32(rng.normal(size=(FACES, rows, 4 * c))),
+                bf(1 + 0.1 * rng.normal(size=4 * c)),
+                bf(0.1 * rng.normal(size=4 * c)),
+                bf(rng.normal(size=(4 * c, 2 * c)) / np.sqrt(4 * c)))
+        label = f"fp32 transition {stage} T={FACES * rows} 4C={4 * c}"
+        compare(torch, "fused_merge", merge_kernel.fused_merge_cuda,
+                merge_kernel.fused_merge_plain, args, results,
+                flops=2.0 * FACES * rows * 4 * c * 2 * c, label=label,
+                bitwise=True)
+        fp32_below_boundary(
+            torch, "fused_merge", label, results,
+            merge_kernel.fused_merge_cuda(*args),
+            merge_kernel.fused_merge_cuda(bf16_boundary(args[0]), *args[1:]),
+            merge_kernel.fused_merge_plain(*args))
+        x, gamma, beta = args[0], args[1].float(), args[2].float()
+        wt = args[3].float().t().contiguous()
+        two_calls = lambda: F.linear(
+            F.layer_norm(x, (4 * c,), gamma, beta, 1e-5), wt)
+        print(f"kernel fused_merge {label}: F.layer_norm + F.linear (two "
+              f"library calls, fp32) "
+              f"{cuda_ms(torch, two_calls, reps=KERNEL_REPS):.4f} ms "
+              f"({fmt_ms(device_ms(torch, two_calls))} on the device alone)")
+
+    # kernel 12 on fp32 rows: stages 0-2 both ways, bit for bit the index
+    # gather, which is its library call
+    for stage, (res, c, _) in enumerate(SWIN_STAGES[:-1]):
+        x = f32(rng.normal(size=(FACES, res * res, c)))
+        for inverse, idx in zip((False, True),
+                                shifted_window_perms(res, res, 7, 3)):
+            idx = torch.from_numpy(idx).to(dev)
+            kernel = lambda x, inverse=inverse: shift_permute.shift_permute_cuda(
+                x, res, res, 7, 3, inverse)
+            plain = lambda x, inverse=inverse: shift_permute.shift_permute_plain(
+                x, res, res, 7, 3, inverse)
+            compare(torch, "shift_permute", kernel, plain, (x,), results,
+                    flops=0, library=lambda: x.index_select(1, idx),
+                    label=f"fp32 stage {stage} B={FACES} L={res * res} C={c} "
+                          f"{'inverse' if inverse else 'forward'}")
+            if not torch.equal(kernel(x), x.index_select(1, idx)):
+                raise AssertionError(f"shift_permute fp32 stage {stage}: not "
+                                     f"bit for bit the index gather")
+        torch.cuda.empty_cache()
     for r in results.values():
         r["bound_by"] = ("operations" if r.pop("flops_ms") >= r.pop("bytes_ms")
                          else "bytes")
@@ -4847,10 +4977,26 @@ def fp32_kernel_rows(torch, dev, rng):
 
 
 def bf16_boundary(t):
-    """The tokens as kernels 1-6 took them before they had an fp32
+    """The tokens as kernels 1-11 took them before they had an fp32
     instantiation: cast to bf16 at the boundary (the Functions cast the
     result back to the tokens' dtype)."""
     return t.detach().bfloat16().contiguous()
+
+
+def fp32_below_boundary(torch, name, label, results, got, before, want):
+    """A kernel's fp32 output `got` nearer its fp32 plain version `want`
+    than `before`, the same call through the former bf16 boundary; both
+    errors printed (of max|plain|) and kept on the shape's entry."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    err_before = float((before.float() - want.float()).abs().max())
+    if not err < err_before:
+        raise AssertionError(f"{name} {label}: fp32 max|d| {err} not below "
+                             f"the former bf16 boundary's {err_before}")
+    results[name]["shapes"][-1].update(
+        rel_err=err / scale, bf16_boundary_rel_err=err_before / scale)
+    print(f"kernel {name} {label}: max|d|/max|plain| {err / scale:.3g} in "
+          f"fp32, {err_before / scale:.3g} through the former bf16 boundary")
 
 
 def hold_fp32_pack(finite, diff, diff_before, scale):
@@ -4863,6 +5009,17 @@ def hold_fp32_pack(finite, diff, diff_before, scale):
             f"{scale}")
 
 
+def hold_fp32_route(finite, diff, scale, fer_diff, fer_before):
+    """A float32 pack on a window-attention route: its centred logits
+    within FP32_BOUND of the CPU's, and its faces' Swin logits nearer the
+    CPU's than through the cores' former bf16 boundary."""
+    if not (finite and diff <= FP32_BOUND * scale and fer_diff < fer_before):
+        raise AssertionError(
+            f"float32 route pack vs CPU fp32: centred logits max|d| {diff} "
+            f"against {FP32_BOUND} * {scale}; Swin logits max|d| {fer_diff} "
+            f"(the former bf16 boundary {fer_before})")
+
+
 def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
     """(b) The model under --compute_dtype float32 on the card.  One (8, 64)
     eval pack of `cfg` (EmotionServer in fp32, deterministic gumbel): kernels
@@ -4870,9 +5027,11 @@ def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
     FP32_BOUND of the same weights in fp32 on the CPU (`reference`: phase
     4's pack, weights and CPU answer; made here when None); the same pack
     through the former bf16 boundary (bf16_boundary) printed beside it and
-    held above the bound.  One auxiliary step in fp32 (kernels 2-6 exactly
-    AUX_STEP_LAUNCHES), one target step in fp32 (TARGET_STEP_LAUNCHES),
-    finite losses, their times."""
+    held above the bound.  The same pack and weights on each of
+    FP32_ROUTES (float32_route_pack).  One auxiliary step in fp32 (kernels
+    2-6 exactly AUX_STEP_LAUNCHES) and one on FP32_AUX_ROUTE (kernel 8 once
+    a block), one target step in fp32 (TARGET_STEP_LAUNCHES), finite
+    losses, their times."""
     from unittest import mock
 
     from facialmmt_tpu_torch.config import RuntimeConfig
@@ -4885,9 +5044,9 @@ def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
     from facialmmt_tpu_torch.train.trainer import Trainer
 
     det = cfg.replace(runtime=RuntimeConfig(deterministic_gumbel=True))
-    fp32_server = lambda sd, device: EmotionServer(
-        det, {k: (v.float() if v.is_floating_point() else v)
-              for k, v in sd.items()}, max_batch=8, face_capacity=FACES,
+    fp32_server = lambda sd, device, c=det: EmotionServer(
+        c, {k: (v.float() if v.is_floating_point() else v)
+            for k, v in sd.items()}, max_batch=8, face_capacity=FACES,
         dtype=torch.float32, transfer_dtype=np.float32, device=device)
     if reference is None:
         server = EmotionServer(cfg, max_batch=8, face_capacity=FACES,
@@ -4929,6 +5088,12 @@ def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
           f"{diff_before:.3g} = {diff_before / scale:.3g} of max|logit|; "
           f"launches {pack_launches}; benchmark_latency(5) p50 "
           f"{t_pack:.2f} ms on {gpu_name}")
+    route_paths = {}
+    for route, core in FP32_ROUTES:
+        route_paths[f"configurations_fp32_pack_{route[0]}"] = \
+            float32_route_pack(torch, dev, gpu_name, fp32_server,
+                               swin_route(det, route), reference, core,
+                               centred)
 
     f32cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
                                                      compute_dtype="float32"))
@@ -4949,6 +5114,21 @@ def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
           f"{aux_launches['fused_attention_block_bwd_spill']} times, loss "
           f"{loss:.4f}, gradients finite, forward + backward {aux_ms:.1f} ms "
           f"(first call) on {gpu_name}")
+    del model
+    model = fer_model(torch, dev, swin_route(f32cfg, FP32_AUX_ROUTE))
+    loss, route_aux, aux_ms, finite = aux_step(torch, dev, model, images,
+                                               labels, "float32")
+    require_counts(route_aux, exactly(route_aux, {
+        "fused_window_attention": sum(cfg.swin.depths)}),
+        f"the float32 aux step on {FP32_AUX_ROUTE}")
+    if not (np.isfinite(loss) and finite):
+        raise AssertionError(f"float32 aux step on {FP32_AUX_ROUTE}: loss "
+                             f"{loss}, gradients finite {finite}")
+    print(f"configurations: --compute_dtype float32 aux step ({AUX_IMAGES} "
+          f"images) on the Swin route {FP32_AUX_ROUTE}: fused_window_attention "
+          f"launched {route_aux['fused_window_attention']} times and no other "
+          f"kernel, loss {loss:.4f}, gradients finite, forward + backward "
+          f"{aux_ms:.1f} ms (first call) on {gpu_name}")
     del model
 
     tcfg = f32cfg.replace(optim=dataclasses.replace(
@@ -4979,9 +5159,85 @@ def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
           f"{times[0]:.1f} ms first, {statistics.median(times[1:]):.1f} ms "
           f"after; launches {trg_launches} on {gpu_name}")
     del model, state, trainer
-    return {"configurations_fp32_pack": pack_launches,
+    return {"configurations_fp32_pack": pack_launches, **route_paths,
             "configurations_fp32_aux": aux_launches,
+            "configurations_fp32_aux_pallas": route_aux,
             "configurations_fp32_target": trg_launches}
+
+
+def float32_route_pack(torch, dev, gpu_name, fp32_server, rcfg, reference,
+                       core, centred):
+    """Phase 16 (d) on one window-attention route: `reference`'s (8, 64)
+    pack and weights in fp32 under `rcfg` on the card (kernels 1 / 3 / the
+    route's `core` 24 / 12 / 12 times, kernel 2 never) against the same
+    route in fp32 on the CPU within FP32_BOUND, and the same pack through
+    the cores' former bf16 boundary (q, k, v cast to bf16 at the kernel,
+    the output cast back) printed beside it.  The pack's logits weigh its
+    64 faces' Swin pass too little to tell the two apart (PERF.md §6),
+    so the Swin's own logits of those faces (the auxiliary FER head) are
+    held nearer the CPU's than through the former boundary.  Returns the
+    pack's launch counts."""
+    from unittest import mock
+
+    from facialmmt_tpu_torch.data.image_pipeline import \
+        meld_face_eval_transform
+    from facialmmt_tpu_torch.ops import kernels
+    from facialmmt_tpu_torch.ops.kernels import window_attention
+
+    route = (rcfg.swin.attention_impl, rcfg.swin.mlp_impl,
+             rcfg.swin.merge_impl)
+
+    def swin_logits(server, device):
+        x = meld_face_eval_transform(
+            torch.from_numpy(faces).to(device).float(),
+            rcfg.data.swin_img_size)
+        with torch.no_grad():
+            return server.model.aux_logits(x).float().cpu().numpy()
+
+    host = fp32_server(reference["state_dict"], "cpu", rcfg)
+    batch, faces = host.build_pack(reference["requests"])
+    want = host.predict_raw(batch, faces)
+    fer_want = swin_logits(host, "cpu")
+    del host
+    card = fp32_server(reference["state_dict"], dev, rcfg)
+    kernels.reset_launch_counts()
+    got = card.predict_raw(batch, faces)
+    sync(torch)
+    launches = kernels.launch_counts()
+    blocks = sum(rcfg.swin.depths)
+    require_counts(launches, exactly(launches, {
+        "fused_attention": PACK_LAUNCHES["fused_attention"],
+        "fused_ln_mlp_residual": blocks, core: blocks}),
+        f"the float32 (8, 64) pack on {route}")
+    fer_got = swin_logits(card, dev)
+    operands = window_attention.kernel_operands
+    with mock.patch.object(window_attention, "kernel_operands",
+                           lambda q, k, v, bias: operands(
+                               *map(bf16_boundary, (q, k, v)), bias)):
+        before = card.predict_raw(batch, faces)
+        fer_before = swin_logits(card, dev)
+    t_pack = card.benchmark_latency(5)["p50_ms"]
+    del card
+    z_want = centred(want)
+    scale = float(np.abs(z_want).max())
+    diff = float(np.abs(centred(got) - z_want).max())
+    diff_before = float(np.abs(centred(before) - z_want).max())
+    fer_scale = float(np.abs(fer_want).max())
+    fer_diff = float(np.abs(fer_got - fer_want).max()) / fer_scale
+    fer_diff_before = float(np.abs(fer_before - fer_want).max()) / fer_scale
+    hold_fp32_route(np.isfinite(centred(got)).all(), diff, scale, fer_diff,
+                    fer_diff_before)
+    print(f"configurations: --compute_dtype float32 on the Swin route "
+          f"{route}, one (8, 64) pack on the card vs the same weights and "
+          f"route in fp32 on the CPU: centred logits max|d| {diff:.3g} = "
+          f"{diff / scale:.3g} of max|logit| {scale:.3g} <= FP32_BOUND "
+          f"{FP32_BOUND}, through {core}'s former bf16 boundary "
+          f"{diff_before:.3g} = {diff_before / scale:.3g}; the 64 faces' "
+          f"Swin logits max|d| {fer_diff:.3g} of max|logit| {fer_scale:.3g}, "
+          f"through the former boundary {fer_diff_before:.3g}; launches "
+          f"{launches}; benchmark_latency(5) p50 {t_pack:.2f} ms on "
+          f"{gpu_name}")
+    return launches
 
 
 def meld_run(torch, argv):
@@ -5205,7 +5461,7 @@ def phase_configurations(torch, dev, gpu_name, root, cfg=None, reference=None,
     """Phase 16: the configurations of the JAX command line that the
     phases before run on another setting: (a) Swin drop rates on the kernel
     routes (configurations_drop_rates), (b) --compute_dtype float32 with
-    kernels 1-6 in the tokens' own dtype (fp32_kernel_rows, unless
+    kernels 1-12 in the tokens' own dtype (fp32_kernel_rows, unless
     `kernel_rows` is false, and configurations_float32), (c) the
     BERT-architecture text towers (configurations_bert_meld,
     configurations_bert_m3ed) on files written under `root`.  `reference`:

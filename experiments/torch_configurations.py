@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """chip_smoke.py's phase 16 alone on one NVIDIA H100: Swin drop rates on the
-kernel routes, kernels 1-6 on fp32 tokens, the BERT-architecture text
+kernel routes, kernels 1-12 on fp32 tokens, the BERT-architecture text
 towers (bert-large on MELD, chinese-roberta-large on M3ED) through
 `main.run`, and the model under --compute_dtype float32 (against its own
 CPU reference, made here), after building the kernels.

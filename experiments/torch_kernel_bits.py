@@ -18,7 +18,10 @@ stage shape of a 64-face pack, shifted bias and nW = 1 (the first entry
 point's outputs whole, with max|d| beside a difference; the others as a
 SHA-256 of their bits); then, in bf16, kernel 1 at the text tower's padded
 8 x 16 x 512 x 64, kernel 4 (the MLP backward) and kernel 5 (the resident
-attention backward) at stage 1 of the auxiliary batch with keep.
+attention backward) at stage 1 of the auxiliary batch with keep, kernel 7
+(the whole block) at stage 1 of a 64-face pack with the shifted bias,
+kernel 11 (the merge tail) at transition 0 and kernel 12 (the shift
+permutation) at stage 0 both ways.
 No kernel of the port adds with atomics, so every output repeats launch
 after launch: a difference is the two builds'.
 """
@@ -34,7 +37,8 @@ import torch
 def outputs(root):
     sys.path.insert(0, os.path.abspath(root))
     from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
-                                                 fused_block,
+                                                 fused_block, merge_kernel,
+                                                 shift_permute,
                                                  window_attention)
 
     dev = torch.device("cuda")
@@ -104,6 +108,16 @@ def outputs(root):
         g.cpu() for g in fused_block.fused_attention_block_bwd_cuda(
             s[0], bf(rng.normal(size=(150 * 16, 49, 192))), *s[1:6], s[7],
             keep.repeat_interleave(16))]
+    out["fused_whole_block"] = [fused_block.fused_whole_block_cuda(
+        *block(64 * 16, 49, c, 6, 16), *mlp[1:]).cpu()]
+    out["fused_merge"] = [merge_kernel.fused_merge_cuda(
+        bf(rng.normal(size=(64, 784, 384))), bf(1 + 0.1 * rng.normal(size=384)),
+        bf(0.1 * rng.normal(size=384)),
+        bf(rng.normal(size=(384, 192)) / np.sqrt(384))).cpu()]
+    x = bf(rng.normal(size=(64, 3136, 96)))
+    for inverse in (False, True):
+        out[f"shift_permute inverse={inverse}"] = [
+            shift_permute.shift_permute_cuda(x, 56, 56, 7, 3, inverse).cpu()]
     torch.cuda.synchronize()
     return out
 

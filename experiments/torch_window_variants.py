@@ -14,7 +14,7 @@ slot's first warp.  Two variants are probes and compute nothing useful: 'no
 compute' (copies, waits and barriers only: the memory side's floor) and 'no
 copy' (the arithmetic on the zeroed ring: the compute side's floor).  Per
 variant it prints ptxas's registers and spills, the instruction mix of the
-SASS of the 1-window, hd 32, N 49 kernel, the device time (torch.profiler) at the
+SASS of the bf16 1-window, hd 32, N 49 kernel, the device time (torch.profiler) at the
 7 stage shapes of a 64-face pack for 1 window a block and for v2's group,
 and whether its bits equal the package's kernel.
 """
@@ -53,11 +53,11 @@ NO_COPY = [("  for (int i = 0; i < min(stages, units); ++i) issue(i, i);", ""),
            ("    fmmt::mbar_wait(&full[s], phase);", ""),
            ("    if (i + stages < units) issue(i + stages, s);", "")]
 PADDED = [
-    ("__host__ __device__ constexpr int row_bytes(int hd) { return 2 * hd; }",
-     "__host__ __device__ constexpr int row_bytes(int hd) {"
-     " return 2 * (hd + 8); }"),
-    ("    return r * rb + (((r / (128 / rb)) & (rb / 16 - 1)) << 4);",
-     "    return r * rb;"),
+    ("  return elem * hd;\n", "  return elem * (hd + 8);\n"),
+    ("      return r * rb + (((r / (128 / rb)) & (rb / 16 - 1)) << 4);",
+     "      return r * rb;"),
+    ("  const uint32_t unit_bytes = 3u * N * rb;",
+     "  const uint32_t unit_bytes = 3u * N * kHd * sizeof(TT);"),
     ("    return off ^ (p << 4);", "    return off + (p << 4);"),
     ("window_attention_kernel(__grid_constant__ const Maps maps,\n",
      "window_attention_kernel(__grid_constant__ const Maps maps,\n"
@@ -81,11 +81,14 @@ PADDED = [
       for (int r = lane; r < 3 * N; r += 32) {
         const int op = r / N, rr = r % N;
         const __nv_bfloat16* src = (op == 0 ? q : op == 1 ? k : v) + base;
-        fmmt::bulk_load(dst + op * tile + rr * rb, src + rr * kHd, kHd * 2,
-                        &full[s]);
+        fmmt::bulk_load(dst + op * tile + rr * rb, src + rr * kHd,
+                        kHd * sizeof(TT), &full[s]);
       }
     }"""),
 ]
+# the mangled template arguments of the instantiation reported: bf16 tiles,
+# one window slot, hd 32, N 49
+BF16_ENTRY = "I13__nv_bfloat16Li1ELi32ELi49E"
 VARIANTS = {
     "as is": [],
     "padded": PADDED,
@@ -118,7 +121,7 @@ def build(name, edits):
     report = []
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "ILi1ELi32ELi49E" in line:
+        if "Compiling entry" in line and BF16_ENTRY in line:
             report += [x.strip() for x in lines[i + 1:i + 4]
                        if "Used" in x or "spill" in x]
     sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
@@ -127,7 +130,7 @@ def build(name, edits):
     mix, inside = Counter(), False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "ILi1ELi32ELi49E" in line
+            inside = BF16_ENTRY in line
         elif inside:
             m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
                          line)

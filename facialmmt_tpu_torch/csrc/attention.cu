@@ -408,27 +408,8 @@ int launch_rows(const void* q, const void* k, const void* v, const void* bias,
 // ---------------------------------------------------------------------------
 // fp32 operands on TF32 mma.sync (the design is at the top of this file).
 
-// An fp32 value rounded to TF32 (10-bit mantissa, to nearest, ties away),
-// as an mma.sync operand register.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// D (16x8, fp32) += A (16x8, tf32, row) * B (8x8, tf32, col).  Lane l holds,
-// with g = l / 4 and t = l % 4: a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
-// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; c0, c1 = D[g][2t..2t+1],
-// c2, c3 = D[g+8][2t..2t+1].
-__device__ __forceinline__ void mma_1688_tf32(float (&c)[4],
-                                              const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using fmmt::mma_1688_tf32;
+using fmmt::tf32;
 
 template <int D>
 struct LayoutF32 {

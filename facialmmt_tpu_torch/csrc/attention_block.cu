@@ -54,8 +54,7 @@
 // bound of the fp32 plain version, PERF.md).  LN1 is then applied by a row
 // pass (swin_bwd.cuh::prep_rows, the prologue's arithmetic) into the head
 // outputs' scratch, which the qkv product reads without a prologue before
-// the window pass overwrites it, and proj's epilogue is kResidualF32.  The
-// whole block (below) takes bf16 tokens only.
+// the window pass overwrites it, and proj's epilogue is kResidualF32.
 //
 // The WHOLE Swin block, the attention half then the MLP half
 //   y = the attention half above (no keep), rounded to bf16,
@@ -75,6 +74,16 @@
 // and fc1's prologue (kLnParts) merges a row's partials in column order into
 // (rstd, -mean rstd): a fixed order, so two launches give the same bits.  At
 // C = 768 a row spans six partials, at C = 96 one.
+//
+// On fp32 tokens (x_f32; the JAX kernel and its _whole_reference keep y,
+// LN2's statistics and the residual in x's dtype) the whole block is the
+// fp32 instantiations of the two halves in sequence, on the same scratch:
+// the attention half above with proj's kResidualF32 into an fp32 y, then
+// kernel 3's fp32 path on y (its LN2 statistics, the row pass into the head
+// outputs' bf16 scratch, which nothing reads any more, fc1 + GELU, fc2 with
+// the fp32 residual, kResidualF32).  kResidualStats / kLnParts take bf16
+// rows only; the fp32 block therefore equals kernel 2 then kernel 3 on fp32
+// tokens bit for bit.
 #include "swin_bwd.cuh"
 
 #include <math.h>
@@ -359,20 +368,24 @@ bool bad_shape(int W, int N, int C, int heads, int nW) {
          C % heads != 0 || (C / heads) % 16 != 0 || nW < 1 || W % nW != 0;
 }
 
-// The whole block's scratch, in the order it is handed out.
+// The whole block's scratch, in the order it is handed out; y holds the
+// tokens' type (bf16, or fp32 when x_f32).
 struct WholeScratch {
   float2 *stats, *parts;
-  __nv_bfloat16 *qkv, *heads_out, *y, *h;
+  __nv_bfloat16 *qkv, *heads_out;
+  void* y;
+  __nv_bfloat16* h;
 };
 
-WholeScratch whole_plan(fmmt::Arena& ar, int W, int N, int C, int HID) {
+WholeScratch whole_plan(fmmt::Arena& ar, int W, int N, int C, int HID,
+                        int x_f32) {
   const size_t T = (size_t)W * N;
   WholeScratch s;
   s.stats = ar.take<float2>(T);
   s.parts = ar.take<float2>(T * fmmt::gemm::col_tiles(C));
   s.qkv = ar.take<__nv_bfloat16>(T * 3 * C);
   s.heads_out = ar.take<__nv_bfloat16>(T * C);
-  s.y = ar.take<__nv_bfloat16>(T * C);
+  s.y = ar.take<unsigned char>(T * C * (x_f32 ? 4 : 2));
   s.h = ar.take<__nv_bfloat16>(T * HID);
   return s;
 }
@@ -423,47 +436,92 @@ FMMT_API int fmmt_fused_attention_block(
 // Bytes of scratch one whole-block call needs (-1: a shape it does not
 // take); the wrapper allocates them.
 FMMT_API long long fmmt_fused_whole_block_scratch(int W, int N, int C,
-                                                  int heads, int nW, int HID) {
+                                                  int heads, int nW, int HID,
+                                                  int x_f32) {
   if (bad_whole_shape(W, N, C, heads, nW, HID)) return -1;
   fmmt::Arena ar{nullptr, 0};
-  whole_plan(ar, W, N, C, HID);
+  whole_plan(ar, W, N, C, HID, x_f32);
   return static_cast<long long>(ar.used);
 }
 
-// Shared-memory bytes the largest of the whole block's steps needs per block.
+// Shared-memory bytes the largest of the whole block's steps needs per block
+// (fp32 tokens: fc1 without its LayerNorm prologue).
 FMMT_API long long fmmt_fused_whole_block_smem(int N, int C, int heads,
-                                               int HID) {
+                                               int HID, int x_f32) {
   size_t most = static_cast<size_t>(fmmt_fused_attention_block_smem(N, C,
                                                                     heads));
-  const size_t more[] = {fmmt::gemm::smem_bytes(HID, C, true,
-                                                fmmt::gemm::col_tiles(C)),
-                         fmmt::gemm::smem_bytes(C, HID, false)};
+  const size_t more[] = {
+      x_f32 ? fmmt::gemm::smem_bytes(HID, C, false)
+            : fmmt::gemm::smem_bytes(HID, C, true, fmmt::gemm::col_tiles(C)),
+      fmmt::gemm::smem_bytes(C, HID, false)};
   for (size_t m : more) most = m > most ? m : most;
   return static_cast<long long>(most);
 }
 
 // The whole block: the attention half's operands (no keep), then LN2
 // gamma2 / beta2 (C), w1 (HID, C), b1 (HID), w2 (C, HID), b2 (C), all bf16;
-// scratch of fmmt_fused_whole_block_scratch bytes; out (W, N, C) bf16.
+// scratch of fmmt_fused_whole_block_scratch bytes; x and out (W, N, C) fp32
+// when x_f32 is nonzero, else bf16.
 FMMT_API int fmmt_fused_whole_block(
     const void* x, const void* gamma, const void* beta, const void* wqkv,
     const void* bqkv, const void* wproj, const void* bproj, const void* bias,
     const void* gamma2, const void* beta2, const void* w1, const void* b1,
     const void* w2, const void* b2, void* scratch, void* out, int W, int N,
-    int C, int heads, int nW, int HID, float eps, void* stream) {
+    int C, int heads, int nW, int HID, int x_f32, float eps, void* stream) {
   if (bad_whole_shape(W, N, C, heads, nW, HID))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   fmmt::Arena ar{static_cast<unsigned char*>(scratch), 0};
-  const WholeScratch sc = whole_plan(ar, W, N, C, HID);
+  const WholeScratch sc = whole_plan(ar, W, N, C, HID, x_f32);
+  if (x_f32) {
+    // kernel 2's fp32 path into y, then kernel 3's on y (csrc/block_mlp.cu)
+    const float* xf = static_cast<const float*>(x);
+    float* y = static_cast<float*>(sc.y);
+    const int T = W * N;
+    int err = attention_half<float, fmmt::gemm::kResidual>(
+        xf, gamma, beta, wqkv, bqkv, wproj, bproj, bias, nullptr, sc.stats,
+        sc.qkv, sc.heads_out, y, nullptr, W, N, C, heads, nW, eps, s);
+    if (err != 0) return err;
+    err = fmmt::gemm::launch_row_stats(y, sc.stats, T, C, eps, s);
+    if (err != 0) return err;
+    err = fmmt::bwd::launch_prep_rows<float>(
+        y, nullptr, sc.stats, static_cast<const __nv_bfloat16*>(gamma2),
+        static_cast<const __nv_bfloat16*>(beta2), nullptr, 1, sc.heads_out,
+        nullptr, T, C, s);
+    if (err != 0) return err;
+    fmmt::gemm::Args a{};
+    a.a = sc.heads_out;
+    a.b = static_cast<const __nv_bfloat16*>(w1);
+    a.bias = static_cast<const __nv_bfloat16*>(b1);
+    a.out = sc.h;
+    a.M = T;
+    a.N = HID;
+    a.K = C;
+    a.keep_div = 1;
+    err = fmmt::gemm::launch<fmmt::gemm::kLnNone, fmmt::gemm::kGelu>(a, s);
+    if (err != 0) return err;
+    fmmt::gemm::Args p{};
+    p.a = sc.h;
+    p.b = static_cast<const __nv_bfloat16*>(w2);
+    p.bias = static_cast<const __nv_bfloat16*>(b2);
+    p.keep_div = 1;
+    p.res_f32 = y;
+    p.out_f32 = static_cast<float*>(out);
+    p.M = T;
+    p.N = C;
+    p.K = HID;
+    return fmmt::gemm::launch<fmmt::gemm::kLnNone,
+                              fmmt::gemm::kResidualF32>(p, s);
+  }
+  auto* y = static_cast<__nv_bfloat16*>(sc.y);
   int err = attention_half<__nv_bfloat16, fmmt::gemm::kResidualStats>(
       static_cast<const __nv_bfloat16*>(x), gamma, beta, wqkv, bqkv, wproj,
-      bproj, bias, nullptr, sc.stats, sc.qkv, sc.heads_out, sc.y, sc.parts, W,
+      bproj, bias, nullptr, sc.stats, sc.qkv, sc.heads_out, y, sc.parts, W,
       N, C, heads, nW, eps, s);
   if (err != 0) return err;
 
   fmmt::gemm::Args a{};
-  a.a = sc.y;
+  a.a = y;
   a.stats = sc.parts;
   a.parts = fmmt::gemm::col_tiles(C);
   a.part_cols = fmmt::gemm::tile_n(C);
@@ -484,7 +542,7 @@ FMMT_API int fmmt_fused_whole_block(
   p.a = sc.h;
   p.b = static_cast<const __nv_bfloat16*>(w2);
   p.bias = static_cast<const __nv_bfloat16*>(b2);
-  p.res = sc.y;
+  p.res = y;
   p.keep_div = 1;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.M = W * N;

@@ -40,6 +40,28 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// An fp32 value rounded to TF32 (10-bit mantissa, to nearest, ties away),
+// as an mma.sync operand register.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// D (16x8, fp32) += A (16x8, tf32, row) * B (8x8, tf32, col).  Lane l holds,
+// with g = l / 4 and t = l % 4: a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; c0, c1 = D[g][2t..2t+1],
+// c2, c3 = D[g+8][2t..2t+1] (the accumulator layout of mma_16816).
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -220,23 +242,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over `count` bf16 tiles of rows x cols stored one after
-// another (cols * 2 a multiple of 16, base 16-byte aligned), whose box is
-// one whole tile: coordinates (0, 0, t) copy tile t.  `swizzle` permutes the
-// 16-byte pieces of each row in shared memory by the row (its span must be
-// at least a row's bytes).
+// A tensor map over `count` tiles of rows x cols elements stored one after
+// another, bf16 (elem 2) or fp32 (elem 4) (cols * elem a multiple of 16,
+// base 16-byte aligned), whose box is one whole tile: coordinates (0, 0, t)
+// copy tile t.  `swizzle` permutes the 16-byte pieces of each row in shared
+// memory by the row (its span must be at least a row's bytes).
 inline cudaError_t encode_tile_stack(CUtensorMap* map, const void* base,
                                      int cols, int rows, long long count,
-                                     CUtensorMapSwizzle swizzle) {
+                                     CUtensorMapSwizzle swizzle,
+                                     int elem = 2) {
   const EncodeTiledFn encode = encode_tiled();
   if (!encode) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)count};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)cols * rows * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem,
+                                 (cuuint64_t)cols * rows * elem};
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map,
+                elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -47,7 +47,20 @@
 //
 // Rounding follows the JAX kernel: LN output rounded to bf16 before the
 // matmul, fp32 accumulation, output rounded once.
-#include "common.cuh"
+//
+// x and out come in bf16 or fp32 (x_f32; the model's compute dtype).  As the
+// JAX kernel reads x in its own dtype, fp32 rows keep their LayerNorm
+// statistics in fp32 and out is fp32, never rounded; the product's operands
+// stay bf16, as the JAX kernel's do.  On fp32 rows the LayerNorm is applied
+// by a row pass (swin_bwd.cuh::prep_rows, the prologue's arithmetic, after
+// tile_gemm.cuh's row statistics) into a bf16 (T, K) scratch, xn_buf, that
+// the same tiled product reads without its prologue (kLn false), and the
+// epilogue stores the fp32 sums from registers, 8 bytes a thread (32
+// contiguous bytes a row of 4 lanes).  Kernels 2 and 3 take fp32 tokens the
+// same way (csrc/block_mlp.cu).
+#include "swin_bwd.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -110,12 +123,16 @@ __device__ __forceinline__ float sqdev8(const uint4& v, float mean) {
   return s;
 }
 
+// kLn: x is the raw rows, LayerNorm applied in the prologue (bf16 tokens);
+// else x is the rows' bf16 LayerNorm already (fp32 tokens' xn_buf).  TO: the
+// type of out, bf16 or fp32.
+template <bool kLn, typename TO>
 __global__ void __launch_bounds__(kThreads)
 merge_kernel(const __nv_bfloat16* __restrict__ x,
              const __nv_bfloat16* __restrict__ gamma,
              const __nv_bfloat16* __restrict__ beta,
              const __nv_bfloat16* __restrict__ w,
-             __nv_bfloat16* __restrict__ out, int T, int K, int M, float eps) {
+             TO* __restrict__ out, int T, int K, int M, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(K);
   __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -192,9 +209,11 @@ merge_kernel(const __nv_bfloat16* __restrict__ x,
   };
 
   // gamma and beta travel with chunk 0 in group 0
-  for (int i = tid; i < K / 8; i += kThreads) {
-    fmmt::cp_async16(gs + i * 8, gamma + i * 8, true);
-    fmmt::cp_async16(bs + i * 8, beta + i * 8, true);
+  if constexpr (kLn) {
+    for (int i = tid; i < K / 8; i += kThreads) {
+      fmmt::cp_async16(gs + i * 8, gamma + i * 8, true);
+      fmmt::cp_async16(bs + i * 8, beta + i * 8, true);
+    }
   }
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -206,7 +225,7 @@ merge_kernel(const __nv_bfloat16* __restrict__ x,
   // two-pass, biased variance).  Rows past T read row T - 1, so that the
   // loads stay unconditional and the 8 of a step are in flight together;
   // their statistics are set to 0 and they are never stored.
-  {
+  if constexpr (kLn) {
     const int rw = warp * kRowsPerWarp;
     const __nv_bfloat16* rows[kRowsPerWarp];
     float acc[kRowsPerWarp];
@@ -249,7 +268,7 @@ merge_kernel(const __nv_bfloat16* __restrict__ x,
   }
   fmmt::cp_async_wait<kStages - 2>();
   __syncthreads();   // statistics, gamma, beta and chunk 0 visible
-  normalise(0, 0);
+  if constexpr (kLn) normalise(0, 0);
 
   const int wm = warp % kWM;
   const int wn = warp / kWM;
@@ -273,7 +292,8 @@ merge_kernel(const __nv_bfloat16* __restrict__ x,
       if (next < nchunks) load_chunk(next, next % kStages);
       fmmt::cp_async_commit();
     }
-    if (c + 1 < nchunks) normalise(c + 1, (c + 1) % kStages);
+    if constexpr (kLn)
+      if (c + 1 < nchunks) normalise(c + 1, (c + 1) % kStages);
 
     const __nv_bfloat16* xd = xs(c % kStages);
     const __nv_bfloat16* wd = ws(c % kStages);
@@ -298,6 +318,26 @@ merge_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
+  if constexpr (std::is_same<TO, float>::value) {
+    // fp32 sums straight from the registers: each row's 4 lanes store 32
+    // contiguous bytes (M is a multiple of 16, so a pair never straddles it)
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int row = t0 + wm * kWR + mt * 16 + g;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int col = n0 + wn * kWN + 8 * j + 2 * t;
+        if (col >= M) continue;
+        if (row < T)
+          *reinterpret_cast<float2*>(out + (size_t)row * M + col) =
+              make_float2(acc[mt][j][0], acc[mt][j][1]);
+        if (row + 8 < T)
+          *reinterpret_cast<float2*>(out + (size_t)(row + 8) * M + col) =
+              make_float2(acc[mt][j][2], acc[mt][j][3]);
+      }
+    }
+    return;
+  }
   // bf16 tile over the ring, then 16-byte stores of its real rows / columns
   fmmt::cp_async_wait<0>();
   __syncthreads();
@@ -332,22 +372,45 @@ FMMT_API long long fmmt_fused_merge_smem(int K) {
   return static_cast<long long>(layout(K).bytes);
 }
 
+// stats (T) float2 and xn_buf (T, K) bf16 are scratch the caller allocates
+// when x_f32 is nonzero (null otherwise); x (T, K) and out (T, M) are fp32
+// then, else bf16.
 FMMT_API int fmmt_fused_merge(const void* x, const void* gamma,
-                              const void* beta, const void* w, void* out,
-                              int T, int K, int M, float eps, void* stream) {
-  if (T < 1 || K % 16 != 0 || M % 16 != 0)
+                              const void* beta, const void* w, void* stats,
+                              void* xn_buf, void* out, int T, int K, int M,
+                              int x_f32, float eps, void* stream) {
+  if (T < 1 || K % 16 != 0 || M % 16 != 0 || (x_f32 && (!stats || !xn_buf)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* gb = static_cast<const __nv_bfloat16*>(gamma);
+  const auto* bb = static_cast<const __nv_bfloat16*>(beta);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
   const size_t bytes = layout(K).bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + kBM - 1) / kBM, (M + kBN - 1) / kBN);
-  merge_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(gamma),
-      static_cast<const __nv_bfloat16*>(beta),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
-      T, K, M, eps);
+  cudaError_t err;
+  if (x_f32) {
+    const float* xf = static_cast<const float*>(x);
+    auto* st = static_cast<float2*>(stats);
+    auto* xn = static_cast<__nv_bfloat16*>(xn_buf);
+    int e = fmmt::gemm::launch_row_stats(xf, st, T, K, eps, s);
+    if (e != 0) return e;
+    e = fmmt::bwd::launch_prep_rows<float>(xf, nullptr, st, gb, bb, nullptr,
+                                           1, xn, nullptr, T, K, s);
+    if (e != 0) return e;
+    err = cudaFuncSetAttribute(merge_kernel<false, float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    merge_kernel<false, float><<<grid, kThreads, bytes, s>>>(
+        xn, gb, bb, wb, static_cast<float*>(out), T, K, M, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  err = cudaFuncSetAttribute(merge_kernel<true, __nv_bfloat16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_kernel<true, __nv_bfloat16><<<grid, kThreads, bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(x), gb, bb, wb,
+      static_cast<__nv_bfloat16*>(out), T, K, M, eps);
   return static_cast<int>(cudaGetLastError());
 }

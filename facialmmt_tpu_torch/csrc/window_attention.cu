@@ -63,10 +63,29 @@
 // bf16 value, fp32 softmax (exp(s - m) as 2^(s log2(e) - m log2(e)) by
 // ex2.approx), probabilities rounded to bf16, fp32 accumulation of P v,
 // output rounded once.
+//
+// fp32 q, k, v and out (the model under --compute_dtype float32; the JAX
+// kernels then keep q, k, v, the probabilities and out in q's dtype, the
+// scores and softmax in fp32, and round only the bias to bf16): the same
+// device kernel instantiated on fp32 tiles (f32).  A tile row is hd * 4
+// bytes under the swizzle of its width (128 bytes at hd 32; hd 64's 256-byte
+// rows, wider than any swizzle, are unswizzled), with the ring cut to the
+// stages that fit a block (ring_stages: 2 at hd 32 with 4 slots, down to 1 at
+// hd 64).  Both products run on TF32 mma.sync (m16n8k8, operands rounded by
+// cvt.rna, fp32 accumulation), as kernel 1's fp32 instantiation does: the q
+// A and k B fragments come from the same ldmatrix lane addresses, each
+// 32-bit element read as a pair of b16 halves; the probabilities stay fp32
+// and their accumulator layout is P v's A fragment once the product's k index
+// is relabelled (k i stands for key 2i, k i + 4 for key 2i + 1 of an 8-key
+// block), with v's B fragment read in that order by 32-bit shared loads (no
+// transposing ldmatrix moves 32-bit elements), the swizzle folded into a
+// lane's two row offsets; out leaves as fp32 through the warp's q rows.
 #include "common.cuh"
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -80,21 +99,26 @@ constexpr int kSmemLimit = 232448;             // opt-in bytes of a Hopper block
 constexpr int kMaxDevices = 64;
 constexpr uint32_t kNegInf = 0xff80u;          // bf16 -inf
 
-__host__ __device__ constexpr int row_bytes(int hd) { return 2 * hd; }
-
-__host__ __device__ constexpr int tile_bytes(int hd) {
-  return kRows * row_bytes(hd);
+// A tile row: hd elements of 2 (bf16) or 4 (fp32) bytes.
+__host__ __device__ constexpr int row_bytes(int hd, int elem) {
+  return elem * hd;
 }
 
-// Tiles (3 a ring slot), then one mbarrier a ring slot, after up to kAlign
-// bytes that align the tiles.
-__host__ __device__ constexpr long long smem_bytes(int hd, int conc,
+__host__ __device__ constexpr int tile_bytes(int rb) { return kRows * rb; }
+
+// Tiles (3 a ring slot) of rb-byte rows, then one mbarrier a ring slot,
+// after up to kAlign bytes that align the tiles.
+__host__ __device__ constexpr long long smem_bytes(int rb, int conc,
                                                    int stages) {
-  return kAlign + (long long)conc * stages * (3LL * tile_bytes(hd) + 8);
+  return kAlign + (long long)conc * stages * (3LL * tile_bytes(rb) + 8);
 }
 
-__host__ __device__ constexpr int ring_stages(int hd, int conc) {
-  return smem_bytes(hd, conc, kMaxStages) <= kSmemLimit ? kMaxStages : 2;
+// The most ring slots, kMaxStages at most, that fit a block's shared memory
+// (bf16: 3, or 2 at hd 64 with 4 window slots; fp32 down to 1).
+__host__ __device__ constexpr int ring_stages(int rb, int conc) {
+  return smem_bytes(rb, conc, kMaxStages) <= kSmemLimit
+             ? kMaxStages
+             : (smem_bytes(rb, conc, 2) <= kSmemLimit ? 2 : 1);
 }
 
 __host__ __device__ constexpr int gcd(int a, int b) {
@@ -113,11 +137,16 @@ __device__ __forceinline__ void group_sync(int g) {
 // sw(r) folded in, and piece(off, p) moves an offset to piece p of the same
 // row with one XOR (the bits it flips are 0 in r * rb).  sw(r + 8 m) = sw(r)
 // for the rows a lane steps over, so one lane offset serves every 8th row.
-template <int kHd>
+// Rows of 256 bytes (fp32 at hd 64) are wider than the 128-byte swizzle can
+// span and are stored unswizzled, sw(r) = 0.
+template <int kRb>
 struct Tile {
-  static constexpr int rb = row_bytes(kHd);
+  static constexpr int rb = kRb;
   __device__ static __forceinline__ int row_off(int r) {
-    return r * rb + (((r / (128 / rb)) & (rb / 16 - 1)) << 4);
+    if constexpr (rb > 128)
+      return r * rb;
+    else
+      return r * rb + (((r / (128 / rb)) & (rb / 16 - 1)) << 4);
   }
   __device__ static __forceinline__ int piece(int off, int p) {
     return off ^ (p << 4);
@@ -167,20 +196,33 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
-// kN: N fixed at compile time (Swin's 7 x 7 windows), or 0 to take n.
-template <int kConc, int kHd, int kN>
+// The four registers of an ldmatrix fragment, each an fp32 element, rounded
+// to TF32 in place.
+__device__ __forceinline__ void to_tf32(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = fmmt::tf32(__uint_as_float(r[i]));
+}
+
+__device__ __forceinline__ uint32_t ld_tf32(const unsigned char* p) {
+  return fmmt::tf32(*reinterpret_cast<const float*>(p));
+}
+
+// TT: the tokens' type (q, k, v, out), bf16 or fp32.  kN: N fixed at compile
+// time (Swin's 7 x 7 windows), or 0 to take n.
+template <typename TT, int kConc, int kHd, int kN>
 __global__ void __launch_bounds__(kConc * kGroupThreads,
                                   kConc == 1 ? 4 : (kConc == 2 ? 2 : 1))
 window_attention_kernel(__grid_constant__ const Maps maps,
                         const __nv_bfloat16* __restrict__ bias,
-                        __nv_bfloat16* __restrict__ out, int heads, int n,
-                        int nW, int E, int faces, int chunk, int stages) {
-  using T = Tile<kHd>;
+                        TT* __restrict__ out, int heads, int n, int nW, int E,
+                        int faces, int chunk, int stages) {
+  constexpr bool kF32 = std::is_same<TT, float>::value;
+  using T = Tile<row_bytes(kHd, sizeof(TT))>;
   extern __shared__ unsigned char smem_raw[];
   const int N = kN > 0 ? kN : n;
   constexpr int rb = T::rb;
-  constexpr int tile = tile_bytes(kHd);
-  constexpr int cpr = kHd / 8;         // 16-byte pieces per row
+  constexpr int tile = tile_bytes(rb);
+  constexpr int cpr = rb / 16;         // 16-byte pieces per row
   unsigned char* smem =
       smem_raw + (kAlign - fmmt::smem_addr(smem_raw) % kAlign) % kAlign;
   const int g = threadIdx.x / kGroupThreads;   // window slot in the block
@@ -205,7 +247,7 @@ window_attention_kernel(__grid_constant__ const Maps maps,
   uint64_t* full = reinterpret_cast<uint64_t*>(
                        smem + (size_t)kConc * stages * 3 * tile) +
                    g * stages;
-  const uint32_t unit_bytes = 3u * N * kHd * 2;
+  const uint32_t unit_bytes = 3u * N * rb;
 
   // 1. zero rows N..63 of every tile of the ring, set up the mbarriers
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -259,6 +301,12 @@ window_attention_kernel(__grid_constant__ const Maps maps,
                            lane / 8 % 2);
   const int vbo = T::piece(T::row_off(lane % 16), lane / 16);
   const int oo = T::row_off(row0) + 4 * tig;
+  // fp32: this lane's v elements (key 2 tig, + 1 of an 8-key block, column
+  // gid of an 8-column block; the XOR with an even piece p moves them to
+  // columns 4 p + gid) and its output pair (row0, columns 2 tig, + 1)
+  const int vo0 = T::piece(T::row_off(2 * tig), gid / 4) + 4 * (gid % 4);
+  const int vo1 = T::piece(T::row_off(2 * tig + 1), gid / 4) + 4 * (gid % 4);
+  const int oo32 = T::piece(T::row_off(row0), tig / 2) + 8 * (tig % 2);
 
   int s = 0;
   uint32_t phase = 0;
@@ -274,17 +322,27 @@ window_attention_kernel(__grid_constant__ const Maps maps,
 #pragma unroll
       for (int j = 0; j < kRows / 8; ++j)
         sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      // a k step is two 16-byte pieces of a row: 16 bf16 or 8 fp32 columns
 #pragma unroll
-      for (int ks = 0; ks < kHd / 16; ++ks) {
+      for (int ks = 0; ks < cpr / 2; ++ks) {
         uint32_t a[4];
         ldsm_x4(a, qs + T::piece(qa, 2 * ks));
+        if constexpr (kF32) to_tf32(a);
 #pragma unroll
         for (int jj = 0; jj < kRows / 16; ++jj) {
           if (16 * jj < N) {
             uint32_t b[4];
             ldsm_x4(b, qs + tile + T::piece(kbo, 2 * ks) + 16 * jj * rb);
-            fmmt::mma_16816(sc[2 * jj], a, b[0], b[1]);
-            if (16 * jj + 8 < N) fmmt::mma_16816(sc[2 * jj + 1], a, b[2], b[3]);
+            if constexpr (kF32) {
+              to_tf32(b);
+              fmmt::mma_1688_tf32(sc[2 * jj], a, b[0], b[1]);
+              if (16 * jj + 8 < N)
+                fmmt::mma_1688_tf32(sc[2 * jj + 1], a, b[2], b[3]);
+            } else {
+              fmmt::mma_16816(sc[2 * jj], a, b[0], b[1]);
+              if (16 * jj + 8 < N)
+                fmmt::mma_16816(sc[2 * jj + 1], a, b[2], b[3]);
+            }
           }
         }
       }
@@ -341,49 +399,84 @@ window_attention_kernel(__grid_constant__ const Maps maps,
       sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
       const float inv0 = row0 < N ? 1.f / sum0 : 0.f;
       const float inv1 = row1 < N ? 1.f / sum1 : 0.f;
-      // probabilities in bf16, already in the A-operand layout of P v
-      uint32_t pr[kRows / 8][2];
-#pragma unroll
-      for (int j = 0; j < kRows / 8; ++j) {
-        pr[j][0] = fmmt::pack_bf16(sc[j][0] * inv0, sc[j][1] * inv0);
-        pr[j][1] = fmmt::pack_bf16(sc[j][2] * inv1, sc[j][3] * inv1);
-      }
-
-      // 5. P v (fp32 accumulation): keys 16 ks..16 ks + 15 at a time, two
-      //    8-column blocks of v a transposing ldmatrix
-      float oc[kHd / 8][4];
-#pragma unroll
-      for (int jn = 0; jn < kHd / 8; ++jn)
-        oc[jn][0] = oc[jn][1] = oc[jn][2] = oc[jn][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kRows / 16; ++ks) {
-        if (16 * ks < N) {
-          const uint32_t a[4] = {pr[2 * ks][0], pr[2 * ks][1],
-                                 pr[2 * ks + 1][0], pr[2 * ks + 1][1]};
-#pragma unroll
-          for (int jn = 0; jn < kHd / 8; jn += 2) {
-            uint32_t b[4];
-            ldsm_x4_trans(b, qs + 2 * tile + T::piece(vbo, jn) +
-                                 16 * ks * rb);
-            fmmt::mma_16816(oc[jn], a, b[0], b[1]);
-            fmmt::mma_16816(oc[jn + 1], a, b[2], b[3]);
-          }
-        }
-      }
-
-      // 6. bf16 into this warp's own q rows (no other warp reads them), then
-      //    its real rows back to device memory, 16 bytes a thread
-      __syncwarp();
-#pragma unroll
-      for (int jn = 0; jn < kHd / 8; ++jn) {
-        *reinterpret_cast<uint32_t*>(qb + T::piece(oo, jn)) =
-            fmmt::pack_bf16(oc[jn][0], oc[jn][1]);
-        *reinterpret_cast<uint32_t*>(qb + T::piece(oo, jn) + 8 * rb) =
-            fmmt::pack_bf16(oc[jn][2], oc[jn][3]);
-      }
-      __syncwarp();
       uint4* o4 = reinterpret_cast<uint4*>(
           out + (size_t)(((f0 + i) * E + row) * heads + head) * N * kHd);
+      if constexpr (kF32) {
+        // 5f. P v on TF32, one 8-key block at a time: the probabilities in
+        //     fp32, P's A fragment the score registers as they lie (k index
+        //     t for key 2 tig, t + 4 for key 2 tig + 1), v's B fragment
+        //     keys 8j + 2 tig, + 1 of column 8 jn + gid
+        float oc[kHd / 8][4];
+#pragma unroll
+        for (int jn = 0; jn < kHd / 8; ++jn)
+          oc[jn][0] = oc[jn][1] = oc[jn][2] = oc[jn][3] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+          if (8 * j < N) {
+            const uint32_t pa[4] = {fmmt::tf32(sc[j][0] * inv0),
+                                    fmmt::tf32(sc[j][2] * inv1),
+                                    fmmt::tf32(sc[j][1] * inv0),
+                                    fmmt::tf32(sc[j][3] * inv1)};
+            const unsigned char* vr = qb + 2 * tile + 8 * j * rb;
+#pragma unroll
+            for (int jn = 0; jn < kHd / 8; ++jn)
+              fmmt::mma_1688_tf32(oc[jn], pa,
+                                  ld_tf32(vr + (vo0 ^ (2 * jn << 4))),
+                                  ld_tf32(vr + (vo1 ^ (2 * jn << 4))));
+          }
+        }
+        // 6f. fp32 into this warp's own q rows, then its real rows out
+        __syncwarp();
+#pragma unroll
+        for (int jn = 0; jn < kHd / 8; ++jn) {
+          *reinterpret_cast<float2*>(qb + (oo32 ^ (2 * jn << 4))) =
+              make_float2(oc[jn][0], oc[jn][1]);
+          *reinterpret_cast<float2*>(qb + (oo32 ^ (2 * jn << 4)) + 8 * rb) =
+              make_float2(oc[jn][2], oc[jn][3]);
+        }
+      } else {
+        // probabilities in bf16, already in the A-operand layout of P v
+        uint32_t pr[kRows / 8][2];
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+          pr[j][0] = fmmt::pack_bf16(sc[j][0] * inv0, sc[j][1] * inv0);
+          pr[j][1] = fmmt::pack_bf16(sc[j][2] * inv1, sc[j][3] * inv1);
+        }
+
+        // 5. P v (fp32 accumulation): keys 16 ks..16 ks + 15 at a time, two
+        //    8-column blocks of v a transposing ldmatrix
+        float oc[kHd / 8][4];
+#pragma unroll
+        for (int jn = 0; jn < kHd / 8; ++jn)
+          oc[jn][0] = oc[jn][1] = oc[jn][2] = oc[jn][3] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kRows / 16; ++ks) {
+          if (16 * ks < N) {
+            const uint32_t a[4] = {pr[2 * ks][0], pr[2 * ks][1],
+                                   pr[2 * ks + 1][0], pr[2 * ks + 1][1]};
+#pragma unroll
+            for (int jn = 0; jn < kHd / 8; jn += 2) {
+              uint32_t b[4];
+              ldsm_x4_trans(b, qs + 2 * tile + T::piece(vbo, jn) +
+                                   16 * ks * rb);
+              fmmt::mma_16816(oc[jn], a, b[0], b[1]);
+              fmmt::mma_16816(oc[jn + 1], a, b[2], b[3]);
+            }
+          }
+        }
+
+        // 6. bf16 into this warp's own q rows (no other warp reads them), then
+        //    its real rows back to device memory, 16 bytes a thread
+        __syncwarp();
+#pragma unroll
+        for (int jn = 0; jn < kHd / 8; ++jn) {
+          *reinterpret_cast<uint32_t*>(qb + T::piece(oo, jn)) =
+              fmmt::pack_bf16(oc[jn][0], oc[jn][1]);
+          *reinterpret_cast<uint32_t*>(qb + T::piece(oo, jn) + 8 * rb) =
+              fmmt::pack_bf16(oc[jn][2], oc[jn][3]);
+        }
+      }
+      __syncwarp();
       const int rows_here = min(16, N - r0);
       for (int p = lane; p < rows_here * cpr; p += 32) {
         const int r = r0 + p / cpr;
@@ -402,13 +495,14 @@ window_attention_kernel(__grid_constant__ const Maps maps,
   }
 }
 
-template <int kConc, int kHd, int kN>
+template <typename TT, int kConc, int kHd, int kN>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int W, int heads, int N, int nW, int chunk,
            void* stream) {
-  const auto kernel = window_attention_kernel<kConc, kHd, kN>;
-  constexpr int stages = ring_stages(kHd, kConc);
-  constexpr long long bytes = smem_bytes(kHd, kConc, stages);
+  const auto kernel = window_attention_kernel<TT, kConc, kHd, kN>;
+  constexpr int rb = row_bytes(kHd, sizeof(TT));
+  constexpr int stages = ring_stages(rb, kConc);
+  constexpr long long bytes = smem_bytes(rb, kConc, stages);
   // the shared-memory attribute once per instantiation and device
   static bool ready[kMaxDevices] = {};
   int dev = 0;
@@ -423,15 +517,18 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
     ready[dev] = true;
   }
   Maps maps;
+  // the swizzle spans a row (Tile's sw): 32, 64 or 128 bytes, none above
   constexpr CUtensorMapSwizzle swizzle =
-      kHd == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
-                : (kHd == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                             : CU_TENSOR_MAP_SWIZZLE_128B);
+      rb == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+               : (rb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : (rb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : CU_TENSOR_MAP_SWIZZLE_NONE));
   CUtensorMap* const dst[3] = {&maps.q, &maps.k, &maps.v};
   const void* const src[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     err = fmmt::encode_tile_stack(dst[i], src[i], kHd, N,
-                                  (long long)W * heads, swizzle);
+                                  (long long)W * heads, swizzle,
+                                  (int)sizeof(TT));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int E = nW / gcd(nW, kConc) * kConc;
@@ -439,46 +536,68 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   const int blocks = heads * (E / kConc) * ((faces + chunk - 1) / chunk);
   kernel<<<blocks, kConc * kGroupThreads, bytes,
            static_cast<cudaStream_t>(stream)>>>(
-      maps, static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), heads, N, nW, E, faces, chunk, stages);
+      maps, static_cast<const __nv_bfloat16*>(bias), static_cast<TT*>(out),
+      heads, N, nW, E, faces, chunk, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kConc>
+template <typename TT, int kConc>
 int launch_hd(const void* q, const void* k, const void* v, const void* bias,
               void* out, int W, int heads, int N, int hd, int nW, int chunk,
               void* stream) {
   switch (hd) {
     case 16:
-      return launch<kConc, 16, 0>(q, k, v, bias, out, W, heads, N, nW, chunk,
-                                  stream);
+      return launch<TT, kConc, 16, 0>(q, k, v, bias, out, W, heads, N, nW,
+                                      chunk, stream);
     case 32:   // Swin's head dim; its 7 x 7 windows with N fixed
-      return N == 49 ? launch<kConc, 32, 49>(q, k, v, bias, out, W, heads, N,
-                                             nW, chunk, stream)
-                     : launch<kConc, 32, 0>(q, k, v, bias, out, W, heads, N,
-                                            nW, chunk, stream);
+      return N == 49 ? launch<TT, kConc, 32, 49>(q, k, v, bias, out, W, heads,
+                                                 N, nW, chunk, stream)
+                     : launch<TT, kConc, 32, 0>(q, k, v, bias, out, W, heads,
+                                                N, nW, chunk, stream);
     default:
-      return launch<kConc, 64, 0>(q, k, v, bias, out, W, heads, N, nW, chunk,
-                                  stream);
+      return launch<TT, kConc, 64, 0>(q, k, v, bias, out, W, heads, N, nW,
+                                      chunk, stream);
+  }
+}
+
+template <typename TT>
+int launch_conc(const void* q, const void* k, const void* v, const void* bias,
+                void* out, int W, int heads, int N, int hd, int nW, int conc,
+                int chunk, void* stream) {
+  switch (conc) {
+    case 1:
+      return launch_hd<TT, 1>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
+                              stream);
+    case 2:
+      return launch_hd<TT, 2>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
+                              stream);
+    case 3:
+      return launch_hd<TT, 3>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
+                              stream);
+    default:
+      return launch_hd<TT, 4>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
+                              stream);
   }
 }
 
 }  // namespace
 
 // Shared-memory bytes one block of `conc` window slots needs, ring
-// included; the wrapper's launch plan computes the same and a card test
-// holds the two equal.
-FMMT_API long long fmmt_window_attention_smem(int hd, int conc) {
-  return smem_bytes(hd, conc, ring_stages(hd, conc));
+// included, for bf16 tiles or (f32) fp32 ones; the wrapper's launch plan
+// computes the same and a card test holds the two equal.
+FMMT_API long long fmmt_window_attention_smem(int hd, int conc, int f32) {
+  const int rb = row_bytes(hd, f32 ? 4 : 2);
+  return smem_bytes(rb, conc, ring_stages(rb, conc));
 }
 
 // conc: window slots side by side in a block (1..4; when nW > 1 it divides
 // nW); chunk: faces a block walks (E = lcm(nW, conc) windows a face; the last
-// chunk may be shorter).  q, k, v and out are 16-byte aligned.
+// chunk may be shorter).  q, k, v and out are 16-byte aligned, fp32 when f32
+// is nonzero, else bf16.
 FMMT_API int fmmt_window_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int W,
                                    int heads, int N, int hd, int nW, int conc,
-                                   int chunk, void* stream) {
+                                   int chunk, int f32, void* stream) {
   if (N < 1 || N > kRows || (hd != 16 && hd != 32 && hd != 64) || conc < 1 ||
       conc > kMaxConc || chunk < 1 || nW < 1 || W % nW != 0 ||
       (nW > 1 && nW % conc != 0) || W % (nW / gcd(nW, conc) * conc) != 0)
@@ -487,18 +606,9 @@ FMMT_API int fmmt_window_attention(const void* q, const void* k, const void* v,
   for (const void* p : operands)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-  switch (conc) {
-    case 1:
-      return launch_hd<1>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
-                          stream);
-    case 2:
-      return launch_hd<2>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
-                          stream);
-    case 3:
-      return launch_hd<3>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
-                          stream);
-    default:
-      return launch_hd<4>(q, k, v, bias, out, W, heads, N, hd, nW, chunk,
-                          stream);
-  }
+  if (f32)
+    return launch_conc<float>(q, k, v, bias, out, W, heads, N, hd, nW, conc,
+                              chunk, stream);
+  return launch_conc<__nv_bfloat16>(q, k, v, bias, out, W, heads, N, hd, nW,
+                                    conc, chunk, stream);
 }

@@ -123,13 +123,13 @@ _SIGNATURES = {
     "fmmt_fused_attention_block_bwd_scratch": ([_I] * 5, ctypes.c_longlong),
     "fmmt_fused_attention_block_bwd_spill": ([_VP] * 17 + [_I] * 6 + [_F, _VP],
                                              _I),
-    "fmmt_window_attention": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
-    "fmmt_window_attention_smem": ([_I] * 2, ctypes.c_longlong),
-    "fmmt_fused_merge": ([_VP] * 5 + [_I] * 3 + [_F, _VP], _I),
+    "fmmt_window_attention": ([_VP] * 5 + [_I] * 8 + [_VP], _I),
+    "fmmt_window_attention_smem": ([_I] * 3, ctypes.c_longlong),
+    "fmmt_fused_merge": ([_VP] * 7 + [_I] * 4 + [_F, _VP], _I),
     "fmmt_fused_merge_smem": ([_I], ctypes.c_longlong),
-    "fmmt_fused_whole_block": ([_VP] * 16 + [_I] * 6 + [_F, _VP], _I),
-    "fmmt_fused_whole_block_smem": ([_I] * 4, ctypes.c_longlong),
-    "fmmt_fused_whole_block_scratch": ([_I] * 6, ctypes.c_longlong),
+    "fmmt_fused_whole_block": ([_VP] * 16 + [_I] * 7 + [_F, _VP], _I),
+    "fmmt_fused_whole_block_smem": ([_I] * 5, ctypes.c_longlong),
+    "fmmt_fused_whole_block_scratch": ([_I] * 7, ctypes.c_longlong),
     "fmmt_shift_permute": ([_VP] * 2 + [_I] * 7 + [_VP], _I),
 }
 
@@ -203,21 +203,22 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     require(t.data_ptr() % 32 == 0, f"{name}: must be 32-byte aligned")
 
 
-# The token types kernels 1-6 take (x, dy, dx, out; kernel 1's q, k, v, out):
-# each C entry point has an instantiation of both, as the JAX kernels read x
-# in its own dtype.  Their weights go to the kernels in bf16.
+# The token types kernels 1-11 take (x, dy, dx, out; the attention cores'
+# q, k, v, out): each C entry point has an instantiation of both, as the JAX
+# kernels read x in its own dtype.  Their weights go to the kernels in bf16.
+# Kernel 12 (shift_permute) copies rows of any dtype byte for byte.
 TOKEN_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def check_token_dtype(name: str, t: torch.Tensor) -> None:
     require(t.dtype in TOKEN_DTYPES,
-            f"{name}: dtype {t.dtype}; kernels 1-6 take {TOKEN_DTYPES}")
+            f"{name}: dtype {t.dtype}; kernels 1-11 take {TOKEN_DTYPES}")
 
 
 def token_operand(t: torch.Tensor) -> torch.Tensor:
-    """x, dy (or kernel 1's q, k, v) as kernels 1-6 take them: detached and
-    contiguous in their own dtype, bf16 or fp32.  Any other dtype raises:
-    the kernels never see a quiet cast of the tokens."""
+    """x, dy (or the attention cores' q, k, v) as kernels 1-11 take them:
+    detached and contiguous in their own dtype, bf16 or fp32.  Any other
+    dtype raises: the kernels never see a quiet cast of the tokens."""
     check_token_dtype("tokens", t)
     return t.detach().contiguous()
 

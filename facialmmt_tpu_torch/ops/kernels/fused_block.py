@@ -23,7 +23,8 @@ decided in one place, `backward_variant`.
 `fused_whole_block` is the WHOLE block, the attention half followed by the
 MLP half y + fc2(GELU(fc1(LN2(y)))), in one wrapper call
 (csrc/attention_block.cu's second entry point, on the device kernels of the
-two halves; JAX's fused_whole_block).  Its backward differentiates
+two halves; JAX's fused_whole_block), x and y in bf16 or fp32 as the halves
+take them (`whole_kernel_operands`).  Its backward differentiates
 the plain version recomputed from the saved inputs, as JAX's does: neither
 package has a backward kernel for it.  As in the JAX package, SwinBlock keeps
 the two halves; nothing in the model calls it.
@@ -415,10 +416,11 @@ def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
     """Launch the whole-block entry point of csrc/attention_block.cu (the
     attention half's four device kernels, proj leaving the rows' LN2
     partials, then fc1 + GELU with the partials merged in its prologue and
-    fc2 + residual): bf16 tokens and weights (w1 (HID, C), w2 (C, HID): what
-    SwinBlock's fc1 / fc2 Linears hold), fp32 bias, N <= 64, C <= 768, C and
-    the head dim multiples of 16, HID a multiple of 64; raises on anything
-    else.  Two launches give the same bits."""
+    fc2 + residual; on fp32 tokens the two halves' fp32 paths in sequence):
+    bf16 or fp32 tokens (out of the same dtype), bf16 weights (w1 (HID, C),
+    w2 (C, HID): what SwinBlock's fc1 / fc2 Linears hold), fp32 bias,
+    N <= 64, C <= 768, C and the head dim multiples of 16, HID a multiple of
+    64; raises on anything else.  Two launches give the same bits."""
     kernels.require(x.is_cuda,
                     f"{x.device} tensor: the kernel takes CUDA tensors")
     kernels.require(x.dim() == 3 and bias.dim() == 4 and w1.dim() == 2,
@@ -435,7 +437,9 @@ def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
                     f"HID={hid}")
     kernels.require(w % nw == 0, f"W={w} is not a multiple of nW={nw}")
     bf16 = torch.bfloat16
-    for name, t, shape in (("x", x, (w, n, c)), ("gamma", gamma, (c,)),
+    kernels.check_token_dtype("x", x)
+    kernels.check_cuda_tensor("x", x, x.dtype, (w, n, c), dev)
+    for name, t, shape in (("gamma", gamma, (c,)),
                            ("beta", beta, (c,)), ("wqkv", wqkv, (3 * c, c)),
                            ("bqkv", bqkv, (3 * c,)), ("wproj", wproj, (c, c)),
                            ("bproj", bproj, (c,)), ("gamma2", gamma2, (c,)),
@@ -445,20 +449,21 @@ def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
         kernels.check_cuda_tensor(name, t, bf16, shape, dev)
     kernels.check_cuda_tensor("bias", bias, torch.float32, (nw, h, n, n), dev)
     lib = kernels.library()
-    smem = lib.fmmt_fused_whole_block_smem(n, c, h, hid)
+    f32 = kernels.is_f32(x)
+    smem = lib.fmmt_fused_whole_block_smem(n, c, h, hid, f32)
     kernels.require(smem <= kernels.max_shared_memory(dev),
                     f"needs {smem} B of shared memory per block")
-    # the call's scratch: LN1 statistics, qkv, the head outputs, y and its
-    # LN2 partials, the hidden layer
+    # the call's scratch: LN1 statistics, qkv, the head outputs, y (in x's
+    # dtype) and its LN2 partials, the hidden layer
     scratch = torch.empty(
-        lib.fmmt_fused_whole_block_scratch(w, n, c, h, nw, hid),
+        lib.fmmt_fused_whole_block_scratch(w, n, c, h, nw, hid, f32),
         dtype=torch.uint8, device=dev)
     out = torch.empty_like(x)
     err = lib.fmmt_fused_whole_block(
         *[t.data_ptr() for t in (x, gamma, beta, wqkv, bqkv, wproj, bproj,
                                  bias, gamma2, beta2, w1, b1, w2, b2, scratch,
                                  out)],
-        w, n, c, h, nw, hid, eps, kernels.stream_ptr(dev))
+        w, n, c, h, nw, hid, f32, eps, kernels.stream_ptr(dev))
     kernels.check_launch("fused_whole_block", err)
     fused_whole_block_cuda.launches += 1
     return out
@@ -467,25 +472,34 @@ def fused_whole_block_cuda(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
 fused_whole_block_cuda.launches = 0
 
 
+def whole_kernel_operands(x, gamma, beta, wqkv, bqkv, wproj, bproj, bias,
+                          gamma2, beta2, w1, b1, w2, b2):
+    """What FusedWholeBlock hands the kernel for CUDA tensors: x in its own
+    dtype (kernels.token_operand), the weights in bf16, the bias in fp32."""
+    from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
+
+    return (kernels.token_operand(x),
+            *[kernel_operand(p) for p in (gamma, beta, wqkv, bqkv, wproj,
+                                          bproj)],
+            kernel_operand(bias, torch.float32),
+            *[kernel_operand(p) for p in (gamma2, beta2, w1, b1, w2, b2)])
+
+
 class FusedWholeBlock(torch.autograd.Function):
-    """The whole Swin block.  Forward: the kernel on CUDA tensors (operands
-    cast to bf16, the bias to fp32, at the kernel boundary), the plain version
-    on CPU tensors.  Backward: torch autograd of the plain version recomputed
-    from the saved inputs, in fp32 outside autocast (JAX's _whole_bwd)."""
+    """The whole Swin block.  Forward: the kernel on CUDA tensors
+    (`whole_kernel_operands`), the plain version on CPU tensors.  Backward:
+    torch autograd of the plain version recomputed from the saved inputs, in
+    fp32 outside autocast (JAX's _whole_bwd)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
                 beta2, w1, b1, w2, b2, eps):
-        from facialmmt_tpu_torch.ops.kernels.block_mlp import kernel_operand
-
         inputs = (x, gamma, beta, wqkv, bqkv, wproj, bproj, bias, gamma2,
                   beta2, w1, b1, w2, b2)
         ctx.save_for_backward(*inputs)
         ctx.eps = eps
         if x.is_cuda:
-            out = fused_whole_block_cuda(
-                *[kernel_operand(t, torch.float32 if t is bias
-                                 else torch.bfloat16) for t in inputs], eps)
+            out = fused_whole_block_cuda(*whole_kernel_operands(*inputs), eps)
         else:
             out = fused_whole_block_plain(*[t.detach() for t in inputs], eps)
         return out.to(x.dtype)

@@ -23,7 +23,11 @@ block takes one after another (0: the plan's); `pairs` selects nothing.
 All three store the bias in bf16 (the shift mask's -100 survives that, the
 relative-position values are rounded), so the plain version rounds it through
 bf16 too; the wrappers cast it, as JAX does, in a device kernel of their own
-before the launch.  Each public function is a torch.autograd.Function whose
+before the launch.  q, k, v come in bf16 or fp32 (the model's compute dtype):
+as the JAX kernels keep q, k, v, the probabilities and out in q's dtype, the
+kernel has an instantiation for each (fp32: fp32 tiles, both products on
+TF32, fp32 out), and the Functions hand the tokens over in their own dtype
+(`kernel_operands`).  Each public function is a torch.autograd.Function whose
 forward is the kernel on a CUDA tensor and the plain version on a CPU tensor,
 and whose backward differentiates the exact formulation (`_reference`,
 unrounded bias) recomputed from the saved q, k, v, bias, as the JAX package
@@ -53,17 +57,22 @@ MAX_CHUNK = 5           # faces a block walks at most: longer walks leave a
                         # tail of long blocks (experiments/torch_window_plan.py)
 
 
-def smem_bytes(hd: int, conc: int, stages: int) -> int:
+def smem_bytes(hd: int, conc: int, stages: int, elem: int = 2) -> int:
     """csrc/window_attention.cu's smem_bytes: per window slot and ring slot
-    three 64-row tiles (q, k, v) of dense hd * 2-byte rows under the TMA's
-    swizzle and one 8-byte mbarrier, after the slack that aligns the tiles
-    to 1024 bytes."""
-    return SMEM_ALIGN + conc * stages * (3 * ROWS * 2 * hd + 8)
+    three 64-row tiles (q, k, v) of dense hd * elem-byte rows (bf16: 2, fp32:
+    4) under the TMA's swizzle and one 8-byte mbarrier, after the slack that
+    aligns the tiles to 1024 bytes."""
+    return SMEM_ALIGN + conc * stages * (3 * ROWS * elem * hd + 8)
 
 
-def ring_stages(hd: int, conc: int) -> int:
-    """Three ring slots where they fit a block's shared memory, else two."""
-    return MAX_STAGES if smem_bytes(hd, conc, MAX_STAGES) <= SMEM_LIMIT else 2
+def ring_stages(hd: int, conc: int, elem: int = 2) -> int:
+    """The most ring slots, MAX_STAGES at most, that fit a block's shared
+    memory: bf16 takes 3, or 2 at hd 64 with 4 windows side by side; fp32
+    tiles are twice as large and take down to 1 (hd 64, 3 or 4 windows)."""
+    for stages in range(MAX_STAGES, 1, -1):
+        if smem_bytes(hd, conc, stages, elem) <= SMEM_LIMIT:
+            return stages
+    return 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +105,7 @@ class Plan:
 
 
 def launch_plan(w: int, h: int, hd: int, nw: int, conc: int, sms: int,
-                chunk: int = 0) -> Plan:
+                chunk: int = 0, elem: int = 2) -> Plan:
     """The grid and ring of csrc/window_attention.cu for `conc` windows side
     by side.  `chunk` is how many faces a block walks; 0 takes the largest
     that leaves MIN_BLOCKS_PER_SM blocks and SLOTS_PER_SM window slots a SM
@@ -104,7 +113,8 @@ def launch_plan(w: int, h: int, hd: int, nw: int, conc: int, sms: int,
     MAX_CHUNK, evened out over the chunks.  A longer walk reads a block's
     bias rows for more windows and hides more of a block's start; more
     slots keep more of the card's warps busy, and shorter walks end
-    together (experiments/torch_window_plan.py times the choice)."""
+    together (experiments/torch_window_plan.py times the choice).  `elem`:
+    the tokens' bytes an element, which sets the ring."""
     per_face = math.lcm(nw, conc)
     faces = w // per_face
     if chunk <= 0:
@@ -112,9 +122,10 @@ def launch_plan(w: int, h: int, hd: int, nw: int, conc: int, sms: int,
         blocks = max(MIN_BLOCKS_PER_SM * sms, -(-SLOTS_PER_SM * sms // conc))
         chunk = min(MAX_CHUNK, max(1, faces // -(-blocks // base)))
         chunk = -(-faces // -(-faces // chunk))
-    stages = ring_stages(hd, conc)
+    stages = ring_stages(hd, conc, elem)
     return Plan(conc=conc, heads=h, per_face=per_face, faces=faces,
-                chunk=chunk, stages=stages, smem=smem_bytes(hd, conc, stages))
+                chunk=chunk, stages=stages,
+                smem=smem_bytes(hd, conc, stages, elem))
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,9 +152,10 @@ def window_attention_plain(q, k, v, bias):
 def _launch(wrapper, q, k, v, bias, conc: int, chunk: int = 0):
     """Check the operands and launch csrc/window_attention.cu with `conc`
     windows side by side in a block, each block walking `chunk` faces (0:
-    the launch plan's): bf16 q/k/v, N <= 64, head dim in HEAD_DIMS, 16-byte
-    aligned pointers (the TMA's rule); raises on anything else.  The bias is
-    cast to bf16 here, outside the kernel."""
+    the launch plan's): q/k/v all bf16 or all fp32 (out of the same dtype),
+    N <= 64, head dim in HEAD_DIMS, 16-byte aligned pointers (the TMA's
+    rule); raises on anything else.  The bias is cast to bf16 here, outside
+    the kernel."""
     kernels.require(q.is_cuda,
                     f"{q.device} tensor: the kernel takes CUDA tensors")
     kernels.require(q.dim() == 4 and bias.dim() == 4,
@@ -158,12 +170,14 @@ def _launch(wrapper, q, k, v, bias, conc: int, chunk: int = 0):
     kernels.require(w % math.lcm(nw, conc) == 0 and (nw == 1 or nw % conc == 0),
                     f"W={w}, nW={nw}: {conc} windows side by side need "
                     f"conc | nW (or nW = 1) and conc | W")
+    kernels.check_token_dtype("q", q)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        kernels.check_cuda_tensor(name, t, torch.bfloat16, (w, h, n, hd), dev)
+        kernels.check_cuda_tensor(name, t, q.dtype, (w, h, n, hd), dev)
     kernels.require(tuple(bias.shape) == (nw, h, n, n) and bias.device == dev,
                     f"bias: shape {tuple(bias.shape)} on {bias.device}, "
                     f"expected {(nw, h, n, n)} on {dev}")
-    plan = launch_plan(w, h, hd, nw, conc, _sm_count(dev), chunk)
+    plan = launch_plan(w, h, hd, nw, conc, _sm_count(dev), chunk,
+                       q.element_size())
     kernels.require(plan.smem <= kernels.max_shared_memory(dev),
                     f"needs {plan.smem} B of shared memory per block")
     bias = bias.detach().to(torch.bfloat16).contiguous()
@@ -171,7 +185,7 @@ def _launch(wrapper, q, k, v, bias, conc: int, chunk: int = 0):
     kernels.require(out.data_ptr() % 16 == 0, "out: must be 16-byte aligned")
     err = kernels.library().fmmt_window_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), w, h, n, hd, nw, conc, plan.chunk,
+        out.data_ptr(), w, h, n, hd, nw, conc, plan.chunk, kernels.is_f32(q),
         kernels.stream_ptr(dev))
     kernels.check_launch(wrapper.__name__, err)
     wrapper.launches += 1
@@ -223,17 +237,24 @@ paired_window_attention_cuda.launches = 0
 fused_window_attention_v2_cuda.launches = 0
 
 
+def kernel_operands(q, k, v, bias):
+    """What the Functions hand the kernel for CUDA tensors: q, k, v in their
+    own dtype (kernels.token_operand; the kernel takes them all of one), the
+    bias rounded to bf16 as the kernel stores it."""
+    return (*[kernels.token_operand(t) for t in (q, k, v)],
+            kernel_operand(bias))
+
+
 class _WindowAttention(torch.autograd.Function):
-    """Forward: `cuda_fn` on CUDA tensors (operands cast to bf16 at the kernel
-    boundary), the plain version on CPU tensors.  Backward: torch autograd of
-    `_reference` recomputed from the saved inputs, in fp32 outside autocast."""
+    """Forward: `cuda_fn` on CUDA tensors (`kernel_operands`), the plain
+    version on CPU tensors.  Backward: torch autograd of `_reference`
+    recomputed from the saved inputs, in fp32 outside autocast."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, cuda_fn, tiling):
         ctx.save_for_backward(q, k, v, bias)
         if q.is_cuda:
-            out = cuda_fn(kernel_operand(q), kernel_operand(k),
-                          kernel_operand(v), bias, tiling)
+            out = cuda_fn(*kernel_operands(q, k, v, bias), tiling)
         else:
             out = window_attention_plain(q, k, v, bias)
         return out.to(q.dtype)

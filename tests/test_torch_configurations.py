@@ -100,7 +100,7 @@ def test_chip_smoke_phase16_rehearses_on_the_cpu(tmp_path, monkeypatch):
                         lambda args: _small_swin(real(args), tiny))
     noop = lambda *a, **k: None
     for name in ("require_counts", "require_launched", "expect_text_kernel",
-                 "hold_fp32_pack"):
+                 "hold_fp32_pack", "hold_fp32_route"):
         monkeypatch.setattr(chip_smoke, name, noop)
     monkeypatch.setattr(chip_smoke, "AUX_IMAGES", 8)
     monkeypatch.setattr(torch.cuda, "synchronize", noop)
@@ -114,7 +114,8 @@ def test_chip_smoke_phase16_rehearses_on_the_cpu(tmp_path, monkeypatch):
     assert rows == {}
     assert sorted(paths) == sorted(
         f"configurations_{k}" for k in (
-            "drop_eval", "drop_aux", "fp32_pack", "fp32_aux", "fp32_target",
+            "drop_eval", "drop_aux", "fp32_pack", "fp32_pack_pallas",
+            "fp32_pack_pair", "fp32_aux", "fp32_aux_pallas", "fp32_target",
             "bert_meld_eval", "bert_meld_train", "m3ed_t_train",
             "m3ed_t_eval", "m3ed_dia_train", "m3ed_dia_eval"))
     assert not any(any(p.values()) for p in paths.values())   # CPU: plain

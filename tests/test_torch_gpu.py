@@ -426,26 +426,33 @@ def test_autograd_functions_launch_the_backward_kernels(rng, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("w,c,h,nw", [(32, 96, 3, 16), (16, 192, 6, 1),
                                       (8, 384, 12, 4), (6, 768, 24, 1),
                                       (6, 32, 2, 1)],
                          ids=["stage0-shifted", "stage1", "stage2-shifted",
                               "stage3", "tiny"])
-def test_fused_whole_block_kernel(rng, cuda_device, w, c, h, nw):
+def test_fused_whole_block_kernel(rng, cuda_device, w, c, h, nw, dtype):
     """Every Swin-tiny stage width (LN2's partials: one a row at C = 96, six
     at C = 768; at C = 32 one, over half a 64-column tile): the kernel
     against its plain version and against the split (kernels 2 and 3) on the
-    same inputs; two launches give the same bits."""
+    same inputs; two launches give the same bits.  fp32 tokens: out in
+    fp32, bit for bit the split (the two halves' fp32 paths in sequence)."""
     args = _whole_inputs(rng, cuda_device, w, 49, c, h, nw)
+    if dtype == torch.float32:
+        args = _as_f32_tokens(args)
     got = fused_block.fused_whole_block_cuda(*args)
     want = fused_block.fused_whole_block_plain(*args)
     y = fused_block.fused_attention_block_cuda(*args[:8])
     split = block_mlp.fused_ln_mlp_residual_cuda(y.reshape(-1, c), *args[8:])
     again = fused_block.fused_whole_block_cuda(*args)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
+    assert got.dtype == dtype and torch.isfinite(got).all()
     assert _rel(got, want) <= BOUND
     assert _rel(got, split.reshape(got.shape)) <= BOUND
+    if dtype == torch.float32:
+        assert torch.equal(got, split.reshape(got.shape))
     assert torch.equal(got, again)
 
 
@@ -509,8 +516,10 @@ WINDOW_KERNELS = {
     "v2": window_attention.fused_window_attention_v2_cuda}
 
 
-def _window_inputs(rng, dev, w, h, n, hd, nw):
-    bf = lambda a: torch.tensor(a).to(dev, torch.bfloat16).contiguous()
+def _window_inputs(rng, dev, w, h, n, hd, nw, dtype=torch.bfloat16):
+    """q, k, v in `dtype` (fp32: values bf16 cannot hold) and the fp32
+    bias."""
+    bf = lambda a: torch.tensor(a).to(dev, dtype).contiguous()
     bias = rng.normal(size=(nw, h, n, n))
     if nw > 1:
         bias += np.where(rng.random((nw, 1, n, n)) > 0.7, -100.0, 0.0)
@@ -521,20 +530,32 @@ def _window_inputs(rng, dev, w, h, n, hd, nw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("w,h,n,hd,nw", [(128, 3, 49, 32, 64),
                                          (12, 24, 49, 32, 1),
                                          (8, 2, 16, 16, 4),
                                          (6, 1, 64, 64, 1)])
 @pytest.mark.parametrize("variant", sorted(WINDOW_KERNELS))
-def test_window_attention_kernels(rng, cuda_device, variant, w, h, n, hd, nw):
+def test_window_attention_kernels(rng, cuda_device, variant, w, h, n, hd, nw,
+                                  dtype):
     """Every entry point at stage shapes, a tiny one and the largest tile;
-    W = 12 and 6 make v2 shrink its group to 4 and 3."""
-    args = _window_inputs(rng, cuda_device, w, h, n, hd, nw)
-    got = WINDOW_KERNELS[variant](*args)
+    W = 12 and 6 make v2 shrink its group to 4 and 3.  fp32 q, k, v (the
+    TF32 instantiation): fp32 out within a quarter of the bound, nearer
+    the fp32 plain version than the same call through the former bf16
+    boundary, two launches bit for bit."""
+    args = _window_inputs(rng, cuda_device, w, h, n, hd, nw, dtype)
+    kernel = WINDOW_KERNELS[variant]
+    got = kernel(*args)
     want = window_attention.window_attention_plain(*args)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
+    assert got.dtype == dtype and torch.isfinite(got).all()
     assert _rel(got, want) <= BOUND
+    if dtype == torch.float32:
+        before = kernel(*(t.bfloat16() for t in args[:3]), args[3])
+        assert _rel(got, want) <= BOUND / 4
+        assert _rel(got, want) < _rel(before, want)
+        assert torch.equal(got, kernel(*args))
 
 
 @pytest.mark.gpu
@@ -555,14 +576,19 @@ def test_window_attention_tilings_agree_bit_for_bit(rng, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("hd,n", [(16, 49), (32, 49), (64, 64), (16, 16)])
 @pytest.mark.parametrize("conc", [1, 2, 4])
 def test_window_attention_walks_write_every_unit(rng, cuda_device,
-                                                 monkeypatch, conc, hd, n):
+                                                 monkeypatch, conc, hd, n,
+                                                 dtype):
     """7 faces of 4 windows walked 3 faces a block (a short last chunk), the
     output memory filled with NaN first: every unit is written, two launches
-    give the same bits, and so does the plan's own chunk."""
-    args = _window_inputs(rng, cuda_device, 28, 3, n, hd, 4)
+    give the same bits, and so does the plan's own chunk.  fp32 tiles take
+    every ring the plan gives them (hd 64 with 4 windows side by side: one
+    slot)."""
+    args = _window_inputs(rng, cuda_device, 28, 3, n, hd, 4, dtype)
     empty_like = torch.empty_like
     monkeypatch.setattr(torch, "empty_like", lambda *a, **kw: empty_like(
         *a, **kw).fill_(float("nan")))
@@ -570,7 +596,7 @@ def test_window_attention_walks_write_every_unit(rng, cuda_device,
         window_attention.fused_window_attention_cuda, *args, conc, chunk)
     got = launch(3)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
+    assert got.dtype == dtype and torch.isfinite(got).all()
     assert _rel(got, window_attention.window_attention_plain(*args)) <= BOUND
     for chunk in (3, 0):
         assert torch.equal(launch(chunk), got)
@@ -579,7 +605,8 @@ def test_window_attention_walks_write_every_unit(rng, cuda_device,
 @pytest.mark.gpu
 def test_window_attention_checks_alignment_and_shared_memory(rng, cuda_device):
     """A q, k or v that is not 16-byte aligned raises (the bulk copies need
-    it); the C side's shared-memory count is the launch plan's."""
+    it); the C side's shared-memory count is the launch plan's, for bf16
+    and fp32 tiles."""
     q, k, v, bias = _window_inputs(rng, cuda_device, 8, 2, 49, 32, 4)
     for i in range(3):
         args = [q, k, v]
@@ -588,11 +615,12 @@ def test_window_attention_checks_alignment_and_shared_memory(rng, cuda_device):
         with pytest.raises(ValueError, match="aligned"):
             window_attention.fused_window_attention_cuda(*args, bias)
     lib = kernels.library()
-    for hd in window_attention.HEAD_DIMS:
-        for conc in range(1, window_attention.MAX_SIDE_BY_SIDE + 1):
-            assert lib.fmmt_window_attention_smem(hd, conc) == \
-                window_attention.launch_plan(4 * conc, 1, hd, 1, conc,
-                                             132).smem
+    for f32, elem in ((0, 2), (1, 4)):
+        for hd in window_attention.HEAD_DIMS:
+            for conc in range(1, window_attention.MAX_SIDE_BY_SIDE + 1):
+                assert lib.fmmt_window_attention_smem(hd, conc, f32) == \
+                    window_attention.launch_plan(4 * conc, 1, hd, 1, conc,
+                                                 132, elem=elem).smem
 
 
 @pytest.mark.gpu
@@ -612,22 +640,31 @@ def test_fused_merge_kernel(rng, cuda_device, t, c4):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
 @pytest.mark.parametrize("t,c4,c2", [(1, 384, 192), (1024, 1536, 768),
                                      (1000, 768, 384), (130, 48, 208)])
-def test_fused_merge_kernel_tiles(rng, cuda_device, t, c4, c2):
+def test_fused_merge_kernel_tiles(rng, cuda_device, t, c4, c2, dtype):
     """T = 1; transition 2's widths (K = 1536, M = 768) at T = 1024; T not a
     multiple of the 64-row tile; K under one 64-wide chunk and M not a
-    multiple of the 192-column tile (a second tile of 16 columns)."""
+    multiple of the 192-column tile (a second tile of 16 columns).  fp32
+    rows (the statistics and row pass, the fp32 store): out in fp32, nearer
+    the fp32 plain version than through the former bf16 boundary, two
+    launches bit for bit."""
     bf = lambda a: torch.tensor(a).to(cuda_device, torch.bfloat16).contiguous()
-    args = (bf(rng.normal(size=(1, t, c4))),
+    args = (torch.tensor(rng.normal(size=(1, t, c4))).to(cuda_device, dtype),
             bf(1 + 0.1 * rng.normal(size=c4)), bf(0.1 * rng.normal(size=c4)),
             bf(rng.normal(size=(c4, c2)) / np.sqrt(c4)))
     got = merge_kernel.fused_merge_cuda(*args)
     want = merge_kernel.fused_merge_plain(*args)
     torch.cuda.synchronize()
-    assert got.shape == (1, t, c2)
+    assert got.shape == (1, t, c2) and got.dtype == dtype
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= BOUND
+    if dtype == torch.float32:
+        before = merge_kernel.fused_merge_cuda(args[0].bfloat16(), *args[1:])
+        assert _rel(got, want) < _rel(before, want)
+        assert torch.equal(got, merge_kernel.fused_merge_cuda(*args))
     # the tile plan's shared memory at K = 1536, as
     # tests/test_torch_kernels_redesign.py::merge_smem_bytes counts it
     assert kernels.library().fmmt_fused_merge_smem(1536) == 111104
@@ -1030,8 +1067,9 @@ def test_backward_kernels_take_fp32_tokens(rng, cuda_device, half, stage):
 
 @pytest.mark.gpu
 def test_kernels_refuse_other_token_dtypes(rng, cuda_device):
-    """No quiet cast: fp16 tokens, or a gradient of another dtype than x,
-    raise."""
+    """No quiet cast: fp16 tokens, a gradient of another dtype than x, or
+    k and v of another dtype than q, raise at every kernel that takes
+    tokens (1-11)."""
     args = _mlp_inputs(rng, cuda_device, 64, 16)
     with pytest.raises(ValueError, match="dtype"):
         block_mlp.fused_ln_mlp_residual_cuda(args[0].half(), *args[1:])
@@ -1041,3 +1079,17 @@ def test_kernels_refuse_other_token_dtypes(rng, cuda_device):
     q, k, v, bias = _attention_inputs(rng, cuda_device, 1, 2, 8, 8, 16)
     with pytest.raises(ValueError, match="dtype"):
         attention.fused_attention_cuda(q.float(), k, v, bias)
+    q, k, v, bias = _window_inputs(rng, cuda_device, 8, 2, 49, 32, 4)
+    for fn in WINDOW_KERNELS.values():
+        with pytest.raises(ValueError, match="dtype"):
+            fn(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(ValueError, match="dtype"):
+        window_attention.fused_window_attention_cuda(q.float(), k, v, bias)
+    bf = lambda a: torch.tensor(a).to(cuda_device, torch.bfloat16).contiguous()
+    with pytest.raises(ValueError, match="dtype"):
+        merge_kernel.fused_merge_cuda(
+            torch.zeros(1, 4, 32, device=cuda_device, dtype=torch.float16),
+            bf(np.ones(32)), bf(np.zeros(32)), bf(np.zeros((32, 16))))
+    args = _whole_inputs(rng, cuda_device, 2, 49, 32, 2, 1)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_block.fused_whole_block_cuda(args[0].half(), *args[1:])

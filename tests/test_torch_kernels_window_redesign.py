@@ -294,3 +294,153 @@ def test_block_walk_is_the_same_for_every_tiling(rng):
     base = mirror_launch(q, k, v, bias, 1)
     for conc, chunk in ((1, 4), (1, 5), (2, 0), (4, 0), (4, 5)):
         assert torch.equal(mirror_launch(q, k, v, bias, conc, chunk), base)
+
+
+# --- the fp32 instantiation (the model under --compute_dtype float32) ---
+
+
+@pytest.mark.parametrize("hd", wa.HEAD_DIMS)
+def test_fp32_plan_fits_shared_memory(hd):
+    """fp32 tiles are twice as large: the ring takes the most stages (3 at
+    most, down to 1) that fit a Hopper block, for every head dim and
+    windows side by side the wrappers accept."""
+    for conc in range(1, wa.MAX_SIDE_BY_SIDE + 1):
+        stages = wa.ring_stages(hd, conc, 4)
+        smem = wa.launch_plan(4 * conc, 1, hd, 1, conc, SMS, elem=4).smem
+        assert 1 <= stages <= wa.MAX_STAGES and smem <= SMEM_OPTIN
+        assert smem == 1024 + conc * stages * (3 * 64 * 4 * hd + 8)
+        assert stages == wa.MAX_STAGES or \
+            wa.smem_bytes(hd, conc, stages + 1, 4) > SMEM_OPTIN
+    # Swin's head dim: three stages up to 3 windows, two at 4
+    assert [wa.ring_stages(32, c, 4) for c in range(1, 5)] == [3, 3, 3, 2]
+    # bf16 keeps its rings
+    assert [wa.ring_stages(64, c) for c in range(1, 5)] == [3, 3, 3, 2]
+
+
+def f32_row_off(hd, r):
+    """Tile::row_off for fp32 rows of rb = 4 hd bytes: the swizzle of the
+    row's width, none for 256-byte rows (hd 64)."""
+    rb = 4 * hd
+    if rb > 128:
+        return r * rb
+    return r * rb + (((r // (128 // rb)) & (rb // 16 - 1)) << 4)
+
+
+def f32_tile(hd, values):
+    """A tile in shared memory as the TMA leaves it: {byte offset: value}
+    for the 64 x hd fp32 `values` (piece j of row r at piece j ^ sw(r))."""
+    return {piece(f32_row_off(hd, r), c // 4) + 4 * (c % 4): values[r, c]
+            for r in range(64) for c in range(hd)}
+
+
+def ldmatrix_x4(mem, addresses):
+    """ldmatrix .x4 .b16 on 32-bit elements: lanes 8i..8i+7 pass the rows of
+    matrix i, and lane l receives 32-bit word l % 4 of row l / 4 of each."""
+    return [[mem[addresses[8 * i + l // 4] + 4 * (l % 4)] for i in range(4)]
+            for l in range(32)]
+
+
+def mma_1688(c, a, b):
+    """mma.sync m16n8k8 (tf32, no rounding here) from the lanes' registers:
+    a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4];
+    b0 = B[t][g], b1 = B[t+4][g]; c += D[g][2t, 2t+1], D[g+8][2t, 2t+1]."""
+    A, B = np.zeros((16, 8)), np.zeros((8, 8))
+    for l in range(32):
+        g, t = divmod(l, 4)
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a[l]
+        B[t, g], B[t + 4, g] = b[l]
+    D = A @ B
+    for l in range(32):
+        g, t = divmod(l, 4)
+        c[l] = [c[l][0] + D[g, 2 * t], c[l][1] + D[g, 2 * t + 1],
+                c[l][2] + D[g + 8, 2 * t], c[l][3] + D[g + 8, 2 * t + 1]]
+
+
+@pytest.mark.parametrize("hd", wa.HEAD_DIMS)
+def test_fp32_fragments_compute_the_unit(rng, hd):
+    """One warp's work on fp32 tiles, register by register, as
+    csrc/window_attention.cu's fp32 instantiation addresses it: q A and k B
+    fragments by ldmatrix from the bf16 lane offsets, the scores, P v with
+    P's A fragment the score registers relabelled (s0, s2, s1, s3) and v's
+    B fragment by 32-bit loads at the lane's two row offsets, the output
+    pairs into the warp's q rows and out through the 16-byte row copy: the
+    tile's S = q k^T and S v, exactly (no rounding in the emulation)."""
+    n, rows = 49, 64
+    q, k, v = (np.zeros((rows, hd)) for _ in range(3))
+    for t in (q, k, v):
+        t[:n] = rng.normal(size=(n, hd))
+    mem_q, mem_k, mem_v = f32_tile(hd, q), f32_tile(hd, k), f32_tile(hd, v)
+    rb = 4 * hd
+    lanes = range(32)
+    kbo = [piece(f32_row_off(hd, l % 8 + 8 * (l // 16)), l // 8 % 2)
+           for l in lanes]
+    vo0 = [piece(f32_row_off(hd, 2 * (l % 4)), l // 4 // 4) + 4 * (l // 4 % 4)
+           for l in lanes]
+    vo1 = [piece(f32_row_off(hd, 2 * (l % 4) + 1), l // 4 // 4)
+           + 4 * (l // 4 % 4) for l in lanes]
+    out = np.full((rows, hd), np.nan)
+    for r0 in range(0, n, 16):
+        qa = [piece(f32_row_off(hd, r0 + l % 16), l // 16) for l in lanes]
+        sc = [[[0.0] * 4 for _ in lanes] for _ in range(8)]
+        for ks in range(hd // 8):
+            a = ldmatrix_x4(mem_q, [piece(o, 2 * ks) for o in qa])
+            for jj in range(4):
+                b = ldmatrix_x4(mem_k, [piece(o, 2 * ks) + 16 * jj * rb
+                                        for o in kbo])
+                mma_1688(sc[2 * jj], a, [x[:2] for x in b])
+                mma_1688(sc[2 * jj + 1], a, [x[2:] for x in b])
+        s = np.zeros((16, rows))
+        for j in range(8):
+            for l in lanes:
+                g, t = divmod(l, 4)
+                s[g, 8 * j + 2 * t:8 * j + 2 * t + 2] = sc[j][l][:2]
+                s[g + 8, 8 * j + 2 * t:8 * j + 2 * t + 2] = sc[j][l][2:]
+        np.testing.assert_allclose(s, q[r0:r0 + 16] @ k.T, rtol=1e-12,
+                                   atol=1e-12)
+        # P v with the scores as P: any matrix checks the indexing
+        oc = [[[0.0] * 4 for _ in lanes] for _ in range(hd // 8)]
+        for j in range(8):
+            pa = [[sc[j][l][0], sc[j][l][2], sc[j][l][1], sc[j][l][3]]
+                  for l in lanes]
+            for jn in range(hd // 8):
+                b = [[mem_v[(vo0[l] ^ (2 * jn << 4)) + 8 * j * rb],
+                      mem_v[(vo1[l] ^ (2 * jn << 4)) + 8 * j * rb]]
+                     for l in lanes]
+                mma_1688(oc[jn], pa, b)
+        oo32 = [piece(f32_row_off(hd, r0 + l // 4), l % 4 // 2)
+                + 8 * (l % 4 % 2) for l in lanes]
+        for jn in range(hd // 8):
+            for l in lanes:
+                at = oo32[l] ^ (2 * jn << 4)
+                for e, off in enumerate((at, at + 4, at + 8 * rb,
+                                         at + 8 * rb + 4)):
+                    mem_q[off] = oc[jn][l][e]
+        for r in range(r0, min(r0 + 16, n)):
+            for p in range(rb // 16):
+                base = piece(f32_row_off(hd, r), p)
+                out[r, 4 * p:4 * p + 4] = [mem_q[base + 4 * i]
+                                           for i in range(4)]
+    np.testing.assert_allclose(out[:n], (q @ k.T @ v)[:n], rtol=1e-10,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("hd,conflicts", [(16, 2), (32, 1), (64, 4)])
+def test_fp32_lane_addresses_bank_conflicts(hd, conflicts):
+    """At Swin's head dim (32: 128-byte rows under the 128-byte swizzle)
+    the fp32 fragment loads are free of bank conflicts: ldmatrix's 8-lane
+    phases and the 32 lanes' 4-byte v loads; hd 16 (64-byte rows) and
+    unswizzled hd 64 have a few on the v loads."""
+    lanes = range(32)
+    worst = 1
+    for r0 in range(0, 64, 16):
+        qa = [piece(f32_row_off(hd, r0 + l % 16), l // 16) for l in lanes]
+        for ks in range(hd // 8):
+            offs = [piece(o, 2 * ks) for o in qa]
+            for p in range(0, 32, 8):
+                assert _banks(offs[p:p + 8], 16) == (1 if hd < 64 else 8)
+    for jn in range(hd // 8):
+        for row in (0, 1):
+            offs = [(piece(f32_row_off(hd, 2 * (l % 4) + row), l // 16)
+                     + 4 * (l // 4 % 4)) ^ (2 * jn << 4) for l in lanes]
+            worst = max(worst, _banks(offs, 4))
+    assert worst == conflicts
