@@ -21,6 +21,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from facialmmt_tpu_torch.utils.observability import trace_span
+
 ABAW_TO_MELD = [0, 6, 5, 2, 4, 3, 1, 7]  # reference utils/dataset.py:79
 
 
@@ -75,9 +77,11 @@ class AffwildDataset:
         """(uint8 (B, img_size, img_size, 3) BGR frames, int32 labels)."""
         from facialmmt_tpu_torch.native import decode_images
 
-        idx = list(indices)
-        labels = np.asarray([self.data_list[i][1] for i in idx], np.int32)
-        paths = [os.path.join(self.file_folder, self.data_list[i][0])
-                 for i in idx]
-        return decode_images(paths, self.img_size, upscale_interp="area"), \
-            labels
+        with trace_span("fmmt.data.fetch"):
+            idx = list(indices)
+            labels = np.asarray([self.data_list[i][1] for i in idx],
+                                np.int32)
+            paths = [os.path.join(self.file_folder, self.data_list[i][0])
+                     for i in idx]
+            return decode_images(paths, self.img_size,
+                                 upscale_interp="area"), labels

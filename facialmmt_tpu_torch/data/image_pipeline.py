@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from facialmmt_tpu_torch.ops.kernels import to_device_async
+from facialmmt_tpu_torch.utils.observability import trace_span
 
 
 def _keys_cubic(x):
@@ -262,21 +263,25 @@ def affwild2_train_augment(generator, images, img_size: int = 224):
     Resize -> RandomApply(Grayscale, .2) -> RandomApply(ColorJitter(.4), .8)
     -> RandomApply(GaussianBlur, .5) -> Normalize -> RandomErasing(pixel, .25).
     images (N, H, W, 3) uint8 or float in [0, 255] -> normalised float32."""
-    g = generator
-    x = resize_batch(images, img_size)
-    x = _random_apply(g, x, grayscale, prob=0.2)
-    x = _random_apply(g, x, lambda im: color_jitter(g, im, 0.4, 0.4, 0.4, 0.4),
-                      prob=0.8)
-    x = _random_apply(g, x, lambda im: gaussian_blur(g, im), prob=0.5)
-    x = normalize_images(x)
-    return random_erasing(g, x, prob=0.25)
+    with trace_span("fmmt.data.augment"):
+        g = generator
+        x = resize_batch(images, img_size)
+        x = _random_apply(g, x, grayscale, prob=0.2)
+        x = _random_apply(
+            g, x, lambda im: color_jitter(g, im, 0.4, 0.4, 0.4, 0.4),
+            prob=0.8)
+        x = _random_apply(g, x, lambda im: gaussian_blur(g, im), prob=0.5)
+        x = normalize_images(x)
+        return random_erasing(g, x, prob=0.25)
 
 
 def meld_face_train_augment(generator, images, img_size: int = 224):
     """MELD face train transform (reference utils/dataset.py:35-39):
     resize -> ColorJitter(0.5, 0.5, 0.5, 0.5) -> Normalize."""
-    x = resize_batch(images, img_size)
-    return normalize_images(color_jitter(generator, x, 0.5, 0.5, 0.5, 0.5))
+    with trace_span("fmmt.data.augment"):
+        x = resize_batch(images, img_size)
+        return normalize_images(color_jitter(generator, x, 0.5, 0.5, 0.5,
+                                             0.5))
 
 
 def meld_face_eval_transform(images, img_size: int = 224):

@@ -44,6 +44,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from facialmmt_tpu_torch.config import FacialMMTConfig
+from facialmmt_tpu_torch.utils.observability import trace_span
 
 RAW_FACE_SIZE = 160  # MELD face crops are 160 px (reference README.md:116)
 
@@ -104,47 +105,49 @@ class SyntheticMeldDataset:
         return len(self.labels)
 
     def get_batch(self, indices, face_capacity: int):
-        idx = np.asarray(list(indices))
-        b = len(idx)
-        slots: dict[int, int] = {}
-        dia_idx = np.zeros(b, np.int32)
-        for j, i in enumerate(idx):
-            dia_idx[j] = slots.setdefault(int(self.dia_of[i]), len(slots))
-        first = next(iter(slots))
-        by_slot = {v: k for k, v in slots.items()}
-        # B dialogue slots, padded by repeating the first dialogue
-        rows = [by_slot.get(s, first) for s in range(b)]
-        n_faces = self.n_faces[idx]
-        needed = int(n_faces.sum())
-        if needed > face_capacity:
-            raise FaceCapacityError(needed, face_capacity, self.split)
-        face_utt_id = np.full(face_capacity, -1, np.int32)
-        face_pos = np.zeros(face_capacity, np.int32)
-        face_utt_id[:needed] = np.repeat(np.arange(b), n_faces)
-        face_pos[:needed] = np.concatenate(
-            [np.arange(k) for k in n_faces] or [np.zeros(0, np.int32)])
-        faces_raw = np.zeros((face_capacity, RAW_FACE_SIZE, RAW_FACE_SIZE, 3),
-                             np.uint8)
-        rng = np.random.default_rng([self.face_seed, *idx.tolist()])
-        faces_raw[:needed] = rng.integers(
-            0, 256, size=(needed, RAW_FACE_SIZE, RAW_FACE_SIZE, 3),
-            dtype=np.uint8)
-        return {
-            "dia_input_ids": self.input_ids[rows],
-            "dia_input_mask": self.input_mask[rows],
-            "dia_sep_mask": self.sep_mask[rows],
-            "dia_idx": dia_idx,
-            "utt_in_dia_idx": self.pos_of[idx].astype(np.int32),
-            "audio_inputs": self.audio[idx],
-            "audio_mask": self.audio_mask[idx],
-            "vision_feats": self.vision[idx],
-            "vision_mask": self.vision_mask[idx],
-            "n_faces": n_faces,
-            "faces_raw": faces_raw,
-            "face_utt_id": face_utt_id,
-            "face_pos": face_pos,
-            "labels": self.labels[idx],
-        }
+        with trace_span("fmmt.data.fetch"):
+            idx = np.asarray(list(indices))
+            b = len(idx)
+            slots: dict[int, int] = {}
+            dia_idx = np.zeros(b, np.int32)
+            for j, i in enumerate(idx):
+                dia_idx[j] = slots.setdefault(int(self.dia_of[i]),
+                                              len(slots))
+            first = next(iter(slots))
+            by_slot = {v: k for k, v in slots.items()}
+            # B dialogue slots, padded by repeating the first dialogue
+            rows = [by_slot.get(s, first) for s in range(b)]
+            n_faces = self.n_faces[idx]
+            needed = int(n_faces.sum())
+            if needed > face_capacity:
+                raise FaceCapacityError(needed, face_capacity, self.split)
+            face_utt_id = np.full(face_capacity, -1, np.int32)
+            face_pos = np.zeros(face_capacity, np.int32)
+            face_utt_id[:needed] = np.repeat(np.arange(b), n_faces)
+            face_pos[:needed] = np.concatenate(
+                [np.arange(k) for k in n_faces] or [np.zeros(0, np.int32)])
+            faces_raw = np.zeros(
+                (face_capacity, RAW_FACE_SIZE, RAW_FACE_SIZE, 3), np.uint8)
+            rng = np.random.default_rng([self.face_seed, *idx.tolist()])
+            faces_raw[:needed] = rng.integers(
+                0, 256, size=(needed, RAW_FACE_SIZE, RAW_FACE_SIZE, 3),
+                dtype=np.uint8)
+            return {
+                "dia_input_ids": self.input_ids[rows],
+                "dia_input_mask": self.input_mask[rows],
+                "dia_sep_mask": self.sep_mask[rows],
+                "dia_idx": dia_idx,
+                "utt_in_dia_idx": self.pos_of[idx].astype(np.int32),
+                "audio_inputs": self.audio[idx],
+                "audio_mask": self.audio_mask[idx],
+                "vision_feats": self.vision[idx],
+                "vision_mask": self.vision_mask[idx],
+                "n_faces": n_faces,
+                "faces_raw": faces_raw,
+                "face_utt_id": face_utt_id,
+                "face_pos": face_pos,
+                "labels": self.labels[idx],
+            }
 
 
 class SyntheticFerDataset:
@@ -161,8 +164,9 @@ class SyntheticFerDataset:
         return len(self.labels)
 
     def get_batch(self, indices):
-        idx = np.asarray(list(indices))
-        return self.images[idx], self.labels[idx]
+        with trace_span("fmmt.data.fetch"):
+            idx = np.asarray(list(indices))
+            return self.images[idx], self.labels[idx]
 
 
 # ------------------------------------------------------------- file datasets --
@@ -334,56 +338,57 @@ class MeldMultimodalDataset:
         dialogue once, padded by repeating the first), and every face up to
         the per-utterance cap packed into `face_capacity` slots (reference
         train.py:60-71); a batch that needs more raises FaceCapacityError."""
-        idx = list(indices)
-        b = len(idx)
-        f_max = self.vision_max_utt_len
-        dia_slots: Dict[int, int] = {}
-        dia_idx = np.zeros(b, np.int32)
-        utt_in_dia_idx = np.zeros(b, np.int32)
-        utt_names = []
-        for j, i in enumerate(idx):
-            utt_name, _dia_name, dia_i, _dia_len, utt_pos = \
-                self.utt_profile[str(i)]
-            utt_names.append(utt_name)
-            dia_idx[j] = dia_slots.setdefault(dia_i, len(dia_slots))
-            utt_in_dia_idx[j] = utt_pos
-        slot_to_dia = {v: k for k, v in dia_slots.items()}
-        dia_rows = [slot_to_dia.get(s, slot_to_dia[0]) for s in range(b)]
+        with trace_span("fmmt.data.fetch"):
+            idx = list(indices)
+            b = len(idx)
+            f_max = self.vision_max_utt_len
+            dia_slots: Dict[int, int] = {}
+            dia_idx = np.zeros(b, np.int32)
+            utt_in_dia_idx = np.zeros(b, np.int32)
+            utt_names = []
+            for j, i in enumerate(idx):
+                utt_name, _dia_name, dia_i, _dia_len, utt_pos = \
+                    self.utt_profile[str(i)]
+                utt_names.append(utt_name)
+                dia_idx[j] = dia_slots.setdefault(dia_i, len(dia_slots))
+                utt_in_dia_idx[j] = utt_pos
+            slot_to_dia = {v: k for k, v in dia_slots.items()}
+            dia_rows = [slot_to_dia.get(s, slot_to_dia[0]) for s in range(b)]
 
-        face_lists = [self.utt_face_path.get(n, [])[:f_max]
-                      for n in utt_names]
-        needed = sum(len(p) for p in face_lists)
-        if needed > face_capacity:
-            raise FaceCapacityError(needed, face_capacity, self.split)
-        n_faces = np.asarray([len(p) for p in face_lists], np.int32)
-        face_utt_id = np.full(face_capacity, -1, np.int32)
-        face_pos = np.zeros(face_capacity, np.int32)
-        face_utt_id[:needed] = np.repeat(np.arange(b, dtype=np.int32),
-                                         n_faces)
-        face_pos[:needed] = np.concatenate(
-            [np.arange(k, dtype=np.int32) for k in n_faces]
-            or [np.zeros(0, np.int32)])
-        faces_raw = np.zeros((face_capacity, RAW_FACE_SIZE, RAW_FACE_SIZE, 3),
-                             np.uint8)
-        if needed:
-            faces_raw[:needed] = self._decode_faces(
-                [p for paths in face_lists for p in paths])
-        return {
-            "dia_input_ids": self.text.input_ids[dia_rows],
-            "dia_input_mask": self.text.input_mask[dia_rows],
-            "dia_sep_mask": self.text.sep_mask[dia_rows],
-            "dia_idx": dia_idx,
-            "utt_in_dia_idx": utt_in_dia_idx,
-            "audio_inputs": self.audio[idx],
-            "audio_mask": self.audio_mask[idx],
-            "vision_feats": self.vision[idx],
-            "vision_mask": self.vision_mask[idx],
-            "n_faces": n_faces,
-            "faces_raw": faces_raw,
-            "face_utt_id": face_utt_id,
-            "face_pos": face_pos,
-            "labels": self.labels[idx].astype(np.int32),
-        }
+            face_lists = [self.utt_face_path.get(n, [])[:f_max]
+                          for n in utt_names]
+            needed = sum(len(p) for p in face_lists)
+            if needed > face_capacity:
+                raise FaceCapacityError(needed, face_capacity, self.split)
+            n_faces = np.asarray([len(p) for p in face_lists], np.int32)
+            face_utt_id = np.full(face_capacity, -1, np.int32)
+            face_pos = np.zeros(face_capacity, np.int32)
+            face_utt_id[:needed] = np.repeat(np.arange(b, dtype=np.int32),
+                                             n_faces)
+            face_pos[:needed] = np.concatenate(
+                [np.arange(k, dtype=np.int32) for k in n_faces]
+                or [np.zeros(0, np.int32)])
+            faces_raw = np.zeros(
+                (face_capacity, RAW_FACE_SIZE, RAW_FACE_SIZE, 3), np.uint8)
+            if needed:
+                faces_raw[:needed] = self._decode_faces(
+                    [p for paths in face_lists for p in paths])
+            return {
+                "dia_input_ids": self.text.input_ids[dia_rows],
+                "dia_input_mask": self.text.input_mask[dia_rows],
+                "dia_sep_mask": self.text.sep_mask[dia_rows],
+                "dia_idx": dia_idx,
+                "utt_in_dia_idx": utt_in_dia_idx,
+                "audio_inputs": self.audio[idx],
+                "audio_mask": self.audio_mask[idx],
+                "vision_feats": self.vision[idx],
+                "vision_mask": self.vision_mask[idx],
+                "n_faces": n_faces,
+                "faces_raw": faces_raw,
+                "face_utt_id": face_utt_id,
+                "face_pos": face_pos,
+                "labels": self.labels[idx].astype(np.int32),
+            }
 
 
 class MeldDialogueDataset:

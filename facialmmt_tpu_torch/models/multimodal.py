@@ -37,6 +37,7 @@ from facialmmt_tpu_torch.ops.layers import (AdditiveAttention, TorchLinear,
                                             dropout)
 from facialmmt_tpu_torch.ops.span_extract import extract_utt_spans
 from facialmmt_tpu_torch.parallel import context
+from facialmmt_tpu_torch.utils.observability import trace_span
 
 
 def text_prefix(cfg: FacialMMTConfig) -> str:
@@ -108,8 +109,40 @@ class MultiModalTransformerForClassification(nn.Module):
         (B, F, vision_in_dim), already filtered behind the FER pipeline; the
         streams the configuration does not use are ignored; `generator`
         feeds the dropouts in train mode.  -> logits (B, num_labels)."""
-        cfg = self.cfg
         g = generator
+        with trace_span("fmmt.model.text"):
+            text_feat, text_mask = self._text(dia_input_ids, dia_input_mask,
+                                              dia_sep_mask, utt_in_dia_idx,
+                                              dia_idx, g)
+        feats, masks = [text_feat], [text_mask]
+        with trace_span("fmmt.model.encoders"):
+            if self.use_audio:
+                feats.append(self.audio_utt_transformer(
+                    self.audio_linear(audio_inputs), audio_mask, g))
+                masks.append(audio_mask.to(text_mask.dtype))
+            if self.use_vision:
+                feats.append(self.vision_utt_transformer(
+                    self.vision_linear(vision_inputs), vision_mask, g))
+                masks.append(vision_mask.to(text_mask.dtype))
+        if self.fuse == "crossmodal":
+            with trace_span("fmmt.model.crossmodal"):
+                feats, masks = [self._crossmodal(feats, g)], [
+                    torch.cat(masks, dim=1)]
+        with trace_span("fmmt.model.head"):
+            if self.fuse == "concat":
+                pooled = self.multimodal_linear(torch.cat(
+                    [self.attention(f, m)[0] for f, m in zip(feats, masks)],
+                    dim=-1))
+            else:       # the text alone, or the crossmodal streams
+                pooled, _ = self.attention(feats[0], masks[0])
+            pooled = dropout(pooled, self.cfg.encoder.hidden_dropout_prob,
+                             self.training, g)
+            return self.classifier(pooled)
+
+    def _text(self, dia_input_ids, dia_input_mask, dia_sep_mask,
+              utt_in_dia_idx, dia_idx, g):
+        """The text tower over the unique dialogues, text_linear, each
+        utterance's dialogue gathered, its span extracted: (feat, mask)."""
         enc = getattr(self, self.text_prefix)(dia_input_ids, dia_input_mask, g)
         text_lin = self.text_linear(enc)
         if dia_idx is not None:
@@ -122,37 +155,22 @@ class MultiModalTransformerForClassification(nn.Module):
             dia_idx = dia_idx.long()
             text_lin = text_lin[dia_idx]
             dia_sep_mask = dia_sep_mask[dia_idx]
-        text_feat, text_mask = extract_utt_spans(
+        return extract_utt_spans(
             text_lin, dia_sep_mask, utt_in_dia_idx,
-            max_utt_len=cfg.data.text_utt_max_len, is_roberta=self.is_roberta)
-        feats, masks = [text_feat], [text_mask]
-        if self.use_audio:
-            feats.append(self.audio_utt_transformer(
-                self.audio_linear(audio_inputs), audio_mask, g))
-            masks.append(audio_mask.to(text_mask.dtype))
-        if self.use_vision:
-            feats.append(self.vision_utt_transformer(
-                self.vision_linear(vision_inputs), vision_mask, g))
-            masks.append(vision_mask.to(text_mask.dtype))
+            max_utt_len=self.cfg.data.text_utt_max_len,
+            is_roberta=self.is_roberta)
 
-        if self.fuse == "text":
-            pooled, _ = self.attention(text_feat, text_mask)
-        elif self.fuse == "concat":
-            pooled = self.multimodal_linear(torch.cat(
-                [self.attention(f, m)[0] for f, m in zip(feats, masks)],
-                dim=-1))
-        else:
-            other = feats[1]
-            cm = (self.CrossModalTrans_TA if self.use_audio
-                  else self.CrossModalTrans_TV)
-            fused = torch.cat([cm(text_feat, other, other, g),
-                               cm(other, text_feat, text_feat, g)], dim=1)
-            if self.use_audio and self.use_vision:
-                vision = feats[2]
-                cm_tav = self.CrossModalTrans_TA_V
-                fused = torch.cat([cm_tav(fused, vision, vision, g),
-                                   cm_tav(vision, fused, fused, g)], dim=1)
-            pooled, _ = self.attention(fused, torch.cat(masks, dim=1))
-        pooled = dropout(pooled, cfg.encoder.hidden_dropout_prob,
-                         self.training, g)
-        return self.classifier(pooled)
+    def _crossmodal(self, feats, g):
+        """The crossmodal stacks over the text stream and the others,
+        concatenated on the sequence axis."""
+        text_feat, other = feats[0], feats[1]
+        cm = (self.CrossModalTrans_TA if self.use_audio
+              else self.CrossModalTrans_TV)
+        fused = torch.cat([cm(text_feat, other, other, g),
+                           cm(other, text_feat, text_feat, g)], dim=1)
+        if self.use_audio and self.use_vision:
+            vision = feats[2]
+            cm_tav = self.CrossModalTrans_TA_V
+            fused = torch.cat([cm_tav(fused, vision, vision, g),
+                               cm_tav(vision, fused, fused, g)], dim=1)
+        return fused

@@ -31,6 +31,7 @@ from facialmmt_tpu_torch.models.swin_fer import SwinForAffwildClassification
 from facialmmt_tpu_torch.ops.frame_filter import (frame_importance_filter,
                                                   scatter_face_probs)
 from facialmmt_tpu_torch.parallel import context
+from facialmmt_tpu_torch.utils.observability import trace_span
 
 
 class FacialMMTPipeline(nn.Module):
@@ -51,14 +52,18 @@ class FacialMMTPipeline(nn.Module):
         JAX pipeline resolves 'auto' to a grad-bearing variant per call; the
         port's 'auto' route is one autograd Function for both, so nothing is
         resolved here.)"""
-        return self.swin_model(faces, is_trg_task=True, generator=generator,
-                               noise=noise, attention_impl=attention_impl)
+        with trace_span("fmmt.model.swin"):
+            return self.swin_model(faces, is_trg_task=True,
+                                   generator=generator, noise=noise,
+                                   attention_impl=attention_impl)
 
     def aux_logits(self, images, *, generator: torch.Generator | None = None,
                    keeps=None, attention_impl: str | None = None):
         """Auxiliary FER logits (N, num_labels) for an image batch."""
-        return self.swin_model(images, is_trg_task=False, generator=generator,
-                               keeps=keeps, attention_impl=attention_impl)
+        with trace_span("fmmt.model.swin"):
+            return self.swin_model(images, is_trg_task=False,
+                                   generator=generator, keeps=keeps,
+                                   attention_impl=attention_impl)
 
     def forward(self, batch, *, generator: torch.Generator | None = None,
                 noise: torch.Tensor | None = None,
@@ -79,6 +84,19 @@ class FacialMMTPipeline(nn.Module):
             with torch.no_grad() if stop_swin_gradient else nullcontext():
                 probs_flat = self.fer_probs(batch["faces"],
                                             generator=generator, noise=noise)
+        with trace_span("fmmt.model.filter"):
+            vision_concat, vision_mask = self._filter(batch, probs_flat, b, f)
+        return self.multimodal(
+            batch["dia_input_ids"], batch["dia_input_mask"],
+            batch["dia_sep_mask"], batch["audio_inputs"], batch["audio_mask"],
+            vision_concat, vision_mask,
+            batch["utt_in_dia_idx"], batch.get("dia_idx"),
+            generator=generator)
+
+    def _filter(self, batch, probs_flat, b: int, f: int):
+        """The FER distributions scattered to each utterance's face slots,
+        then the frame-importance filter of its vision features, in their
+        dtype: (features, mask)."""
         utt_id, pos = batch["face_utt_id"], batch["face_pos"]
         shard = context.current()
         if shard is None:
@@ -94,15 +112,10 @@ class FacialMMTPipeline(nn.Module):
         n_faces = batch["n_faces"]
         face_mask = (torch.arange(f, device=n_faces.device)[None, :]
                      < n_faces[:, None])
-        vision_concat, vision_mask = frame_importance_filter(
+        feats, mask = frame_importance_filter(
             batch["vision_feats"], probs, face_mask,
-            cfg.facial_emo_impor_threshold)
-        return self.multimodal(
-            batch["dia_input_ids"], batch["dia_input_mask"],
-            batch["dia_sep_mask"], batch["audio_inputs"], batch["audio_mask"],
-            vision_concat.to(batch["vision_feats"].dtype), vision_mask,
-            batch["utt_in_dia_idx"], batch.get("dia_idx"),
-            generator=generator)
+            self.cfg.facial_emo_impor_threshold)
+        return feats.to(batch["vision_feats"].dtype), mask
 
 
 @torch.no_grad()

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import queue as queue_mod
 import threading
 import time
@@ -46,6 +47,7 @@ from facialmmt_tpu_torch.data.meld import FaceCapacityError
 from facialmmt_tpu_torch.models.pipeline import build_pipeline
 from facialmmt_tpu_torch.ops.kernels import resolve_device, to_device_async
 from facialmmt_tpu_torch.parallel import comm
+from facialmmt_tpu_torch.utils import observability as obs
 
 FACE_SHAPE = (160, 160, 3)
 # a front over several ranks: the main sends an IDLE header after this long
@@ -131,26 +133,29 @@ class EmotionServer:
                 "an AsyncBatchServer over this mesh server is open and its "
                 "thread runs every collective of the mesh; submit to the "
                 "front, or close it first")
-        plan = self.mesh_plan
-        split = plan is not None and plan.dp > 1
-        if split:
-            from facialmmt_tpu_torch.parallel.mesh import shard_batch
+        with obs.trace_span("fmmt.serve.dispatch"):
+            plan = self.mesh_plan
+            split = plan is not None and plan.dp > 1
+            with obs.trace_span("fmmt.serve.stage"):
+                if split:
+                    from facialmmt_tpu_torch.parallel.mesh import shard_batch
 
-            batch, faces_raw = shard_batch(plan, (batch, faces_raw))
-        full = {k: to_device_async(torch.from_numpy(np.asarray(v)),
-                                   self.device) for k, v in batch.items()}
-        full["audio_inputs"] = full["audio_inputs"].float()
-        full["vision_feats"] = full["vision_feats"].float()
-        faces = to_device_async(torch.from_numpy(np.asarray(faces_raw)),
-                                self.device)
-        full["faces"] = meld_face_eval_transform(
-            faces.float(), self.cfg.data.swin_img_size).to(self.dtype)
-        with plan.data_shard() if split else contextlib.nullcontext():
-            logits = self.model(full, generator=self.generator)
-        probs = torch.softmax(logits.float(), dim=-1)
-        if not split:
-            return probs
-        return comm.all_gather_cat(probs, plan.data_group)
+                    batch, faces_raw = shard_batch(plan, (batch, faces_raw))
+                full = {k: to_device_async(torch.from_numpy(np.asarray(v)),
+                                           self.device)
+                        for k, v in batch.items()}
+                full["audio_inputs"] = full["audio_inputs"].float()
+                full["vision_feats"] = full["vision_feats"].float()
+                faces = to_device_async(
+                    torch.from_numpy(np.asarray(faces_raw)), self.device)
+                full["faces"] = meld_face_eval_transform(
+                    faces.float(), self.cfg.data.swin_img_size).to(self.dtype)
+            with plan.data_shard() if split else contextlib.nullcontext():
+                logits = self.model(full, generator=self.generator)
+            probs = torch.softmax(logits.float(), dim=-1)
+            if not split:
+                return probs
+            return comm.all_gather_cat(probs, plan.data_group)
 
     def predict_raw(self, batch: Dict[str, np.ndarray],
                     faces_raw: np.ndarray) -> np.ndarray:
@@ -170,45 +175,46 @@ class EmotionServer:
         """Pad <= max_batch requests into the static shapes; over-long text,
         audio and vision are truncated, too many faces raise
         FaceCapacityError.  Returns (batch dict, faces_raw)."""
-        if len(requests) > self.max_batch:
-            raise ValueError(f"{len(requests)} requests > max_batch "
-                             f"{self.max_batch}")
-        batch = self._zero_batch()
-        faces_raw = np.zeros((self.face_capacity,) + FACE_SHAPE, np.uint8)
-        cursor = 0
-        for j, req in enumerate(requests):
-            if "input_ids" in req:
-                max_len = batch["dia_input_ids"].shape[1]
-                ids = np.asarray(req["input_ids"])[:max_len]
-                batch["dia_input_ids"][j, :len(ids)] = ids
-                batch["dia_input_mask"][j, :len(ids)] = 1
-                sep = np.asarray(req.get("sep_mask", []))[:max_len]
-                batch["dia_sep_mask"][j, :len(sep)] = sep
-                batch["utt_in_dia_idx"][j] = req.get("utt_in_dia_idx", 0)
-            batch["dia_idx"][j] = j
-            if "audio" in req:
-                a = np.asarray(req["audio"])
-                la = min(a.shape[0], batch["audio_inputs"].shape[1])
-                batch["audio_inputs"][j, :la] = a[:la]
-                batch["audio_mask"][j, :la] = 1
-            if "vision" in req:
-                v = np.asarray(req["vision"])
-                lv = min(v.shape[0], batch["vision_feats"].shape[1])
-                batch["vision_feats"][j, :lv] = v[:lv]
-            faces = req.get("faces")
-            if faces is not None:
-                take = self.face_take(faces)
-                if cursor + take > self.face_capacity:
-                    raise FaceCapacityError(cursor + take, self.face_capacity,
-                                            "serving")
-                faces_raw[cursor:cursor + take] = np.asarray(faces[:take],
-                                                             np.uint8)
-                batch["face_utt_id"][cursor:cursor + take] = j
-                batch["face_pos"][cursor:cursor + take] = np.arange(
-                    take, dtype=np.int32)
-                cursor += take
-                batch["n_faces"][j] = take
-        return batch, faces_raw
+        with obs.trace_span("fmmt.serve.build_pack"):
+            if len(requests) > self.max_batch:
+                raise ValueError(f"{len(requests)} requests > max_batch "
+                                 f"{self.max_batch}")
+            batch = self._zero_batch()
+            faces_raw = np.zeros((self.face_capacity,) + FACE_SHAPE, np.uint8)
+            cursor = 0
+            for j, req in enumerate(requests):
+                if "input_ids" in req:
+                    max_len = batch["dia_input_ids"].shape[1]
+                    ids = np.asarray(req["input_ids"])[:max_len]
+                    batch["dia_input_ids"][j, :len(ids)] = ids
+                    batch["dia_input_mask"][j, :len(ids)] = 1
+                    sep = np.asarray(req.get("sep_mask", []))[:max_len]
+                    batch["dia_sep_mask"][j, :len(sep)] = sep
+                    batch["utt_in_dia_idx"][j] = req.get("utt_in_dia_idx", 0)
+                batch["dia_idx"][j] = j
+                if "audio" in req:
+                    a = np.asarray(req["audio"])
+                    la = min(a.shape[0], batch["audio_inputs"].shape[1])
+                    batch["audio_inputs"][j, :la] = a[:la]
+                    batch["audio_mask"][j, :la] = 1
+                if "vision" in req:
+                    v = np.asarray(req["vision"])
+                    lv = min(v.shape[0], batch["vision_feats"].shape[1])
+                    batch["vision_feats"][j, :lv] = v[:lv]
+                faces = req.get("faces")
+                if faces is not None:
+                    take = self.face_take(faces)
+                    if cursor + take > self.face_capacity:
+                        raise FaceCapacityError(cursor + take,
+                                                self.face_capacity, "serving")
+                    faces_raw[cursor:cursor + take] = np.asarray(
+                        faces[:take], np.uint8)
+                    batch["face_utt_id"][cursor:cursor + take] = j
+                    batch["face_pos"][cursor:cursor + take] = np.arange(
+                        take, dtype=np.int32)
+                    cursor += take
+                    batch["n_faces"][j] = take
+            return batch, faces_raw
 
     def face_take(self, faces) -> int:
         """How many of a request's face crops enter the pack (the reference's
@@ -304,6 +310,15 @@ class AsyncBatchServer:
     `pack_sizes` and `bucket_choices` record each pack's fill and its
     (max_batch, face_capacity).
 
+    With the span recorder enabled (utils/observability.py) each request
+    submitted gets an id, and the packer adds the rows `fmmt.serve.idle`
+    (waiting for a pack's first request), `fmmt.serve.fill` (the first
+    request taken until the pack closes; value: its requests) and, as the
+    pack closes, one `fmmt.serve.queued` row a request (submit() until
+    then; key: the request id, value: the pack id).  A pack's id is its
+    index in `bucket_choices`, the key of its `fmmt.serve.build_pack`,
+    `.dispatch` and `.readback` rows and of the spans opened inside them.
+
     submit() returns a concurrent.futures.Future resolving to the request's
     probability vector.  One packer thread owns every device call, so device
     calls are serialized, and up to `pipeline_depth` packs are in flight
@@ -349,6 +364,7 @@ class AsyncBatchServer:
                              f"'backlog' or 'greedy'")
         self.boundary_policy = boundary_policy
         self._q: queue_mod.Queue = queue_mod.Queue()
+        self._ids = itertools.count()   # request ids, while recording
         self._holdover = collections.deque()  # didn't fit the last pack
         self._stop = threading.Event()
         self.pack_sizes: list = []
@@ -397,7 +413,9 @@ class AsyncBatchServer:
         if self._stop.is_set():
             fut.set_exception(RuntimeError("AsyncBatchServer is closed"))
             return fut
-        self._q.put((request, fut))
+        t = obs.stamp()
+        self._q.put((request, fut, None if t is None
+                     else (next(self._ids), t)))
         # close() may have drained between the check above and the put: a
         # submit racing past its final sweep must not return a future nobody
         # will resolve
@@ -408,7 +426,7 @@ class AsyncBatchServer:
     def _fail_queued(self):
         while True:
             try:
-                _, fut = self._q.get_nowait()
+                fut = self._q.get_nowait()[1]
             except queue_mod.Empty:
                 return
             if not fut.done():
@@ -491,31 +509,39 @@ class AsyncBatchServer:
             return None
 
     def _resolve(self, pack, readback):
-        rows, done = readback
-        try:
-            if done is not None:
-                done.synchronize()  # this pack's rows are on the host
-            probs = (rows.numpy() if isinstance(rows, torch.Tensor)
-                     else np.asarray(rows))
-        except Exception as e:  # surface to every waiting caller
-            for _, fut in pack:
-                fut.set_exception(e)
-            return
-        for j, (_, fut) in enumerate(pack):
-            fut.set_result(probs[j])
+        with obs.trace_span("fmmt.serve.readback"):
+            rows, done = readback
+            try:
+                if done is not None:
+                    done.synchronize()  # this pack's rows are on the host
+                probs = (rows.numpy() if isinstance(rows, torch.Tensor)
+                         else np.asarray(rows))
+            except Exception as e:  # surface to every waiting caller
+                for _, fut, _ in pack:
+                    fut.set_exception(e)
+                return
+            for j, (_, fut, _) in enumerate(pack):
+                fut.set_result(probs[j])
+
+    def _resolve_oldest(self, inflight):
+        pack, readback, pid = inflight.popleft()
+        with obs.keyed(pid):
+            self._resolve(pack, readback)
 
     def _run(self):
-        inflight = collections.deque()  # (pack, readback)
+        inflight = collections.deque()  # (pack, readback, pack id)
         while not self._stop.is_set():
-            first = self._next_item(timeout=0.05)
+            with obs.trace_span("fmmt.serve.idle"):
+                first = self._next_item(timeout=0.05)
             if first is None:
                 while inflight:  # idle: drain the pipeline
-                    self._resolve(*inflight.popleft())
+                    self._resolve_oldest(inflight)
                 if (self._group is not None and time.perf_counter()
                         - self._last_header >= KEEPALIVE_S):
                     self._send(comm.IDLE)
                     self.keepalives += 1
                 continue
+            filling = obs.stamp()
             pack, faces = [first], self._faces_of(first[0])
             t0 = time.perf_counter()
             while len(pack) < self.server.max_batch:
@@ -546,34 +572,38 @@ class AsyncBatchServer:
                 faces += need
             self.pack_sizes.append(len(pack))
             chosen = self._bucket_for(len(pack), faces)
+            pid = None if chosen is None else len(self.bucket_choices)
+            _closed(pack, pid, filling)
             if chosen is None:
                 # only a SINGLE request whose faces exceed every bucket's
                 # buffer gets here (the drain loop bounds multi-request packs
                 # by the largest bucket): fail that request and keep serving,
                 # since a raise would kill the packer thread
-                for _, fut in pack:
+                for _, fut, _ in pack:
                     fut.set_exception(FaceCapacityError(
                         faces, self.server.face_capacity, "serving"))
                 continue
             self.bucket_choices.append((chosen.max_batch,
                                         chosen.face_capacity))
             try:
-                batch, faces_raw = chosen.build_pack([r for r, _ in pack])
-                readback = _start_readback(
-                    self._dispatch(chosen, batch, faces_raw, len(pack)))
+                with obs.keyed(pid):
+                    batch, faces_raw = chosen.build_pack(
+                        [item[0] for item in pack])
+                    readback = _start_readback(
+                        self._dispatch(chosen, batch, faces_raw, len(pack)))
             except Exception as e:  # surface to every waiting caller
-                for _, fut in pack:
+                for _, fut, _ in pack:
                     fut.set_exception(e)
                 continue
-            inflight.append((pack, readback))
+            inflight.append((pack, readback, pid))
             # keep the pipe full only under back-pressure: with nothing
             # queued, resolve now so light-load latency matches a serial
             # packer
             while (len(inflight) >= self.pipeline_depth or
                    (inflight and self._q.empty() and not self._holdover)):
-                self._resolve(*inflight.popleft())
+                self._resolve_oldest(inflight)
         while inflight:
-            self._resolve(*inflight.popleft())
+            self._resolve_oldest(inflight)
         if self._group is not None:
             self._send(comm.STOP)
         # fail, don't strand, anything still queued at close()
@@ -584,9 +614,20 @@ class AsyncBatchServer:
                 leftovers.append(self._q.get_nowait())
             except queue_mod.Empty:
                 break
-        for _, fut in leftovers:
-            fut.set_exception(RuntimeError("AsyncBatchServer closed with "
-                                           "the request still queued"))
+        for item in leftovers:
+            item[1].set_exception(RuntimeError("AsyncBatchServer closed with "
+                                               "the request still queued"))
+
+
+def _closed(pack, pid, filling):
+    """The recorder's rows of a pack that has closed (AsyncBatchServer's
+    docstring); nothing unless it records."""
+    closed = obs.stamp()
+    obs.add_row("fmmt.serve.fill", filling, closed, key=pid, value=len(pack))
+    for _, _, mark in pack:
+        if mark is not None:
+            obs.add_row("fmmt.serve.queued", mark[1], closed, key=mark[0],
+                        value=pid)
 
 
 def default_load_request(cfg: FacialMMTConfig) -> Dict[str, np.ndarray]:

@@ -38,6 +38,7 @@ from typing import Iterable
 import torch
 
 from facialmmt_tpu_torch.config import OptimConfig
+from facialmmt_tpu_torch.utils.observability import trace_span
 
 BUCKET = 1 << 24        # elements per gradient all_reduce
 
@@ -119,36 +120,37 @@ class ClippedAdamW:
         counts as a zero gradient: it still decays), then the schedule moves
         on and the gradients are dropped.  sync=False: the gradients are
         already the same on every data rank (a pass every rank ran whole)
-        and are not summed."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        plan = self.plan
-        if plan is not None and plan.dp > 1 and sync:
-            self._sum_over_data([p.grad for p in self.params])
-        clip_by_global_norm_(
-            (p.grad for p in self.params), self.clip,
-            [s is not None for s in self.split],
-            plan.model_group if plan is not None else None)
-        for p, q, ax in zip(self.params, self.opt_params, self.zero_axes):
-            if ax is not None:
-                with torch.no_grad():
-                    q.copy_(self._slice(p, ax))
-                q.grad = self._slice(p.grad, ax).contiguous()
-        self.adamw.step()
-        if any(ax is not None for ax in self.zero_axes):
-            from facialmmt_tpu_torch.parallel.comm import all_gather_cat
+        and are not summed.  The span `fmmt.train.optimizer`."""
+        with trace_span("fmmt.train.optimizer"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            plan = self.plan
+            if plan is not None and plan.dp > 1 and sync:
+                self._sum_over_data([p.grad for p in self.params])
+            clip_by_global_norm_(
+                (p.grad for p in self.params), self.clip,
+                [s is not None for s in self.split],
+                plan.model_group if plan is not None else None)
+            for p, q, ax in zip(self.params, self.opt_params, self.zero_axes):
+                if ax is not None:
+                    with torch.no_grad():
+                        q.copy_(self._slice(p, ax))
+                    q.grad = self._slice(p.grad, ax).contiguous()
+            self.adamw.step()
+            if any(ax is not None for ax in self.zero_axes):
+                from facialmmt_tpu_torch.parallel.comm import all_gather_cat
 
-            with torch.no_grad():
-                for p, q, ax in zip(self.params, self.opt_params,
-                                    self.zero_axes):
-                    if ax is not None:
-                        p.copy_(all_gather_cat(q.detach(),
-                                               plan.data_group, ax))
-        self.scheduler.step()
-        self.adamw.zero_grad(set_to_none=True)
-        for p in self.params:
-            p.grad = None
+                with torch.no_grad():
+                    for p, q, ax in zip(self.params, self.opt_params,
+                                        self.zero_axes):
+                        if ax is not None:
+                            p.copy_(all_gather_cat(q.detach(),
+                                                   plan.data_group, ax))
+            self.scheduler.step()
+            self.adamw.zero_grad(set_to_none=True)
+            for p in self.params:
+                p.grad = None
 
     def _sum_over_data(self, grads):
         """Sum `grads` over the data ranks in place, a bucket of about

@@ -38,15 +38,18 @@ import torch.nn.functional as F
 from facialmmt_tpu_torch.models.pipeline import FacialMMTPipeline
 from facialmmt_tpu_torch.models.unimodal import MeldUttTransformer
 from facialmmt_tpu_torch.train.optim import MultiTaskState, SingleTaskState
+from facialmmt_tpu_torch.utils.observability import trace_span
 
 
 def backward(loss) -> None:
     """loss.backward().  Under NaN debugging (utils/observability.py::
     enable_nan_debugging) anomaly mode reports a backward Function that
     returned a NaN as a RuntimeError; it is raised as FloatingPointError, as
-    `jax_debug_nans` raises, naming the Function."""
+    `jax_debug_nans` raises, naming the Function.  The span
+    `fmmt.train.backward`."""
     try:
-        loss.backward()
+        with trace_span("fmmt.train.backward"):
+            loss.backward()
     except RuntimeError as e:
         if "returned nan values" not in str(e):
             raise
@@ -147,18 +150,21 @@ def make_multimodal_train_step(model: FacialMMTPipeline, *,
                                swin_from_target: bool = False,
                                compute_dtype: str = "bfloat16", plan=None):
     """Returns step(state, batch, generator) -> loss.  batch carries the
-    packed-face layout (models/pipeline.py) plus 'labels'."""
+    packed-face layout (models/pipeline.py) plus 'labels'.  Spans: the
+    forward and loss `fmmt.train.forward`, then backward(), then the
+    optimizer's (train/optim.py)."""
     split = _Split(plan, "target")
 
     def step(state: MultiTaskState, batch, generator=None):
         model.train()
         on = split(batch)
-        local = split.shard(batch, on)
-        with split.context(on), compute_context(_device(model),
-                                                compute_dtype):
-            logits = model(local, generator=generator,
-                           stop_swin_gradient=not swin_from_target)
-        loss = _ce(split, logits, local["labels"], on)
+        with trace_span("fmmt.train.forward"):
+            local = split.shard(batch, on)
+            with split.context(on), compute_context(_device(model),
+                                                    compute_dtype):
+                logits = model(local, generator=generator,
+                               stop_swin_gradient=not swin_from_target)
+            loss = _ce(split, logits, local["labels"], on)
         backward(loss)
         _apply_target_updates(state, swin_from_target, on)
         return split.report(loss, on)
@@ -177,7 +183,8 @@ def make_multimodal_train_step_accum(model: FacialMMTPipeline, *,
     activations are live.  This is what lets joint training
     (swin_from_target=True: a Swin backward over every face) fit device
     memory at the full effective batch.  BatchNorm statistics update
-    sequentially per microbatch."""
+    sequentially per microbatch.  Spans: a forward and a backward a
+    microbatch, as make_multimodal_train_step's."""
 
     split = _Split(plan, "target")
 
@@ -187,12 +194,14 @@ def make_multimodal_train_step_accum(model: FacialMMTPipeline, *,
         on = split(batches, axis=1)
         total = 0.0
         for i in range(m):
-            micro = split.shard({k: v[i] for k, v in batches.items()}, on)
-            with split.context(on), compute_context(_device(model),
-                                                    compute_dtype):
-                logits = model(micro, generator=generator,
-                               stop_swin_gradient=not swin_from_target)
-            loss = _ce(split, logits, micro["labels"], on) / m
+            with trace_span("fmmt.train.forward"):
+                micro = split.shard({k: v[i] for k, v in batches.items()},
+                                    on)
+                with split.context(on), compute_context(_device(model),
+                                                        compute_dtype):
+                    logits = model(micro, generator=generator,
+                                   stop_swin_gradient=not swin_from_target)
+                loss = _ce(split, logits, micro["labels"], on) / m
             backward(loss)                     # .grad accumulates the mean
             total = total + split.report(loss, on)
         _apply_target_updates(state, swin_from_target, on)
@@ -260,20 +269,23 @@ def make_aux_train_step(model: FacialMMTPipeline, *,
     """FER auxiliary step over Aff-Wild2 image batches (reference
     train.py:15-42): returns step(state, images, labels, generator) -> loss.
     Only the Swin branch is updated.  `keeps` (the drop-path multipliers of
-    ops/swin.py, drawn for the whole batch) override the draw."""
+    ops/swin.py, drawn for the whole batch) override the draw.  Spans as
+    make_multimodal_train_step's."""
     split = _Split(plan, "auxiliary")
 
     def step(state: MultiTaskState, images, labels, generator=None, keeps=None):
         model.train()
         on = split([images, labels])
-        images, labels = split.shard([images, labels], on)
-        if keeps is not None and on:
-            keeps = [tuple(None if k is None else split.shard(k, True)
-                           for k in pair) for pair in keeps]
-        with split.context(on), compute_context(_device(model),
-                                                compute_dtype):
-            logits = model.aux_logits(images, generator=generator, keeps=keeps)
-        loss = _ce(split, logits, labels, on)
+        with trace_span("fmmt.train.forward"):
+            images, labels = split.shard([images, labels], on)
+            if keeps is not None and on:
+                keeps = [tuple(None if k is None else split.shard(k, True)
+                               for k in pair) for pair in keeps]
+            with split.context(on), compute_context(_device(model),
+                                                    compute_dtype):
+                logits = model.aux_logits(images, generator=generator,
+                                          keeps=keeps)
+            loss = _ce(split, logits, labels, on)
         backward(loss)
         state.swin_opt.step(on)
         state.swin_step += 1

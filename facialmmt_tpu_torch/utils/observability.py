@@ -6,11 +6,14 @@ facialmmt_tpu/utils/observability.py).
     `--metrics_path`: one object per record with `tag` (`src_train`,
     `trg_train`, `val`, `test`), `step`, `time` (Unix seconds) and the
     record's numbers.  An empty path prints only.
-  * trace_span names a region in a torch.profiler trace; profile_trace
-    captures one region; StepProfiler (`--profile_dir`) captures a few
-    training steps, each a `ProfilerStep#n` span.  The traces are Chrome
-    traces (`*.pt.trace.json`: chrome://tracing, Perfetto, TensorBoard's
-    profiler plugin), with the card's kernels when a card is present.
+  * trace_span names a region of the program's work: a row of the span
+    recorder (Recorder, below) while it is enabled, and a record_function
+    region while a torch.profiler captures; next to nothing otherwise.
+    profile_trace captures one region; StepProfiler (`--profile_dir`)
+    captures a few training steps, each a `ProfilerStep#n` span.  The
+    traces are Chrome traces (`*.pt.trace.json`: chrome://tracing,
+    Perfetto, TensorBoard's profiler plugin), with the card's kernels when
+    a card is present.
   * enable_nan_debugging (`--debug_nans`) raises FloatingPointError at the
     first module whose forward output holds a NaN and at the first backward
     Function that returns one.
@@ -18,13 +21,19 @@ facialmmt_tpu/utils/observability.py).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import json
 import os
+import threading
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_get_ident = threading.get_ident
 
 
 class MetricWriter:
@@ -95,12 +104,196 @@ def _write_trace(prof, log_dir: str) -> None:
     tensorboard_trace_handler(log_dir, worker_name=f"rank{_rank()}")(prof)
 
 
-@contextlib.contextmanager
-def trace_span(name: str):
-    """A named span in a torch.profiler trace (record_function); next to
-    nothing when no trace is being captured."""
-    with torch.profiler.record_function(name):
-        yield
+class Row(NamedTuple):
+    """One row of the span recorder.  Spans: `start_ns` / `end_ns` from
+    time.time_ns(), the clock torch.profiler stamps its events with, so a
+    row sits on a trace's timeline as it is.  `parent`: the innermost span
+    open on the same thread when it began; `key`: a pack or request id
+    shared by the rows of one unit of work (given, or the enclosing
+    span's).  `value`: what the row's writer counted (add_row); an
+    `fmmt.gc` row holds the objects its full collection freed."""
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    parent: Optional[str]
+    key: Any
+    value: Any
+
+
+class Recorder:
+    """The program's spans, kept in memory.
+
+    Disabled, it records nothing and trace_span costs one flag check.
+    enable() starts recording into a ring of the newest `capacity` rows and
+    registers one gc.callbacks hook that records each full (generation 2)
+    collection of Python's garbage collector as an `fmmt.gc` row on the
+    thread that triggered it; disable() stops both.  rows() is a copy of
+    the ring, clear() empties it; nothing is written anywhere else.  The
+    rows live here because torch.profiler drops the record_function regions
+    of threads started before it, the serving front's packer among them."""
+
+    def __init__(self, capacity: int = 1 << 16):
+        self.on = False
+        self.capacity = capacity
+        self._rows: collections.deque = collections.deque(maxlen=capacity)
+        self._local = threading.local()
+        self._gc_start: Optional[int] = None
+        self._gc_hook = self._on_gc
+
+    def enable(self) -> None:
+        if self._gc_hook not in gc.callbacks:
+            gc.callbacks.append(self._gc_hook)
+        self.on = True
+
+    def disable(self) -> None:
+        self.on = False
+        while self._gc_hook in gc.callbacks:
+            gc.callbacks.remove(self._gc_hook)
+
+    def rows(self) -> List[Row]:
+        return [Row._make(r) for r in list(self._rows)]
+
+    def clear(self) -> None:
+        self._rows.clear()
+
+    def _stack(self) -> list:
+        """This thread's open spans and keyed frames, innermost last."""
+        try:
+            return self._local.stack
+        except AttributeError:
+            stack = self._local.stack = []
+            return stack
+
+    def _context(self):
+        """(the innermost open span's name, the innermost key) on this
+        thread."""
+        stack = self._stack()
+        if not stack:
+            return None, None
+        top = stack[-1]
+        return (top.name if top.name is not None else top.parent), top.key
+
+    def add(self, name: str, start_ns: int, end_ns: Optional[int] = None,
+            key: Any = None, value: Any = None) -> None:
+        """A row of `name` from `start_ns` to `end_ns` (now if None)."""
+        parent, inherited = self._context()
+        self._rows.append((name, start_ns,
+                           time.time_ns() if end_ns is None else end_ns,
+                           _get_ident(), parent,
+                           inherited if key is None else key, value))
+
+    def _on_gc(self, phase: str, info: Dict[str, int]) -> None:
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._gc_start = time.time_ns()
+            return
+        start, self._gc_start = self._gc_start, None
+        if start is not None and self.on:
+            self._rows.append(("fmmt.gc", start, time.time_ns(),
+                               _get_ident(), self._context()[0], None,
+                               info.get("collected")))
+
+
+class _Span:
+    """An open trace_span (or keyed) frame: its own name and key, and the
+    enclosing span's name (`parent`); see trace_span."""
+
+    __slots__ = ("rec", "name", "key", "parent", "start", "region", "stack")
+
+    def __init__(self, rec: Recorder, name: Optional[str], key: Any):
+        self.rec, self.name, self.key = rec, name, key
+        self.region = self.stack = self.parent = None
+
+    def __enter__(self):
+        rec = self.rec
+        if rec.on:
+            stack = self.stack = rec._stack()
+            if stack:
+                top = stack[-1]
+                self.parent = top.name if top.name is not None else \
+                    top.parent
+                if self.key is None:
+                    self.key = top.key
+            stack.append(self)
+            self.start = time.time_ns()
+        # inside the row's stamps, so the region lies within them
+        if self.name is not None and _autograd_profiler._is_profiler_enabled:
+            self.region = torch.profiler.record_function(self.name)
+            self.region.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.region is not None:
+            self.region.__exit__(*exc)
+        stack = self.stack
+        if stack is not None:
+            end = time.time_ns()
+            if stack[-1] is self:
+                stack.pop()
+            else:
+                stack.remove(self)
+            # a span still open at disable() adds no row, as add_row
+            if self.name is not None and self.rec.on:
+                self.rec._rows.append((self.name, self.start, end,
+                                       _get_ident(), self.parent, self.key,
+                                       None))
+        return False
+
+
+RECORDER = Recorder()
+_OFF = contextlib.nullcontext()
+
+
+def trace_span(name: str, key: Any = None):
+    """A span of the program's work, as a context manager.  With the
+    recorder enabled it adds a Row (`key`: a pack or request id; None takes
+    the enclosing span's); while a torch.profiler captures it also opens
+    record_function(name), so a trace carries the same names.  Otherwise it
+    returns a shared empty context: no clock is read, no region opened."""
+    if not (RECORDER.on or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(RECORDER, name, key)
+
+
+def keyed(key: Any):
+    """A frame that gives `key` to the spans opened inside it on this
+    thread, itself no row."""
+    if not RECORDER.on:
+        return _OFF
+    return _Span(RECORDER, None, key)
+
+
+def stamp() -> Optional[int]:
+    """time.time_ns() while the recorder is enabled, else None (no clock
+    read): the start of a row that add_row closes later."""
+    return time.time_ns() if RECORDER.on else None
+
+
+def add_row(name: str, start_ns: Optional[int], end_ns: Optional[int] = None,
+            key: Any = None, value: Any = None) -> None:
+    """A row of `name` from `start_ns` (a stamp()) to `end_ns` (now if
+    None); nothing when the stamp was taken with the recorder disabled, or
+    it is disabled now."""
+    if start_ns is not None and RECORDER.on:
+        RECORDER.add(name, start_ns, end_ns, key, value)
+
+
+def enable() -> None:
+    RECORDER.enable()
+
+
+def disable() -> None:
+    RECORDER.disable()
+
+
+def rows() -> List[Row]:
+    return RECORDER.rows()
+
+
+def clear() -> None:
+    RECORDER.clear()
 
 
 @contextlib.contextmanager
