@@ -290,7 +290,13 @@ KERNELS = {
                           "facialmmt_tpu/ops/pallas/fused_block.py:848"),
     "shift_permute": ("facialmmt_tpu_torch/csrc/shift_permute.cu",
                       "facialmmt_tpu/ops/pallas/shift_permute.py:122"),
+    "fused_add_layernorm": ("facialmmt_tpu_torch/csrc/add_layernorm.cu",
+                            "none (LayerNormTF's fp32 chain at inference)"),
 }
+# the residual add + LayerNorm kernel: every forward with grad off launches
+# it (add_ln_launches), so the tables of kernels 1-12 below name it only
+# where they pin it
+ADD_LN = "fused_add_layernorm"
 WINDOW_KERNELS = ("fused_window_attention", "paired_window_attention",
                   "fused_window_attention_v2")
 # Swin routes (attention_impl, mlp_impl, merge_impl) beside the default
@@ -299,6 +305,23 @@ ROUTE_PAIR = ("pair", "auto", "raster")
 MLP_BWD_NAMES = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 ATTN_BWD_NAMES = ("dx", "dgamma", "dbeta", "dwqkv", "dbqkv", "dwproj",
                   "dbproj", "dbias")
+
+
+def add_ln_launches(cfg) -> int:
+    """fused_add_layernorm launches of one forward of `cfg`'s model with
+    grad off: the text tower's embeddings and two a layer, two a layer of
+    the utterance encoders, and in each crossmodal application four a layer
+    (q, k and v's LayerNorm, the FFN's) and the final one.  99 for
+    FacialMMTConfig(): 49 + 14 + 36."""
+    n = 1 + 2 * cfg.text.num_layers
+    n += 2 * ((cfg.audio_utt_transformer_num if "A" in cfg.choice_modality
+               else 0) + (cfg.vision_utt_transformer_num
+                          if "V" in cfg.choice_modality else 0))
+    if cfg.modality_fuse == "crossmodal" and len(cfg.choice_modality) > 1:
+        n += 2 * (4 * cfg.crossmodal_ta.layers + 1)
+        if cfg.choice_modality == "T+A+V":
+            n += 2 * (4 * cfg.crossmodal_ta_v.layers + 1)
+    return n
 
 
 def cuda_ms(torch, fn, iters: int = 10, reps: int = 1) -> float:
@@ -1017,6 +1040,7 @@ def phase_kernels(torch, dev, rng):
             if not torch.equal(kernel(x), x.index_select(1, idx)):
                 raise AssertionError(f"shift_permute stage {stage}: not bit "
                                      f"for bit the index gather")
+    add_layernorm_rows(torch, dev, rng, results)
     for r in results.values():
         r["bound_by"] = ("operations" if r.pop("flops_ms") >= r.pop("bytes_ms")
                          else "bytes")
@@ -1041,6 +1065,64 @@ def synthetic_requests(rng, cfg, faces_per_utt, text_len):
             "faces": rng.integers(0, 256, (nf, 160, 160, 3), dtype=np.uint8),
         })
     return reqs
+
+
+def bf16_ulps(torch, got, want, scale=None):
+    """|got - want| in units of the bf16 spacing at the largest of |got|,
+    |want| and `scale`."""
+    g, w = got.float(), want.float()
+    top = torch.maximum(g.abs(), w.abs())
+    _, e = torch.frexp(top if scale is None else torch.maximum(top, scale))
+    return (g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)
+
+
+def add_layernorm_rows(torch, dev, rng, results):
+    """The residual add + LayerNorm kernel at a (32, 256) serving pack's
+    shapes, each with its residual, bf16: the text tower's 32 x 512 rows of
+    1024 (eps 1e-5, RoBERTa's) and the audio encoder's 32 x 157 rows of 768
+    (eps 1e-12); held to the plain chain within one bf16 ulp on at most
+    0.1 % of the elements, two launches bit for bit.  The ulp is taken at
+    the magnitude of gamma * y and beta, the two terms each output sums:
+    where they cancel, the statistics' other summation order moves the small
+    result by more than its own ulp in both versions (printed beside).  The bound counts x,
+    the residual and out once; the library yardstick is what a port without
+    the kernel would call: the add, then F.layer_norm (two calls)."""
+    import torch.nn.functional as F
+
+    from facialmmt_tpu_torch.ops.kernels import add_layernorm
+
+    bf = lambda a: torch.from_numpy(a).to(dev, torch.bfloat16).contiguous()
+    for rows, h, eps, what in ((32 * 512, 1024, 1e-5, "text tower"),
+                               (32 * 157, 768, 1e-12, "audio encoder")):
+        x, r = (bf(rng.normal(size=(rows, h)).astype(np.float32))
+                for _ in range(2))
+        w = bf((rng.normal(size=h) * 0.1 + 1.0).astype(np.float32))
+        b = bf((rng.normal(size=h) * 0.1).astype(np.float32))
+        args = (x, r, w, b, eps)
+        compare(torch, ADD_LN, add_layernorm.fused_add_layernorm_cuda,
+                add_layernorm.fused_add_layernorm_plain, args, results,
+                flops=0.0, bitwise=True,
+                label=f"{what} {rows}x{h} with its residual",
+                library=lambda: F.layer_norm(x + r, (h,), w, b, eps))
+        got = add_layernorm.fused_add_layernorm_cuda(*args)
+        want = add_layernorm.fused_add_layernorm_plain(*args)
+        s = (x + r).float()
+        c = s - s.mean(-1, keepdim=True)
+        y = c * torch.rsqrt(c.square().mean(-1, keepdim=True) + eps)
+        terms = (w.float() * y).abs() + b.float().abs()
+        ulps = float(bf16_ulps(torch, got, want, terms).max())
+        own = bf16_ulps(torch, got, want)
+        worst = int(own.argmax())
+        share = float((got != want).float().mean())
+        if ulps > 1.0 or share > 1e-3:
+            raise AssertionError(f"{ADD_LN} {what}: {ulps} bf16 ulps, "
+                                 f"{share:.3%} of the elements differ")
+        print(f"kernel {ADD_LN} {what}: against the plain chain at most "
+              f"{ulps:.0f} bf16 ulp at the terms' magnitude, on "
+              f"{share:.4%} of the elements; at the output's own magnitude "
+              f"{float(own.max()):.0f} ulps, where the plain output is "
+              f"{float(want.flatten()[worst]):.4g} of terms "
+              f"{float(terms.flatten()[worst]):.4g}")
 
 
 def phase_serving(torch, dev, rng, gpu_name):
@@ -1071,6 +1153,9 @@ def phase_serving(torch, dev, rng, gpu_name):
                 and np.allclose(rows.sum(-1), 1.0, atol=1e-3)):
             raise AssertionError(f"bad probabilities {rows}")
     require_launched(launches, SERVING_KERNELS, "the serving path")
+    forwards = launches["fused_attention"] // cfg.text.num_layers
+    require_counts(launches, {ADD_LN: add_ln_launches(cfg) * forwards},
+                   "the serving path")
     print(f"serving: {len(packs)} packs answered ({sum(map(len, packs))} "
           f"requests), finite rows summing to 1; launches {launches}")
 
@@ -1561,6 +1646,8 @@ def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
                 require_launched(seen["launches"][name],
                                  SERVING_KERNELS[1:] + BACKWARD_KERNELS,
                                  "the auxiliary pass")
+                require_counts(seen["launches"][name], {ADD_LN: 0},
+                               "the auxiliary pass")
             else:
                 still = params_of("multimodal") - mm_changed
                 moved = swin_changed & params_of("swin_model")
@@ -1577,6 +1664,8 @@ def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
                                          f"backward kernel: {back}")
                 require_launched(seen["launches"][name], SERVING_KERNELS[1:],
                                  "the target pass")
+                require_counts(seen["launches"][name], {ADD_LN: 0},
+                               "the target pass (grad on)")
         if name in ("start", "aux_pass", "trg_pass", "valid"):
             mark["swin"] = snapshot(model.swin_model)
             mark["mm"] = snapshot(model.multimodal)
@@ -1595,7 +1684,7 @@ def phase_training(torch, dev, gpu_name, save_dir, base=None, aux_size=112):
                                     on_event=on_event)
     torch.cuda.synchronize()
     seen["launches"]["eval"] = kernels.launch_counts()
-    require_launched(seen["launches"]["eval"], SERVING_KERNELS,
+    require_launched(seen["launches"]["eval"], SERVING_KERNELS + (ADD_LN,),
                      "the test evaluation")
     if not (np.isfinite(f1) and np.isfinite(seen["losses"]).all()
             and len(seen["times"]["aux_step"]) == 2
@@ -2293,7 +2382,7 @@ def phase_cli_eval(torch, dev, gpu_name, root, extra=()):
     --doEval 1` on a 24-utterance test split (two eval batches of 16) from a
     released pair written by save_released, its W-F1 held against
     Trainer.eval_multimodal_only on the same files, exactly kernels 1-3
-    launched; the same command again with its eval loop under
+    and 13 launched; the same command again with its eval loop under
     torch.profiler, for the device's share of the loop.  Two batches give
     smoke readings, not rates (experiments/torch_file_steps.py takes those
     at MELD's test-split size).  Then `python -m facialmmt_tpu_torch.main
@@ -2333,9 +2422,10 @@ def phase_cli_eval(torch, dev, gpu_name, root, extra=()):
     f1_prof, _, prof = cli_eval_timed(torch, argv, profiled=True)
     f1_api = Trainer(cfg, dev).eval_multimodal_only(
         released_state_dict(mm_pt, swin_pt), test_ds)
-    require_launched(launches, SERVING_KERNELS, "the command line's eval")
+    require_launched(launches, SERVING_KERNELS + (ADD_LN,),
+                     "the command line's eval")
     others = {k: n for k, n in launches.items()
-              if n and k not in SERVING_KERNELS}
+              if n and k not in SERVING_KERNELS + (ADD_LN,)}
     if others:
         raise AssertionError(f"the command line's eval launched {others}")
     if not (np.isfinite(f1_cli) and abs(f1_cli - f1_api) <= 1e-6
@@ -2539,9 +2629,10 @@ APPENDIX_DIALOGUES, APPENDIX_UTTS = 8, 6   # a split: 8 dialogues of 6
 
 
 def expect_text_kernel(launches, want, where):
-    """Kernel 1 launched exactly `want` times and no other kernel."""
+    """Kernel 1 launched exactly `want` times and no other kernel of 1-12
+    (the residual add + LayerNorm runs in every evaluation)."""
     others = {k: n for k, n in launches.items()
-              if n and k != "fused_attention"}
+              if n and k not in ("fused_attention", ADD_LN)}
     if launches["fused_attention"] != want or others:
         raise AssertionError(f"{where}: launches {launches}, expected "
                              f"fused_attention {want} and nothing else")
@@ -2967,11 +3058,13 @@ class DispatchProbe:
 
 def require_front_launches(kernels, cfg, packs, where, got=None):
     """Kernels 1, 2 and 3 exactly once per text layer / Swin block of every
-    dispatched pack, every other kernel never (`got`: counts read
-    elsewhere, by default the counts now)."""
+    dispatched pack, the residual add + LayerNorm once a LayerNorm, every
+    other kernel never (`got`: counts read elsewhere, by default the counts
+    now)."""
     got = kernels.launch_counts() if got is None else got
     want = dict.fromkeys(got, 0)
     want["fused_attention"] = cfg.text.num_layers * packs
+    want[ADD_LN] = add_ln_launches(cfg) * packs
     want["fused_attention_block"] = sum(cfg.swin.depths) * packs
     want["fused_ln_mlp_residual"] = sum(cfg.swin.depths) * packs
     if got != want:
@@ -4553,8 +4646,9 @@ def tooling_roundtrip(torch, dev, gpu_name, cli_root, work, extra=()):
 # launches of one (8, 64) eval pack and of one auxiliary step (12 Swin
 # blocks, 10 of them at C <= 384)
 PACK_LAUNCHES = {"fused_attention": 24, "fused_attention_block": 12,
-                 "fused_ln_mlp_residual": 12}
-AUX_STEP_LAUNCHES = {"fused_attention_block": 12, "fused_ln_mlp_residual": 12,
+                 "fused_ln_mlp_residual": 12, ADD_LN: 99}
+AUX_STEP_LAUNCHES = {ADD_LN: 0,
+                     "fused_attention_block": 12, "fused_ln_mlp_residual": 12,
                      "fused_ln_mlp_residual_bwd": 12,
                      "fused_attention_block_bwd": 10,
                      "fused_attention_block_bwd_spill": 2}
@@ -4576,8 +4670,10 @@ BERT_TOWERS = ("bert-large", "chinese-roberta-large")
 
 
 def exactly(launches, want):
-    """{kernel: want's count, 0 for every kernel want does not name}."""
-    return {k: want.get(k, 0) for k in launches}
+    """{kernel: want's count, 0 for every kernel want does not name}; the
+    residual add + LayerNorm (every evaluation launches it) only where
+    `want` names it."""
+    return {k: want.get(k, 0) for k in launches if k != ADD_LN or k in want}
 
 
 def aux_batch(torch, dev, cfg):
@@ -5149,9 +5245,8 @@ def configurations_float32(torch, dev, gpu_name, cfg, reference=None):
         loss, ms = timed_ms(torch, lambda: float(step(state, batch, gen)))
         times.append(ms)
         trg_launches = kernels.launch_counts()
-        require_counts(trg_launches, exactly(trg_launches,
-                                             TARGET_STEP_LAUNCHES),
-                       "the float32 target step")
+        require_counts(trg_launches, exactly(trg_launches, {
+            **TARGET_STEP_LAUNCHES, ADD_LN: 0}), "the float32 target step")
         if not np.isfinite(loss):
             raise AssertionError(f"float32 target step: loss {loss}")
     print(f"configurations: --compute_dtype float32 target step (4 "
@@ -5207,6 +5302,7 @@ def float32_route_pack(torch, dev, gpu_name, fp32_server, rcfg, reference,
     blocks = sum(rcfg.swin.depths)
     require_counts(launches, exactly(launches, {
         "fused_attention": PACK_LAUNCHES["fused_attention"],
+        ADD_LN: PACK_LAUNCHES[ADD_LN],
         "fused_ln_mlp_residual": blocks, core: blocks}),
         f"the float32 (8, 64) pack on {route}")
     fer_got = swin_logits(card, dev)
@@ -5588,11 +5684,11 @@ def main(json_out: str = "") -> int:
     print(gpu_name)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(p[name] for p in paths.values()),
-         "launches_by_path": {k: p[name] for k, p in paths.items()},
+         "launches": sum(p.get(name, 0) for p in paths.values()),
+         "launches_by_path": {k: p.get(name, 0) for k, p in paths.items()},
          **{k: v for k, v in results[name].items() if k != "shapes"},
          **({"fp32": {
-             "launches": sum(p[name] for p in fp32_paths),
+             "launches": sum(p.get(name, 0) for p in fp32_paths),
              **{k: v for k, v in fp32_rows[name].items() if k != "shapes"}}}
             if name in fp32_rows else {})}
         for name, (src, rep) in KERNELS.items()]}))

@@ -3,7 +3,9 @@ facialmmt_tpu/models/text_encoder.py; reference src/models.py:72-104).
 
   * RoBERTa position ids: pads get padding_idx, real tokens padding_idx +
     their running count; BERT: plain arange, token type 0 everywhere;
-  * post-LN layers, exact-erf GELU, LayerNorm eps from the config;
+  * post-LN layers, exact-erf GELU, LayerNorm eps from the config; at
+    inference on the card each residual add and LayerNorm is one kernel
+    pass and the GELU stays in the activations' dtype (ops/layers.py);
   * padding bias (1 - mask) * -1e30 over the keys;
   * attention through kernel 1 (ops/kernels/attention.py) on a CUDA tensor;
     the plain version on the CPU, and in train mode with attention-probability
@@ -89,11 +91,11 @@ class TextEncoderLayer(nn.Module):
             ctx = ctx.transpose(1, 2).reshape(b, s, hl)
         ao = self.attention.output
         x = ao.LayerNorm(dropout(row_linear(ctx, ao.dense, tp),
-                                 self.hidden_dropout, train, generator) + x)
+                                 self.hidden_dropout, train, generator), x)
         inter = gelu_erf(self.intermediate.dense(column_input(x, tp)))
         out = dropout(row_linear(inter, self.output.dense, tp),
                       self.hidden_dropout, train, generator)
-        return self.output.LayerNorm(out + x)
+        return self.output.LayerNorm(out, x)
 
 
 class TextEncoder(nn.Module):

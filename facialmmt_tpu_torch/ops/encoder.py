@@ -113,11 +113,11 @@ class EncoderLayer(nn.Module):
             generator=generator, head_split=tp and tp.head_split(1))
         attn_out = dropout(row_linear(ctx, sa.dense_norm.dense, tp),
                            self.hidden_dropout, train, generator)
-        x = sa.dense_norm.LayerNorm(attn_out + x)
+        x = sa.dense_norm.LayerNorm(attn_out, x)
         inter = gelu_erf(self.intermediate.dense(column_input(x, tp)))
         out = dropout(row_linear(inter, self.output.dense, tp),
                       self.hidden_dropout, train, generator)
-        return self.output.LayerNorm(out + x)
+        return self.output.LayerNorm(out, x)
 
 
 class UttTransEncoder(nn.Module):

@@ -25,7 +25,10 @@ their plain version (`grads_of_recomputed`), as the JAX package has no
 backward kernel for them; `shift_permute`'s backward is the same
 kernel in the opposite direction, and its launches count under
 `shift_permute` too.  The whole block and the shift permutation are, as in
-the JAX package, called by no module of the model.
+the JAX package, called by no module of the model.  `add_layernorm` (the
+residual add and TF-style LayerNorm of the text tower and the fusion stacks)
+has no TPU counterpart: LayerNormTF takes its kernel at inference on the
+card and its plain version under grad, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -131,6 +134,7 @@ _SIGNATURES = {
     "fmmt_fused_whole_block_smem": ([_I] * 5, ctypes.c_longlong),
     "fmmt_fused_whole_block_scratch": ([_I] * 7, ctypes.c_longlong),
     "fmmt_shift_permute": ([_VP] * 2 + [_I] * 7 + [_VP], _I),
+    "fmmt_add_layernorm": ([_VP] * 5 + [_I] * 4 + [_F, _VP], _I),
 }
 
 
@@ -244,9 +248,9 @@ def grads_of_recomputed(fn, inputs, needs_grad, dout):
 def kernel_wrappers():
     """name -> CUDA wrapper of every kernel of the port; each wrapper carries
     a `launches` count of the kernels it launched."""
-    from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
-                                                 fused_block, merge_kernel,
-                                                 shift_permute,
+    from facialmmt_tpu_torch.ops.kernels import (add_layernorm, attention,
+                                                 block_mlp, fused_block,
+                                                 merge_kernel, shift_permute,
                                                  window_attention)
 
     return {"fused_attention": attention.fused_attention_cuda,
@@ -265,7 +269,8 @@ def kernel_wrappers():
                 window_attention.fused_window_attention_v2_cuda,
             "fused_merge": merge_kernel.fused_merge_cuda,
             "fused_whole_block": fused_block.fused_whole_block_cuda,
-            "shift_permute": shift_permute.shift_permute_cuda}
+            "shift_permute": shift_permute.shift_permute_cuda,
+            "fused_add_layernorm": add_layernorm.fused_add_layernorm_cuda}
 
 
 def launch_counts() -> dict:

@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from facialmmt_tpu_torch.ops.kernels.add_layernorm import fused_add_layernorm
 from facialmmt_tpu_torch.parallel import context
 
 NEG_INF = -1e30  # large-negative instead of -inf: fully masked rows stay finite
@@ -102,7 +103,10 @@ class XavierLinear(TorchLinear):
 
 class LayerNormTF(nn.Module):
     """TF-style LayerNorm: eps inside the square root, biased variance, fp32
-    statistics; returns the input's dtype."""
+    statistics; returns the input's dtype.  forward(x, residual) normalises
+    x + residual, the post-LN block's sum: at inference on the card one
+    kernel pass (ops/kernels/add_layernorm.py), under grad or on the CPU the
+    add and the fp32 chain."""
 
     def __init__(self, dim: int, eps: float = 1e-12):
         super().__init__()
@@ -110,13 +114,9 @@ class LayerNormTF(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
-    def forward(self, x):
-        xf = x.float()
-        u = xf.mean(-1, keepdim=True)
-        s = (xf - u).square().mean(-1, keepdim=True)
-        y = (xf - u) * torch.rsqrt(s + self.eps)
-        y = self.weight.float() * y + self.bias.float()
-        return y.to(x.dtype)
+    def forward(self, x, residual=None):
+        return fused_add_layernorm(x, residual, self.weight, self.bias,
+                                   self.eps)
 
 
 class AdditiveAttention(nn.Module):
@@ -146,5 +146,10 @@ class AdditiveAttention(nn.Module):
 
 
 def gelu_erf(x):
-    """Exact-erf GELU computed in fp32, returned in x's dtype."""
+    """Exact-erf GELU computed in fp32, returned in x's dtype.  At inference
+    on the card in x's own dtype: PyTorch's CUDA GELU computes a bf16 input
+    in fp32 registers and rounds once, the same bits without the fp32
+    copies; under grad the chain autograd has always differentiated."""
+    if x.is_cuda and not torch.is_grad_enabled():
+        return F.gelu(x)
     return F.gelu(x.float()).to(x.dtype)

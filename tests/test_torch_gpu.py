@@ -18,9 +18,10 @@ import pytest
 import torch
 
 from facialmmt_tpu_torch.ops import kernels
-from facialmmt_tpu_torch.ops.kernels import (attention, block_mlp,
-                                             fused_block, merge_kernel,
-                                             shift_permute, window_attention)
+from facialmmt_tpu_torch.ops.kernels import (add_layernorm, attention,
+                                             block_mlp, fused_block,
+                                             merge_kernel, shift_permute,
+                                             window_attention)
 
 BOUND = 2e-2
 
@@ -101,6 +102,10 @@ def test_wrappers_refuse_cpu_tensors(rng):
                                                           1, 1))
     with pytest.raises(ValueError, match="CUDA"):
         shift_permute.shift_permute_cuda(torch.zeros(1, 196, 8), 14, 14, 7, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        add_layernorm.fused_add_layernorm_cuda(
+            torch.zeros(2, 64), torch.zeros(2, 64), torch.ones(64),
+            torch.zeros(64), 1e-5)
 
 
 @pytest.mark.gpu
@@ -883,10 +888,11 @@ def test_tiny_trainer_on_the_card(cuda_device, tmp_path):
     assert np.isfinite(f1)
     assert (trainer.state.swin_step, trainer.state.mm_step) == (4, 2)
     counts = kernels.launch_counts()
+    # fused_add_layernorm: the evaluations' LayerNorms (grad off)
     default_route = ("fused_attention", "fused_attention_block",
                      "fused_ln_mlp_residual", "fused_ln_mlp_residual_bwd",
                      "fused_attention_block_bwd",
-                     "fused_attention_block_bwd_spill")
+                     "fused_attention_block_bwd_spill", "fused_add_layernorm")
     assert all(counts[k] > 0 for k in default_route), counts
     # the window-attention and merge kernels are on other routes only
     assert all(n == 0 for k, n in counts.items()
@@ -1093,3 +1099,175 @@ def test_kernels_refuse_other_token_dtypes(rng, cuda_device):
     args = _whole_inputs(rng, cuda_device, 2, 49, 32, 2, 1)
     with pytest.raises(ValueError, match="dtype"):
         fused_block.fused_whole_block_cuda(args[0].half(), *args[1:])
+
+
+def _bf16_ulps(got, want, scale):
+    """|got - want| in units of the bf16 spacing at the largest of |got|,
+    |want| and `scale`."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(torch.maximum(g.abs(), w.abs()), scale))
+    return (g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)
+
+
+def _affine_terms(x, residual, weight, bias, eps):
+    """|gamma * y| + |beta| of the plain chain in fp32, per element: the
+    magnitude each output is summed from."""
+    s = (x if residual is None else x + residual).float()
+    c = s - s.mean(-1, keepdim=True)
+    y = c * torch.rsqrt(c.square().mean(-1, keepdim=True) + eps)
+    return (weight.float() * y).abs() + bias.float().abs()
+
+
+def _add_ln_inputs(rng, dev, rows, h, dtype, pdtype=None):
+    """x, residual, weight, bias on `dev`: rows of a large mean and spread
+    (the statistics' cancellation shows), parameters near (1, 0)."""
+    pdtype = pdtype or dtype
+    t = lambda a, dt: torch.tensor(a).to(dev, dt).contiguous()
+    return (t(rng.normal(size=(rows, h)) * 3.0 + 1.5, dtype),
+            t(rng.normal(size=(rows, h)), dtype),
+            t(rng.normal(size=(h,)) * 0.1 + 1.0, pdtype),
+            t(rng.normal(size=(h,)) * 0.1, pdtype))
+
+
+def _hold_add_ln(got, want, args):
+    """bf16: at most one ulp apart, on at most 0.1 % of the elements (the
+    statistics are summed in another order).  The ulp is taken at the
+    magnitude of gamma * y and beta, the two terms each output is the sum
+    of: where they cancel, a last-bit difference in y is many ulps of the
+    small result in both versions' arithmetic.  fp32: within 1e-5
+    relative."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:
+        ulps = _bf16_ulps(got, want, _affine_terms(*args))
+        assert float(ulps.max()) <= 1.0
+        assert float((got != want).float().mean()) <= 1e-3
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("residual", [True, False], ids=["res", "nores"])
+@pytest.mark.parametrize("eps", [1e-5, 1e-12])
+@pytest.mark.parametrize("rows,h", [(4097, 1024), (1003, 768), (257, 64),
+                                    (5, 8), (33, 4096), (6, 2056)])
+def test_fused_add_layernorm_kernel(rng, cuda_device, rows, h, eps, residual,
+                                    dtype):
+    """The kernel against its plain chain on the card: the main path's
+    widths (1024 text, 768 fusion), tiny()'s 64 and 8, rows split over two
+    warps (2056, 4096), row counts that leave the last block part empty;
+    two launches give the same bits."""
+    x, r, w, b = _add_ln_inputs(rng, cuda_device, rows, h, dtype)
+    r = r if residual else None
+    got = add_layernorm.fused_add_layernorm_cuda(x, r, w, b, eps)
+    again = add_layernorm.fused_add_layernorm_cuda(x, r, w, b, eps)
+    want = add_layernorm.fused_add_layernorm_plain(x, r, w, b, eps)
+    torch.cuda.synchronize()
+    _hold_add_ln(got, want, (x, r, w, b, eps))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,pdtype", [(torch.float32, torch.bfloat16),
+                                          (torch.bfloat16, torch.float32)])
+def test_fused_add_layernorm_mixed_parameters(rng, cuda_device, dtype,
+                                              pdtype):
+    """Rows and parameters of different dtypes: the embeddings' LayerNorm
+    (fp32 sums, bf16 parameters), and bf16 rows under fp32 parameters."""
+    x, r, w, b = _add_ln_inputs(rng, cuda_device, 2 * 512, 1024, dtype,
+                                pdtype)
+    args = (x, None, w, b, 1e-5)
+    _hold_add_ln(add_layernorm.fused_add_layernorm_cuda(*args),
+                 add_layernorm.fused_add_layernorm_plain(*args), args)
+
+
+@pytest.mark.gpu
+def test_fused_add_layernorm_refusals(rng, cuda_device):
+    """The wrapper raises on a non-contiguous operand, another dtype and an
+    unsupported width; the dispatch adds a residual of another dtype first,
+    as the plain version's add promotes it."""
+    x, r, w, b = _add_ln_inputs(rng, cuda_device, 64, 128, torch.bfloat16)
+    fn = add_layernorm.fused_add_layernorm_cuda
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x.t().contiguous().t(), None, w, b, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x, r[:, :].t().contiguous().t(), w, b, 1e-5)
+    with pytest.raises(ValueError, match="dtype"):
+        fn(x.half(), None, w, b, 1e-5)
+    with pytest.raises(ValueError, match="dtype"):
+        fn(x, r.float(), w, b, 1e-5)
+    with pytest.raises(ValueError, match="dtype"):
+        fn(x, None, w.half(), b.half(), 1e-5)
+    with pytest.raises(ValueError, match="dtype"):
+        fn(x, None, w, b.float(), 1e-5)
+    for h in (12, 4, 4104):
+        xh = torch.zeros(3, h, device=cuda_device, dtype=torch.bfloat16)
+        wh = torch.ones(h, device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="width"):
+            fn(xh, None, wh, wh, 1e-5)
+    with pytest.raises(ValueError, match="shape"):
+        fn(x, r[:32], w, b, 1e-5)
+    with torch.no_grad():
+        got = add_layernorm.fused_add_layernorm(x, r.float(), w, b, 1e-5)
+    assert got.dtype == torch.float32
+    args = (x, r.float(), w, b, 1e-5)
+    _hold_add_ln(got, add_layernorm.fused_add_layernorm_plain(*args), args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_gelu_route_gives_the_chain_bits(cuda_device, dtype):
+    """gelu_erf with grad off on the card is F.gelu in x's own dtype: the
+    same bits as the fp32 chain it replaces, over every bf16 value of
+    magnitude up to 16 and a sweep of random ones."""
+    from facialmmt_tpu_torch.ops.layers import gelu_erf
+
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    every = bits.view(torch.bfloat16).float()
+    every = every[torch.isfinite(every) & (every.abs() <= 16)]
+    x = torch.cat([every, torch.randn(1 << 22) * 4]).to(cuda_device, dtype)
+    with torch.no_grad():
+        got = gelu_erf(x)
+    want = torch.nn.functional.gelu(x.float()).to(dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_served_pack_launches_add_layernorm_and_a_training_step_does_not(
+        cuda_device):
+    """A tiny() EmotionServer pack launches the kernel once a LayerNorm
+    (47 at tiny(): 5 text, 6 encoders, 36 crossmodal;
+    chip_smoke.add_ln_launches) and kernels 1-3 as before; a train-mode text
+    layer under grad launches it 0 times."""
+    import chip_smoke
+    from facialmmt_tpu_torch.config import (FacialMMTConfig, RuntimeConfig,
+                                            TextEncoderConfig)
+    from facialmmt_tpu_torch.models.text_encoder import TextEncoderLayer
+    from facialmmt_tpu_torch.serving import EmotionServer
+
+    cfg = FacialMMTConfig.tiny()
+    cfg = cfg.replace(runtime=RuntimeConfig(deterministic_gumbel=True),
+                      swin=dataclasses.replace(cfg.swin, embed_dim=32))
+    assert chip_smoke.add_ln_launches(cfg) == 47
+    gpu = EmotionServer(cfg, max_batch=2, face_capacity=4, device=cuda_device)
+    req = [{"input_ids": np.arange(2, 40), "sep_mask": np.eye(38)[20],
+            "faces": np.full((3, 160, 160, 3), 90, np.uint8),
+            "audio": np.ones((4, cfg.data.audio_feat_dim))}]
+    kernels.reset_launch_counts()
+    gpu.predict(req)
+    counts = kernels.launch_counts()
+    assert counts["fused_add_layernorm"] == 47, counts
+    assert counts["fused_attention"] == cfg.text.num_layers
+    assert counts["fused_attention_block"] == sum(cfg.swin.depths)
+    assert counts["fused_ln_mlp_residual"] == sum(cfg.swin.depths)
+
+    layer = TextEncoderLayer(TextEncoderConfig.tiny()).to(cuda_device).train()
+    x = torch.randn(2, 16, 64, device=cuda_device, requires_grad=True)
+    kernels.reset_launch_counts()
+    layer(x, torch.zeros(2, 16, device=cuda_device),
+          torch.Generator(cuda_device).manual_seed(0)).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_add_layernorm"] == 0

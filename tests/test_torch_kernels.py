@@ -138,4 +138,4 @@ def test_dispatch_takes_plain_version_on_cpu(rng):
         "fused_attention_block_bwd": 0, "fused_attention_block_bwd_spill": 0,
         "fused_window_attention": 0, "paired_window_attention": 0,
         "fused_window_attention_v2": 0, "fused_merge": 0,
-        "fused_whole_block": 0, "shift_permute": 0}
+        "fused_whole_block": 0, "shift_permute": 0, "fused_add_layernorm": 0}

@@ -170,10 +170,11 @@ def test_shift_permute_refusals(h, w, ws, s):
 
 
 def test_the_two_kernels_have_counted_wrappers_and_run_plain_on_the_cpu(rng):
-    """kernel_wrappers() lists all twelve kernels; on CPU tensors neither new
+    """kernel_wrappers() lists all thirteen kernels (the twelve TPU kernels'
+    ports and the residual add + LayerNorm); on CPU tensors neither new
     function launches anything."""
     wrappers = kernels.kernel_wrappers()
-    assert len(wrappers) == 12
+    assert len(wrappers) == 13
     assert wrappers["fused_whole_block"] is fused_block.fused_whole_block_cuda
     assert wrappers["shift_permute"] is shift_permute.shift_permute_cuda
     kernels.reset_launch_counts()
