@@ -1,5 +1,5 @@
 """M3ED (appendix) dataset layer (counterpart of facialmmt_tpu/data/m3ed.py;
-pure Python and numpy on both sides).
+pure Python and numpy on both sides, beside the span recorder here).
 
 The appendix's three dataset classes (reference
 (Appendix)CCAC2023/utils/dataset.py):
@@ -29,6 +29,9 @@ import pickle
 from typing import Dict, Sequence
 
 import numpy as np
+
+from facialmmt_tpu_torch.utils.observability import (add_row, stamp,
+                                                     trace_span)
 
 
 def _load_pickle(path: str):
@@ -213,31 +216,56 @@ class M3edDialogueDataset:
 
     get_batch emits the same layout MeldDialogueDataset does, so
     DialogueTrainer and DialogueMultiModalTransformer consume either source.
+    from_arrays builds the same dataset from arrays in memory.
     """
 
     def __init__(self, project_path: str, split: str, input_ids, input_mask,
                  sep_mask):
+        audio = _load_pickle(os.path.join(
+            project_path, f"m3ed_{split}_audio_dia.pkl"))[split]
+        vision = _load_pickle(os.path.join(
+            project_path, f"m3ed_{split}_vision_dia.pkl"))[split]
+        with open(os.path.join(project_path,
+                               f"{split}_num_utt_in_dia.json"),
+                  encoding="utf8") as f:
+            num_utt_in_dia = json.load(f)
+        self._set_arrays(
+            split, input_ids, input_mask, sep_mask, audio["audio"],
+            audio["audio_utt_mask"], vision["vision"],
+            vision["vision_utt_mask"], vision["vision_dia_mask"],
+            _labels_or_raise(audio, split, np.shape(audio["audio"])[:2]),
+            num_utt_in_dia)
+
+    @classmethod
+    def from_arrays(cls, split: str, input_ids, input_mask, sep_mask, audio,
+                    audio_mask, vision, vision_mask, dia_mask,
+                    labels) -> "M3edDialogueDataset":
+        """The dataset from arrays in the pickles' layout (text (num_dia,
+        L); audio / vision (num_dia, D, L*, dim) and their (num_dia, D,
+        L*) masks; dia_mask and labels (num_dia, D)), without files.
+        num_utt_in_dia is each dialogue's count of dia_mask."""
+        ds = cls.__new__(cls)
+        num_utt_in_dia = {str(d): int(n) for d, n in
+                          enumerate(np.asarray(dia_mask).sum(1))}
+        ds._set_arrays(split, input_ids, input_mask, sep_mask, audio,
+                       audio_mask, vision, vision_mask, dia_mask,
+                       np.asarray(labels, np.int64), num_utt_in_dia)
+        return ds
+
+    def _set_arrays(self, split, input_ids, input_mask, sep_mask, audio,
+                    audio_mask, vision, vision_mask, dia_mask, labels,
+                    num_utt_in_dia):
         self.split = split
         self.text_input_ids = np.asarray(input_ids, np.int32)
         self.text_input_mask = np.asarray(input_mask, np.int32)
         self.text_sep_mask = np.asarray(sep_mask, np.int32)
-
-        audio = _load_pickle(os.path.join(
-            project_path, f"m3ed_{split}_audio_dia.pkl"))[split]
-        self.audio = np.asarray(audio["audio"], np.float32)
-        self.audio_mask = np.asarray(audio["audio_utt_mask"], np.int32)
-        self.labels = _labels_or_raise(audio, split, self.audio.shape[:2])
-
-        vision = _load_pickle(os.path.join(
-            project_path, f"m3ed_{split}_vision_dia.pkl"))[split]
-        self.vision = np.asarray(vision["vision"], np.float32)
-        self.vision_mask = np.asarray(vision["vision_utt_mask"], np.int32)
-        self.dia_mask = np.asarray(vision["vision_dia_mask"], np.int32)
-
-        with open(os.path.join(project_path,
-                               f"{split}_num_utt_in_dia.json"),
-                  encoding="utf8") as f:
-            self.num_utt_in_dia = json.load(f)
+        self.audio = np.asarray(audio, np.float32)
+        self.audio_mask = np.asarray(audio_mask, np.int32)
+        self.labels = labels
+        self.vision = np.asarray(vision, np.float32)
+        self.vision_mask = np.asarray(vision_mask, np.int32)
+        self.dia_mask = np.asarray(dia_mask, np.int32)
+        self.num_utt_in_dia = num_utt_in_dia
 
     def __len__(self):
         return self.audio.shape[0]
@@ -263,15 +291,26 @@ class M3edDialogueDataset:
         return self.vision.shape[-1]
 
     def get_batch(self, indices: Sequence[int]) -> Dict[str, np.ndarray]:
+        """The rows `indices`.  The span `fmmt.data.fetch`; with the span
+        recorder on, a counter row `fmmt.data.slots` whose value is
+        (valid utterances, utterance slots) of the batch, read from the
+        host's dia_mask."""
         idx = list(indices)
-        return {
-            "dia_input_ids": self.text_input_ids[idx],
-            "dia_input_mask": self.text_input_mask[idx],
-            "dia_sep_mask": self.text_sep_mask[idx],
-            "audio_inputs": self.audio[idx],
-            "audio_mask": self.audio_mask[idx],
-            "vision_inputs": self.vision[idx],
-            "vision_mask": self.vision_mask[idx],
-            "dia_mask": self.dia_mask[idx],
-            "labels": self.labels[idx].astype(np.int32),
-        }
+        with trace_span("fmmt.data.fetch"):
+            batch = {
+                "dia_input_ids": self.text_input_ids[idx],
+                "dia_input_mask": self.text_input_mask[idx],
+                "dia_sep_mask": self.text_sep_mask[idx],
+                "audio_inputs": self.audio[idx],
+                "audio_mask": self.audio_mask[idx],
+                "vision_inputs": self.vision[idx],
+                "vision_mask": self.vision_mask[idx],
+                "dia_mask": self.dia_mask[idx],
+                "labels": self.labels[idx].astype(np.int32),
+            }
+        t = stamp()
+        if t is not None:
+            mask = batch["dia_mask"]
+            add_row("fmmt.data.slots", t, t,
+                    value=(int(mask.sum()), int(mask.size)))
+        return batch

@@ -21,6 +21,13 @@ other), where the utterance-level model fuses the frames of one utterance.
 
 The reference emits (num_valid_utt, 7) through masked_select; here logits are
 (B, D, num_labels) beside dia_mask, and consumers select with the mask.
+
+Spans (utils/observability.py), the names multimodal.py's forward uses:
+`fmmt.model.encoders` (both utterance streams and their pooling),
+`fmmt.model.text` (tower, text_linear, scatter_sep_features),
+`fmmt.model.crossmodal` (the four stack applications and
+multimodal_linear2), `fmmt.model.head` (concat's multimodal_linear, the
+dropout, the classifier).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from facialmmt_tpu_torch.models.text_encoder import TextEncoder
 from facialmmt_tpu_torch.ops.encoder import UttTransEncoder
 from facialmmt_tpu_torch.ops.layers import (AdditiveAttention, TorchLinear,
                                             dropout)
+from facialmmt_tpu_torch.utils.observability import trace_span
 
 DIALOGUE_MAX_POSITIONS = 256
 
@@ -101,24 +109,33 @@ class DialogueMultiModalTransformer(nn.Module):
         cfg = self.cfg
         g = generator
         d_max = dia_mask.shape[1]
-        audio = self._utt_stream(audio_inputs, audio_mask, self.audio_linear,
-                                 self.audio_utt_transformer, g)
-        vision = self._utt_stream(vision_inputs, vision_mask,
-                                  self.vision_linear,
-                                  self.vision_utt_transformer, g)
-        enc = getattr(self, self.text_prefix)(dia_input_ids, dia_input_mask, g)
-        text = scatter_sep_features(self.text_linear(enc), dia_sep_mask, d_max)
+        with trace_span("fmmt.model.encoders"):
+            audio = self._utt_stream(audio_inputs, audio_mask,
+                                     self.audio_linear,
+                                     self.audio_utt_transformer, g)
+            vision = self._utt_stream(vision_inputs, vision_mask,
+                                      self.vision_linear,
+                                      self.vision_utt_transformer, g)
+        with trace_span("fmmt.model.text"):
+            enc = getattr(self, self.text_prefix)(dia_input_ids,
+                                                  dia_input_mask, g)
+            text = scatter_sep_features(self.text_linear(enc), dia_sep_mask,
+                                        d_max)
 
         if cfg.modality_fuse == "crossmodal":
-            linear2 = self.multimodal_linear2
-            cm_ta, cm_tav = self.CrossModalTrans_TA, self.CrossModalTrans_TA_V
-            ta = linear2(torch.cat([cm_ta(text, audio, audio, g),
-                                    cm_ta(audio, text, text, g)], dim=-1))
-            fused = linear2(torch.cat([cm_tav(ta, vision, vision, g),
-                                       cm_tav(vision, ta, ta, g)], dim=-1))
-        else:
-            fused = self.multimodal_linear(
-                torch.cat([text, audio, vision], dim=-1))
-        fused = dropout(fused, cfg.encoder.hidden_dropout_prob, self.training,
-                        g)
-        return self.classifier(fused)
+            with trace_span("fmmt.model.crossmodal"):
+                linear2 = self.multimodal_linear2
+                cm_ta = self.CrossModalTrans_TA
+                cm_tav = self.CrossModalTrans_TA_V
+                ta = linear2(torch.cat([cm_ta(text, audio, audio, g),
+                                        cm_ta(audio, text, text, g)], dim=-1))
+                fused = linear2(torch.cat([cm_tav(ta, vision, vision, g),
+                                           cm_tav(vision, ta, ta, g)],
+                                          dim=-1))
+        with trace_span("fmmt.model.head"):
+            if cfg.modality_fuse == "concat":
+                fused = self.multimodal_linear(
+                    torch.cat([text, audio, vision], dim=-1))
+            fused = dropout(fused, cfg.encoder.hidden_dropout_prob,
+                            self.training, g)
+            return self.classifier(fused)

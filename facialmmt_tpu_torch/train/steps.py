@@ -366,23 +366,25 @@ def make_dialogue_train_step(model, *, compute_dtype: str = "bfloat16",
     """Step of DialogueMultiModalTransformer (models/dialogue.py): returns
     step(state, batch, generator) -> loss over a SingleTaskState.  Under a
     split the mean is over the valid utterances of the GLOBAL batch (the
-    ranks hold different numbers of them)."""
+    ranks hold different numbers of them).  Spans as
+    make_multimodal_train_step's."""
     split = _Split(plan, "target")
 
     def step(state: SingleTaskState, batch, generator=None):
         model.train()
         on = split(batch)
-        local = split.shard(batch, on)
-        with split.context(on), compute_context(_device(model),
-                                                compute_dtype):
-            logits = _dialogue_logits(model, local, generator)
-        if on:
-            total, count = _masked_ce_parts(logits, local["labels"],
+        with trace_span("fmmt.train.forward"):
+            local = split.shard(batch, on)
+            with split.context(on), compute_context(_device(model),
+                                                    compute_dtype):
+                logits = _dialogue_logits(model, local, generator)
+            if on:
+                total, count = _masked_ce_parts(logits, local["labels"],
+                                                local["dia_mask"])
+                loss = split.mean(total, count, True)
+            else:
+                loss = masked_cross_entropy(logits, local["labels"],
                                             local["dia_mask"])
-            loss = split.mean(total, count, True)
-        else:
-            loss = masked_cross_entropy(logits, local["labels"],
-                                        local["dia_mask"])
         backward(loss)
         state.opt.step(on)
         state.step += 1
